@@ -1,0 +1,156 @@
+"""User-facing inference API (port of ``hd_yolo_tpu/detector.py``): accept
+numpy/PIL/path inputs of any size, letterbox to the model frame, run the
+model on the card, rescale boxes back, export records or a DataFrame.
+
+``Detector(..., device="cuda")`` is the default and raises when CUDA is
+missing; pass ``device="cpu"`` to run the plain PyTorch versions of the
+kernels on the CPU.  ``Detector.slide`` (whole-slide tiling) and
+``Detections.render`` are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from .data.preproc import letterbox_batch, normalize
+from .models.yolo import Model
+from .ops.boxes import scale_coords
+from .utils.convert import load_weights
+
+
+class Detections:
+    """Per-image results holder with record / DataFrame exports."""
+
+    def __init__(self, records: List[Dict[str, Dict[str, np.ndarray]]],
+                 images: List[np.ndarray], labels_text: Optional[Dict[int, str]] = None):
+        self.records = records
+        self.images = images
+        self.labels_text = labels_text or {}
+
+    def __len__(self):
+        return len(self.records)
+
+    def __getitem__(self, i):
+        return self.records[i]
+
+    def to_records(self, task: Optional[str] = None) -> List[Dict[str, Any]]:
+        rows = []
+        for i, rec in enumerate(self.records):
+            for t, o in rec.items():
+                if task and t != task:
+                    continue
+                for b, s, l in zip(o["boxes"], o["scores"], o["labels"]):
+                    rows.append({
+                        "image": i, "task": t,
+                        "xmin": float(b[0]), "ymin": float(b[1]),
+                        "xmax": float(b[2]), "ymax": float(b[3]),
+                        "confidence": float(s), "class": int(l),
+                        "name": self.labels_text.get(int(l), str(int(l))),
+                    })
+        return rows
+
+    def pandas(self, task: Optional[str] = None):
+        import pandas as pd
+
+        return pd.DataFrame(self.to_records(task))
+
+
+def resolve_device(device: Union[str, torch.device]) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("Detector(device='cuda') needs a CUDA device; none is available. "
+                           "Pass device='cpu' to run the plain PyTorch path.")
+    return device
+
+
+class Detector:
+    """Any-input inference wrapper around a model.
+
+    Weights: ``weights`` names a ``.pt`` state_dict (this package's or the
+    reference's) or a pickled flax ``{'params', 'batch_stats'}`` tree; without
+    it the model gets seeded random weights (``seed``).  ``dtype`` is the
+    compute dtype (bf16 by default); parameters stay f32 masters.
+    ``mask_budget`` is the cross-batch mask-ROI budget of the packed mask
+    branch (768, as the flagship runs; the per-image branch without a budget
+    is not ported yet).  ``model_kwargs`` go to ``Model`` (``pre_nms_topk``,
+    ``max_masks``, ``mask_window``).
+    """
+
+    def __init__(self, cfg: Union[str, dict] = "yolov5l6-mask", hyp: Union[str, dict] = "hyp-nuclei",
+                 weights: Optional[str] = None, input_size: int = 640,
+                 dtype: torch.dtype = torch.bfloat16, labels_text: Optional[Dict[int, str]] = None,
+                 seed: int = 0, device: Union[str, torch.device] = "cuda",
+                 mask_budget: int = 768, **model_kwargs):
+        self.device = resolve_device(device)
+        self.model = Model.from_cfg(cfg, hyp, dtype=dtype, mask_budget=mask_budget,
+                                    **model_kwargs)
+        if weights:
+            load_weights(self.model, weights)
+        else:
+            self.model.reset_parameters(torch.Generator().manual_seed(seed))
+        self.model.eval().to(self.device)
+        self.input_size = input_size
+        self.labels_text = labels_text or {}
+
+    @staticmethod
+    def _to_numpy(im) -> np.ndarray:
+        if isinstance(im, str):
+            import cv2
+
+            arr = cv2.imread(im)
+            if arr is None:
+                raise FileNotFoundError(f"cannot read {im}")
+            return cv2.cvtColor(arr, cv2.COLOR_BGR2RGB)
+        if hasattr(im, "convert"):  # PIL
+            return np.asarray(im.convert("RGB"))
+        return np.asarray(im)
+
+    def tiles(self, batch: Union[np.ndarray, torch.Tensor], compute_masks: bool = True):
+        """A batch of model-sized tiles (B, S, S, 3), uint8 or float in [0, 1],
+        straight through the model on the card → {task: output tensors}."""
+        x = torch.as_tensor(batch).to(self.device)
+        return self.model(x, compute_masks=compute_masks)
+
+    def __call__(self, images: Union[Any, Sequence[Any]], compute_masks: bool = True,
+                 task: Optional[str] = None) -> Detections:
+        """Run every header on each image; ``task`` filters the returned
+        records to one header."""
+        if not isinstance(images, (list, tuple)):
+            images = [images]
+        arrs = [self._to_numpy(im) for im in images]
+        records: List[Dict[str, Dict[str, np.ndarray]]] = []
+        S = self.input_size
+        for a in arrs:
+            h, w = a.shape[:2]
+            x = normalize(torch.from_numpy(np.ascontiguousarray(a))[None].to(self.device))
+            padded, gain, (px, py) = letterbox_batch(x, (S, S))
+            out = self.model(padded, compute_masks=compute_masks)
+            rec: Dict[str, Dict[str, np.ndarray]] = {}
+            for t, o in out.items():
+                v = o["valid"][0].cpu().numpy()
+                boxes = scale_coords((S, S), o["boxes"][0].float(), (h, w),
+                                     ratio_pad=((gain, gain), (px, py))).cpu().numpy()
+                entry = {
+                    "boxes": boxes[v],
+                    "scores": o["scores"][0].float().cpu().numpy()[v],
+                    "labels": o["labels"][0].cpu().numpy()[v],
+                }
+                if "masks" in o:
+                    # masks cover the first R (score-ordered) detections; pad to
+                    # full capacity so rows stay aligned with boxes[v]
+                    m = o["masks"][0].cpu().numpy()
+                    R, D = m.shape[0], v.shape[0]
+                    mfull = np.zeros((D,) + m.shape[1:], m.dtype)
+                    mfull[:R] = m
+                    hm = np.zeros((D,), bool)
+                    hm[:R] = o["mask_valid"][0].cpu().numpy()
+                    entry["masks"] = mfull[v]
+                    entry["has_mask"] = hm[v]
+                rec[t] = entry
+            if task is not None:
+                rec = {task: rec[task]}
+            records.append(rec)
+        return Detections(records, arrs, self.labels_text)

@@ -1,0 +1,165 @@
+"""Build and bind the hand-written Hopper kernels.
+
+Each ``*.cu`` file in this directory is compiled by ``nvcc`` for ``sm_90a``
+into its own shared library with a plain C interface, and loaded with
+``ctypes``.  Sources are built at first use (or all at once, in parallel, by
+:func:`build_all`) into ``build/`` beside them, keyed by a hash of the source
+and flags, so a changed source is rebuilt and an unchanged one is reused.
+
+Every C entry point launches on the caller's CUDA stream, allocates nothing,
+and returns ``cudaGetLastError()``; :func:`check` raises on a non-zero code.
+
+``LAUNCHES`` counts, per kernel, the wrapper calls that launched it.  Nothing
+here imports torch's CUDA runtime or runs ``nvcc`` at import time: the CPU
+tests import every module.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from typing import Dict
+
+_DIR = os.path.dirname(os.path.abspath(__file__))
+BUILD_DIR = os.path.join(_DIR, "build")
+
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+# source stem → extra nvcc flags.  NMS must not contract its IoU arithmetic
+# into FMAs: the conflict test ``IoU > thr`` has to see the same float32
+# values as the plain version (its source also uses explicit _rn intrinsics).
+KERNELS: Dict[str, list] = {
+    "stem": [],
+    "nms": ["--fmad=false"],
+    "roi_align": [],
+    "mask_head": [],
+}
+
+LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+# C signatures: name → (library, argtypes)
+_SIGNATURES = {
+    "stem_conv": ("stem", [_P] * 5 + [_I] * 13 + [_P]),
+    "nms_keep": ("nms", [_P] * 5 + [_I, _I, _I, _F, _I, _P]),
+    "roi_align_bounded": ("roi_align", [_P] * 6 + [_I] * 10 + [_P]),
+    "mask_head": ("mask_head", [_P] * 8 + [_I, _I, _P]),
+}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+        shutil.which("nvcc") or "",
+    ):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH to build the kernels")
+
+
+def _flags(name: str) -> list:
+    return ARCH_FLAGS + BASE_FLAGS + KERNELS[name]
+
+
+def _lib_path(name: str) -> str:
+    src = os.path.join(_DIR, name + ".cu")
+    h = hashlib.sha256()
+    for path in (src, os.path.join(_DIR, "common.cuh")):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(_flags(name)).encode())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
+
+
+def _start_build(name: str):
+    out = _lib_path(name)
+    if os.path.isfile(out):
+        return None
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = tempfile.NamedTemporaryFile(dir=BUILD_DIR, suffix=".so.tmp", delete=False).name
+    cmd = [nvcc()] + _flags(name) + ["-o", tmp, os.path.join(_DIR, name + ".cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish_build(name: str, job) -> None:
+    proc, tmp, out = job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
+    os.replace(tmp, out)
+
+
+def build_all() -> float:
+    """Compile every kernel, one ``nvcc`` per source, all started together.
+    Returns the wall seconds it took."""
+    t0 = time.perf_counter()
+    jobs = {n: _start_build(n) for n in KERNELS}
+    errors = []
+    for n, job in jobs.items():
+        if job is not None:
+            try:
+                _finish_build(n, job)
+            except RuntimeError as e:
+                errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return time.perf_counter() - t0
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    if name not in _LIBS:
+        job = _start_build(name)
+        if job is not None:
+            _finish_build(name, job)
+        _LIBS[name] = ctypes.CDLL(_lib_path(name))
+    return _LIBS[name]
+
+
+def fn(symbol: str):
+    """The bound C entry point ``symbol`` (building its source if needed)."""
+    lib_name, argtypes = _SIGNATURES[symbol]
+    f = getattr(_lib(lib_name), symbol)
+    f.argtypes = argtypes
+    f.restype = ctypes.c_int
+    return f
+
+
+def check(code: int, symbol: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"CUDA kernel {symbol} failed to launch: cudaError {code}")
+
+
+def device_and_stream(t):
+    """(device index, raw handle of the current CUDA stream) for ``t``."""
+    import torch
+
+    return t.device.index, torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_cuda(*tensors) -> None:
+    """Raise unless every tensor lies on one CUDA device and is contiguous."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or t.device.type != "cuda":
+            raise ValueError(f"kernel inputs must share one CUDA device, got {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError("kernel inputs must be contiguous")

@@ -1,0 +1,145 @@
+"""Multiscale bilinear ROI-align (port of ``hd_yolo_tpu/ops/roi_align.py``).
+
+torchvision ``aligned=False`` semantics (the reference's mode):
+``roi_start = coord * spatial_scale``, ``roi_w/h = max(roi_w/h, 1)``,
+samples outside ``(lo-1, hi)`` contribute zero, in-range coordinates clamp
+to the border, a fixed ``n x n`` sample grid per output bin, average-pooled.
+
+All pyramid levels are stacked along rows into one channels-last canvas
+(B, ΣH_l, W0, C); each ROI samples its own level's sub-rectangle through
+per-ROI bounds (``_bounded_interp_matrix``), so nothing reads across a
+level boundary.  The geometry (sample coordinates, bounds, window origins)
+is computed here in float32 with the JAX package's op order; the pooling
+itself is ``ops/pallas_roi_align.roi_align_bounded`` — the CUDA kernel for
+a CUDA canvas, its plain version for a CPU canvas.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+Tensor = torch.Tensor
+
+
+def _bounded_interp_matrix(coords: Tensor, lo: Tensor, hi: Tensor, size: int, M: int,
+                           n: int) -> Tensor:
+    """(..., M·n) coords with per-ROI [lo, hi) valid window → (..., M, size)
+    bin-pooled interpolation rows (the n-sample mean folded in)."""
+    lo2, hi2 = lo[..., None], hi[..., None]
+    in_range = ((coords > lo2 - 1.0) & (coords < hi2)).to(torch.float32)
+    c = torch.minimum(torch.maximum(coords, lo2), hi2 - 1.0)
+    low = torch.floor(c)
+    lw = c - low
+    high = torch.minimum(low + 1.0, hi2 - 1.0)
+    grid = torch.arange(size, dtype=torch.float32, device=coords.device)
+    w = (grid == low[..., None]).to(torch.float32) * ((1.0 - lw) * in_range)[..., None] \
+        + (grid == high[..., None]).to(torch.float32) * (lw * in_range)[..., None]
+    return w.reshape(*w.shape[:-2], M, n, size).mean(-2)
+
+
+def level_canvas(features: Sequence[Tensor], strides: Sequence[float]) -> Tuple[Tensor, Tensor]:
+    """Per-level NHWC maps → (canvas (B, ΣH_l, W0, C), meta (L, 4) f32 rows
+    (row offset, height, width, stride))."""
+    W0 = features[0].shape[2]
+    stacked, metas, off = [], [], 0
+    for f, s in zip(features, strides):
+        h, w = f.shape[1:3]
+        stacked.append(F.pad(f, (0, 0, 0, W0 - w)))
+        metas.append((off, h, w, float(s)))
+        off += h
+    meta = torch.tensor(metas, dtype=torch.float32, device=features[0].device)
+    return torch.cat(stacked, 1), meta
+
+
+def sample_coords(boxes: Tensor, levels: Tensor, meta: Tensor, S: int, aligned: bool):
+    """Canvas-space sample coordinates of each ROI: ys, xs (..., S), plus its
+    level's row offset, height and width (...)."""
+    lv = levels.to(torch.int64).clamp(0, meta.shape[0] - 1)
+    moff, mh, mw = meta[lv, 0], meta[lv, 1], meta[lv, 2]
+    scale = 1.0 / meta[lv, 3]
+    bf = boxes.to(torch.float32)
+    offset = 0.5 if aligned else 0.0
+    x1 = bf[..., 0] * scale - offset
+    y1 = bf[..., 1] * scale - offset
+    x2 = bf[..., 2] * scale - offset
+    y2 = bf[..., 3] * scale - offset
+    roi_w, roi_h = x2 - x1, y2 - y1
+    if not aligned:
+        roi_w = roi_w.clamp(min=1.0)
+        roi_h = roi_h.clamp(min=1.0)
+    s_idx = torch.arange(S, dtype=torch.float32, device=boxes.device) + 0.5
+    ys = y1[..., None] + s_idx * (roi_h / S)[..., None] + moff[..., None]
+    xs = x1[..., None] + s_idx * (roi_w / S)[..., None]
+    return ys, xs, moff, mh, mw
+
+
+def _multiscale_roi_align_canvas(features: Sequence[Tensor], boxes: Tensor, levels: Tensor,
+                                 strides: Sequence[float], output_size: int,
+                                 sampling_ratio: int = 2, aligned: bool = False) -> Tensor:
+    """Exact canvas formulation, plain: (B, K) ROIs against their image's
+    whole canvas as two einsums → (B, K, M, M, C)."""
+    M, n = output_size, sampling_ratio
+    canvas, meta = level_canvas(features, strides)
+    Ht, W0 = canvas.shape[1:3]
+    ys, xs, moff, mh, mw = sample_coords(boxes, levels, meta, M * n, aligned)
+    cd = torch.bfloat16 if canvas.dtype == torch.bfloat16 else torch.float32
+    Wy = _bounded_interp_matrix(ys, moff, moff + mh, Ht, M, n).to(cd).float()
+    Wx = _bounded_interp_matrix(xs, torch.zeros_like(mw), mw, W0, M, n).to(cd).float()
+    rows = torch.einsum("bksh,bhwc->bkswc", Wy, canvas.to(cd).float()).to(cd).float()
+    out = torch.einsum("bktw,bkswc->bkstc", Wx, rows)
+    return out.to(features[0].dtype)
+
+
+def multiscale_roi_align_packed(features: Sequence[Tensor], boxes: Tensor, levels: Tensor,
+                                batch_idx: Tensor, strides: Sequence[float], output_size: int,
+                                sampling_ratio: int = 2, aligned: bool = False,
+                                window: int = 16) -> Tensor:
+    """Occupancy-packed multi-level ROI-align → (K, M, M, C).
+
+    One flat ROI list across the batch (``batch_idx`` names each ROI's
+    image).  Each ROI pools from a ``window x window`` patch of its image's
+    canvas at the floor of its first sample (clamped to the canvas): exact
+    for every ROI whose sampled span fits the window (span ≤ window−2
+    feature px at its level); larger ROIs get border-truncated sampling,
+    exactly as the JAX packed path.
+    """
+    from .pallas_roi_align import roi_align_bounded
+
+    M, n = output_size, sampling_ratio
+    S = M * n
+    canvas, meta = level_canvas(features, strides)
+    B, Ht, W0, _ = canvas.shape
+    win = min(window, Ht, W0)
+    ys, xs, moff, mh, mw = sample_coords(boxes, levels, meta, S, aligned)
+    oy = torch.floor(ys[:, 0]).clamp(0, Ht - win).to(torch.int32)
+    ox = torch.floor(xs[:, 0]).clamp(0, W0 - win).to(torch.int32)
+    oyf, oxf = oy.to(torch.float32), ox.to(torch.float32)
+    bounds = torch.stack([moff - oyf, moff + mh - oyf, -oxf, mw - oxf], -1)
+    b_idx = batch_idx.to(torch.int32).clamp(0, B - 1)
+    roi_meta = torch.stack([b_idx, oy, ox, torch.zeros_like(oy)], -1)
+    return roi_align_bounded(canvas, roi_meta, ys - oyf[:, None], xs - oxf[:, None], bounds,
+                             (win, win), M, n)
+
+
+def multiscale_roi_align_canvas(features: Sequence[Tensor], boxes: Tensor, levels: Tensor,
+                                strides: Sequence[float], output_size: int,
+                                sampling_ratio: int = 2, aligned: bool = False) -> Tensor:
+    """Exact canvas semantics through the bounded ROI-align (kernel on CUDA):
+    (B, K) ROIs, each against its image's whole canvas → (B, K, M, M, C)."""
+    from .pallas_roi_align import roi_align_bounded
+
+    M, n = output_size, sampling_ratio
+    canvas, meta = level_canvas(features, strides)
+    B, Ht, W0, C = canvas.shape
+    K = boxes.shape[1]
+    ys, xs, moff, mh, mw = sample_coords(boxes.reshape(B * K, 4), levels.reshape(B * K),
+                                         meta, M * n, aligned)
+    bounds = torch.stack([moff, moff + mh, torch.zeros_like(mw), mw], -1)
+    b_idx = torch.arange(B, dtype=torch.int32, device=boxes.device).repeat_interleave(K)
+    zero = torch.zeros_like(b_idx)
+    roi_meta = torch.stack([b_idx, zero, zero, zero], -1)
+    out = roi_align_bounded(canvas, roi_meta, ys, xs, bounds, (Ht, W0), M, n)
+    return out.reshape(B, K, M, M, C)

@@ -1,0 +1,134 @@
+"""Carry weights across: a flax ``{'params', 'batch_stats'}`` tree (as numpy)
+→ a reference-layout torch ``state_dict`` for this package's ``Model``.
+
+The key map and layout rules of ``hd_yolo_tpu/utils/export_torch.py``:
+  flax conv kernel (kh, kw, I, O)    → torch Conv2d weight (O, I, kh, kw)
+  flax ConvTranspose (kh, kw, I, O)  → flipped back spatially, then (I, O, kh, kw)
+  bn {scale, bias} + stats {mean, var} → weight / bias / running_mean / running_var
+  header ``seg.k``                    ↔ flax ``seg{nl-1-k}`` (the reference list is top-down)
+BatchNorm buffers also get ``num_batches_tracked`` = 0, so the converted
+tree loads with ``strict=True``.
+"""
+
+from __future__ import annotations
+
+import pickle
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from ..models.builder import NetworkSpec
+
+
+class _Reader:
+    def __init__(self, params: Mapping, stats: Mapping):
+        self.params = params
+        self.stats = stats
+        self.sd: Dict[str, np.ndarray] = {}
+
+    @staticmethod
+    def _get(tree, path):
+        for k in path:
+            if k not in tree:
+                return None
+            tree = tree[k]
+        return tree
+
+    def conv(self, tkey: str, *fpath):
+        node = self._get(self.params, fpath)
+        if node is None:
+            return
+        self.sd[tkey + ".weight"] = np.asarray(node["kernel"]).transpose(3, 2, 0, 1)
+        if "bias" in node:
+            self.sd[tkey + ".bias"] = np.asarray(node["bias"])
+
+    def deconv(self, tkey: str, *fpath):
+        node = self._get(self.params, fpath)
+        if node is None:
+            return
+        w = np.asarray(node["kernel"])[::-1, ::-1].transpose(2, 3, 0, 1)
+        self.sd[tkey + ".weight"] = np.ascontiguousarray(w)
+        if "bias" in node:
+            self.sd[tkey + ".bias"] = np.asarray(node["bias"])
+
+    def bn(self, tkey: str, *fpath):
+        p = self._get(self.params, fpath)
+        s = self._get(self.stats, fpath)
+        if p is None or s is None:
+            return
+        self.sd[tkey + ".weight"] = np.asarray(p["scale"])
+        self.sd[tkey + ".bias"] = np.asarray(p["bias"])
+        self.sd[tkey + ".running_mean"] = np.asarray(s["mean"])
+        self.sd[tkey + ".running_var"] = np.asarray(s["var"])
+        self.sd[tkey + ".num_batches_tracked"] = np.zeros((), np.int64)
+
+    def conv_block(self, tkey: str, fpath):
+        self.conv(tkey + ".conv", *fpath, "conv")
+        self.bn(tkey + ".bn", *fpath, "bn")
+
+
+def state_dict_from_flax(variables_np: Mapping, spec: NetworkSpec) -> Dict[str, torch.Tensor]:
+    """{'params', 'batch_stats'} numpy tree → reference-layout state_dict."""
+    r = _Reader(variables_np.get("params", {}), variables_np.get("batch_stats", {}))
+    for l in spec.layers:
+        if l.module in ("Concat", "Upsample"):
+            continue
+        tkey = f"backbone.{l.index}" if l.index < spec.n_backbone else \
+            f"neck.{l.index - spec.n_backbone}"
+        fpath = (f"blocks_{l.index}",)
+        if l.module == "Conv":
+            r.conv_block(tkey, fpath)
+        elif l.module == "C3":
+            n = int(l.args[1]) if len(l.args) > 1 else 1
+            for cv in ("cv1", "cv2", "cv3"):
+                r.conv_block(f"{tkey}.{cv}", fpath + (cv,))
+            for j in range(n):
+                for cv, sub in (("cv1", "ConvBnAct_0"), ("cv2", "ConvBnAct_1")):
+                    r.conv_block(f"{tkey}.m.{j}.{cv}", fpath + (f"Bottleneck_{j}", sub))
+        elif l.module == "SPPF":
+            r.conv_block(tkey + ".cv1", fpath + ("cv1",))
+            r.conv_block(tkey + ".cv2", fpath + ("cv2",))
+        else:
+            raise NotImplementedError(f"no weight map for module {l.module!r}")
+
+    for h in spec.headers:
+        hkey, fh, nl = f"headers.{h.tag}", f"header_{h.tag}", len(h.strides)
+        for l in range(nl):
+            r.conv(f"{hkey}.m.{l}", fh, f"det{l}")
+        for k in range(nl):
+            r.conv_block(f"{hkey}.seg.{k}", (fh, f"seg{nl - 1 - k}"))
+        for j in range(4):
+            r.conv(f"{hkey}.seg_h.maskrcnn_heads.mask_fcn{j + 1}", fh, "mask_head", f"fcn{j}")
+        r.deconv(f"{hkey}.seg_h.maskrcnn_preds.conv5_mask", fh, "mask_head", "deconv")
+        r.conv(f"{hkey}.seg_h.maskrcnn_preds.mask_fcn_logits", fh, "mask_head", "logits")
+    return {k: torch.from_numpy(np.array(v)) for k, v in r.sd.items()}
+
+
+def load_weights(model, path: str) -> None:
+    """Load a port/reference ``.pt`` state_dict (also inside ``{'model'|'ema': ...}``)
+    or a pickled flax ``{'params', 'batch_stats'}`` tree into ``model``,
+    strictly.  A reference checkpoint whose single header is saved under
+    another tag (e.g. ``headers.det``) is renamed to the model's tag."""
+    if path.endswith((".pt", ".pth")):
+        ckpt = torch.load(path, map_location="cpu", weights_only=False)
+        if isinstance(ckpt, dict):
+            for key in ("ema", "model"):
+                if ckpt.get(key) is not None:
+                    obj = ckpt[key]
+                    ckpt = obj.state_dict() if hasattr(obj, "state_dict") else obj
+                    break
+        sd = {k: torch.as_tensor(np.asarray(v)) for k, v in ckpt.items()}
+        tags = list(model.headers.keys())
+        saved = {k.split(".")[1] for k in sd if k.startswith("headers.")}
+        if len(tags) == 1 and saved and saved != {tags[0]} and len(saved) == 1:
+            old = saved.pop()
+            sd = {k.replace(f"headers.{old}.", f"headers.{tags[0]}.", 1): v for k, v in sd.items()}
+        for k, v in model.state_dict().items():   # reference files may omit the BN counters
+            if k.endswith("num_batches_tracked") and k not in sd:
+                sd[k] = v
+    else:
+        with open(path, "rb") as f:
+            variables = pickle.load(f)
+        sd = state_dict_from_flax(variables, model.spec)
+    model.load_state_dict(sd, strict=True)

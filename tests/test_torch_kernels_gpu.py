@@ -1,0 +1,105 @@
+"""PyTorch port: each CUDA kernel against its plain PyTorch version, on the
+card, at small and odd shapes (the flagship shapes are ``chip_smoke.py``'s).
+
+Marked ``gpu``: every test skips when ``torch.cuda.is_available()`` is false.
+Run on a machine with a card:
+
+    python -m pytest tests/test_torch_kernels_gpu.py -q -m gpu --noconftest
+
+(``--noconftest``: the suite's conftest imports JAX, which the card's machine need not have.)
+"""
+
+import math
+
+import pytest
+import torch
+
+from hd_yolo_tpu_torch import kernels
+from hd_yolo_tpu_torch.models.detect_head import MaskHead
+from hd_yolo_tpu_torch.ops import pallas_mask_head, pallas_nms, pallas_roi_align, pallas_stem
+from hd_yolo_tpu_torch.ops.nms import nms_padded
+from hd_yolo_tpu_torch.ops.roi_align import multiscale_roi_align_canvas
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+@pytest.mark.parametrize("H,W,K,s,p,C,N", [(64, 64, 6, 2, 2, 3, 64), (40, 48, 4, 4, 0, 3, 96),
+                                           (64, 64, 2, 2, 0, 4, 32), (37, 91, 6, 2, 2, 3, 64)])
+def test_stem_kernel_f32_matches_plain(cuda, H, W, K, s, p, C, N):
+    x = torch.randn((2, H, W, C), generator=cuda, device="cuda")
+    w = torch.randn((K, K, C, N), generator=cuda, device="cuda") * 0.1
+    scale = torch.rand(N, generator=cuda, device="cuda") + 0.5
+    bias = torch.randn(N, generator=cuda, device="cuda") * 0.1
+    kw = dict(stride=s, padding=p, out_dtype=torch.float32)
+    n0 = kernels.LAUNCHES["stem"]
+    got = pallas_stem.stem_conv(x, w, scale, bias, **kw)
+    assert kernels.LAUNCHES["stem"] == n0 + 1
+    want = pallas_stem.stem_conv_plain(x, w, scale, bias, **kw)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("K,thr", [(64, 0.45), (200, 0.3), (1024, 0.45), (1300, 0.6)])
+def test_nms_kernel_bit_identical(cuda, K, thr):
+    B = 3
+    xy = torch.rand((B, K, 2), generator=cuda, device="cuda") * 300
+    wh = torch.rand((B, K, 2), generator=cuda, device="cuda") * 60 + 4
+    boxes = torch.cat([xy, xy + wh], -1)
+    scores = torch.rand((B, K), generator=cuda, device="cuda")
+    scores[:, : K // 4] = 0.5
+    valid = torch.rand((B, K), generator=cuda, device="cuda") > 0.2
+    i1, k1 = pallas_nms.nms_padded_pallas(boxes, scores, valid, thr, 300)
+    i2, k2 = nms_padded(boxes, scores, valid, thr, 300)
+    assert torch.equal(i1.long(), i2.long()) and torch.equal(k1, k2)
+
+
+def test_roi_align_kernel_f32_canvas_matches_plain(cuda):
+    B, K, C = 2, 9, 8
+    feats = [torch.randn((B, 64 >> i, 64 >> i, C), generator=cuda, device="cuda")
+             for i in range(4)]
+    boxes = torch.rand((B, K, 4), generator=cuda, device="cuda") * 560 - 40
+    boxes[..., 2:] = boxes[..., :2] + torch.rand((B, K, 2), generator=cuda, device="cuda") * 118 + 2
+    levels = torch.randint(0, 4, (B, K), generator=cuda, device="cuda")
+    strides = (8.0, 16.0, 32.0, 64.0)
+    got = multiscale_roi_align_canvas(feats, boxes, levels, strides, 7)
+    want = multiscale_roi_align_canvas([f.cpu() for f in feats], boxes.cpu(), levels.cpu(),
+                                       strides, 7)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_mask_head_kernel_matches_plain(cuda):
+    N, C, nc = 37, 256, 3
+    head = MaskHead(nc, C)
+    with torch.no_grad():
+        g = torch.Generator().manual_seed(2)
+        for prm in head.parameters():
+            scale = math.sqrt(2.0 / prm[0].numel()) if prm.dim() > 1 else 0.05
+            prm.copy_(torch.randn(prm.shape, generator=g) * scale)
+    head = head.cuda()
+    pooled = torch.randn((N, 14, 14, C), generator=cuda, device="cuda").to(torch.bfloat16)
+    labels = torch.randint(0, nc, (N,), generator=cuda, device="cuda")
+    with torch.no_grad():
+        got = pallas_mask_head.fused_mask_probs(head, pooled, labels)
+        want = pallas_mask_head.fused_mask_probs_plain(head, pooled, labels)
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-2)
+
+
+def test_kernels_raise_on_what_they_do_not_take(cuda):
+    with pytest.raises(ValueError):
+        pallas_mask_head.fused_mask_probs(MaskHead(2, 32).cuda(),
+                                          torch.zeros((1, 14, 14, 32), device="cuda"),
+                                          torch.zeros(1, dtype=torch.long, device="cuda"))
+    with pytest.raises(ValueError):
+        pallas_roi_align.roi_align_bounded(torch.zeros((1, 4, 4, 3), device="cuda"),
+                                           torch.zeros((1, 4), device="cuda"),
+                                           torch.zeros((1, 4), device="cuda"),
+                                           torch.zeros((1, 4), device="cuda"),
+                                           torch.zeros((1, 4), device="cuda"), (4, 4), 2, 2)

@@ -1,0 +1,94 @@
+"""PyTorch port, fused mask head: the plain ``fused_mask_probs`` against the
+JAX ``fused_mask_probs(interpret=True)`` and against ``sigmoid(MaskHead)`` +
+per-ROI channel select (copies
+``tests/test_pallas.py::test_pallas_mask_head_matches_flax``).
+Tolerance: atol 1e-5, f32."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hd_yolo_tpu.models.detect_head import MaskHead as JaxMaskHead
+from hd_yolo_tpu.ops.pallas_mask_head import fused_mask_probs as jax_fused_mask_probs
+from hd_yolo_tpu_torch.models.detect_head import MaskHead
+from hd_yolo_tpu_torch.ops.pallas_mask_head import _deinterleave, fused_mask_probs, kernel_weights
+
+N, M, C, NC = 11, 14, 32, 5
+
+
+def _params(rng):
+    """Random flax MaskHead params (numpy) and the port's head loaded with them."""
+    head = JaxMaskHead(nc_masks=NC, dim_reduced=C, dtype=jnp.float32)
+    shapes = jax.eval_shape(lambda: head.init(jax.random.PRNGKey(0), jnp.zeros((1, M, M, C))))
+    p = {}
+    for name, node in shapes["params"].items():
+        k = node["kernel"].shape
+        p[name] = {"kernel": (rng.standard_normal(k) * np.sqrt(2.0 / np.prod(k[:-1])))
+                   .astype(np.float32),
+                   "bias": (rng.standard_normal(node["bias"].shape) * 0.05).astype(np.float32)}
+    th = MaskHead(NC, C)
+    with torch.no_grad():
+        for j, conv in enumerate(th.fcn):
+            conv.weight.copy_(torch.from_numpy(p[f"fcn{j}"]["kernel"].transpose(3, 2, 0, 1).copy()))
+            conv.bias.copy_(torch.from_numpy(p[f"fcn{j}"]["bias"]))
+        # flax ConvTranspose applies its kernel flipped: the reference layout flips it back
+        dk = p["deconv"]["kernel"][::-1, ::-1].transpose(2, 3, 0, 1).copy()
+        th.maskrcnn_preds.conv5_mask.weight.copy_(torch.from_numpy(dk))
+        th.maskrcnn_preds.conv5_mask.bias.copy_(torch.from_numpy(p["deconv"]["bias"]))
+        lk = p["logits"]["kernel"].transpose(3, 2, 0, 1).copy()
+        th.maskrcnn_preds.mask_fcn_logits.weight.copy_(torch.from_numpy(lk))
+        th.maskrcnn_preds.mask_fcn_logits.bias.copy_(torch.from_numpy(p["logits"]["bias"]))
+    return head, {"params": p}, th
+
+
+@pytest.fixture
+def inputs(rng):
+    head, v, th = _params(rng)
+    x = rng.standard_normal((N, M, M, C)).astype(np.float32)
+    labels = rng.integers(0, NC, (N,)).astype(np.int32)
+    return head, v, th, x, labels
+
+
+def test_plain_matches_jax_fused_interpret(inputs):
+    """Copies ``tests/test_pallas.py::test_pallas_mask_head_matches_flax`` (N=11,
+    not a multiple of the TPU kernel's chunk)."""
+    head, v, th, x, labels = inputs
+    want = jax_fused_mask_probs(v["params"], jnp.asarray(x), jnp.asarray(labels), g=4,
+                                interpret=True)
+    with torch.no_grad():
+        got = fused_mask_probs(th, torch.from_numpy(x), torch.from_numpy(labels))
+    assert tuple(got.shape) == (N, 2 * M, 2 * M) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+
+
+def test_plain_matches_flax_mask_head_chain(inputs):
+    head, v, th, x, labels = inputs
+    logits = head.apply(v, jnp.asarray(x))
+    want = jnp.take_along_axis(jax.nn.sigmoid(logits), jnp.asarray(labels)[:, None, None, None],
+                               axis=-1)[..., 0]
+    with torch.no_grad():
+        got = fused_mask_probs(th, torch.from_numpy(x), torch.from_numpy(labels))
+        chain = torch.sigmoid(th(torch.from_numpy(x)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(chain.numpy(), np.asarray(jax.nn.sigmoid(logits)), rtol=0, atol=1e-5)
+
+
+def test_kernel_weight_layouts(inputs):
+    """The kernel's (tap, co, ci) operands reproduce the convs and the deconv."""
+    _, _, th, x, _ = inputs
+    wf, bf, wd, bd = kernel_weights(th, torch.float32)
+    xt = torch.from_numpy(x)
+    conv = th.fcn[0]
+    with torch.no_grad():
+        want = torch.nn.functional.conv2d(xt.permute(0, 3, 1, 2), conv.weight, padding=1)
+        xp = torch.nn.functional.pad(xt, (0, 0, 1, 1, 1, 1))
+        got = sum(torch.einsum("nhwi,oi->nohw", xp[:, ky:ky + M, kx:kx + M], wf[0, ky * 3 + kx])
+                  for ky in range(3) for kx in range(3))
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        dec = th.maskrcnn_preds.conv5_mask
+        full = torch.nn.functional.conv_transpose2d(xt.permute(0, 3, 1, 2), dec.weight, stride=2)
+        taps = torch.stack([torch.einsum("nhwi,oi->nohw", xt, wd[d]) for d in range(4)], 1)
+        for o in range(3):
+            torch.testing.assert_close(_deinterleave(taps[:, :, o]), full[:, o], rtol=1e-5, atol=1e-5)

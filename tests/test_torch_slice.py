@@ -1,0 +1,105 @@
+"""PyTorch port, the slice end to end: ``Detector(device="cpu")`` against the
+JAX ``Model.apply(..., train=False)`` on the same converted weights, with
+the occupancy-packed mask branch (``mask_budget``, window 16) set.
+
+The det convs' objectness biases are raised in the numpy weights both sides
+load, so NMS, the mask branch and the budget cut all see real ROIs.
+Tolerances (f32 on both sides): ``valid``, ``labels``, ``levels`` and
+``mask_valid`` equal; boxes and scores atol 1e-3; masks atol 1e-4; the
+letterbox resize atol 2e-6.
+"""
+
+import pickle
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hd_yolo_tpu.data.preproc import letterbox_batch as jax_letterbox
+from hd_yolo_tpu.data.preproc import normalize as jax_normalize
+from hd_yolo_tpu.models import Model as JaxModel
+from hd_yolo_tpu.ops.boxes import scale_coords as jax_scale_coords
+from hd_yolo_tpu_torch.data.preproc import letterbox_batch, normalize
+from hd_yolo_tpu_torch.detector import Detector
+from torch_port_common import random_variables
+
+SIZE = 128
+KW = dict(max_masks=16, pre_nms_topk=256, mask_window=16, mask_budget=20)
+X_SHAPE = (2, SIZE, SIZE, 3)
+
+
+@pytest.fixture(scope="module")
+def setup(tmp_path_factory):
+    jm = JaxModel.from_cfg("yolov5s-test", "hyp-nuclei", **KW)
+    variables = random_variables(jm, X_SHAPE, seed=1, obj_bias=1.0)
+    path = tmp_path_factory.mktemp("w") / "weights.pkl"
+    path.write_bytes(pickle.dumps(variables))
+    det = Detector("yolov5s-test", "hyp-nuclei", weights=str(path), input_size=SIZE,
+                   dtype=torch.float32, device="cpu", **KW)
+    fwd = jax.jit(lambda v, x: jm.apply(v, x, train=False)[1])
+    return jm, variables, det, fwd
+
+
+def _compare(got, want):
+    for k in ("valid", "labels", "levels", "mask_valid"):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]), err_msg=k)
+    np.testing.assert_allclose(got["boxes"].numpy(), np.asarray(want["boxes"]), rtol=0, atol=1e-3)
+    np.testing.assert_allclose(got["scores"].numpy(), np.asarray(want["scores"]), rtol=0, atol=1e-3)
+    np.testing.assert_allclose(got["masks"].numpy(), np.asarray(want["masks"]), rtol=0, atol=1e-4)
+
+
+def test_slice_matches_jax_model_apply(setup, rng):
+    jm, variables, det, fwd = setup
+    x = rng.uniform(0, 1, X_SHAPE).astype(np.float32)
+    want = fwd(variables, jnp.asarray(x))["det"]
+    got = det.tiles(x)["det"]
+    _compare(got, want)
+    # the path did real work: detections, and more mask-eligible ROIs than the budget
+    valid = np.asarray(want["valid"])
+    R = KW["max_masks"]
+    assert valid.sum() > 0
+    assert valid[:, :R].sum() > KW["mask_budget"]
+    assert int(np.asarray(want["mask_valid"]).sum()) == KW["mask_budget"]
+    assert np.asarray(want["masks"]).max() > 0
+
+
+def test_letterbox_matches_jax(rng):
+    """jax.image.resize antialiases when it shrinks; the port's antialiased
+    bilinear F.interpolate agrees within 2e-6, shrinking or growing."""
+    for shape in [(97, 150, 3), (300, 211, 3), (60, 97, 3)]:
+        im = rng.integers(0, 256, shape).astype(np.uint8)
+        a, ga, pa = jax_letterbox(jax_normalize(jnp.asarray(im)[None]), (SIZE, SIZE))
+        b, gb, pb = letterbox_batch(normalize(torch.from_numpy(im)[None]), (SIZE, SIZE))
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=0, atol=2e-6)
+        assert abs(float(ga) - gb) < 1e-6
+        assert np.allclose([float(p) for p in pa], pb)
+
+
+def test_detector_call_odd_image_matches_jax(setup, rng):
+    """Detector.__call__ on an odd-sized image (letterbox, model, scale_coords)
+    against the same steps in JAX."""
+    jm, variables, det, fwd = setup
+    im = rng.integers(0, 256, (97, 60, 3)).astype(np.uint8)
+    x, gain, (px, py) = jax_letterbox(jax_normalize(jnp.asarray(im)[None]), (SIZE, SIZE))
+    o = fwd(variables, x)["det"]
+    v = np.asarray(o["valid"][0])
+    boxes = np.asarray(jax_scale_coords((SIZE, SIZE), o["boxes"][0], im.shape[:2],
+                                        ratio_pad=((gain, gain), (px, py))))
+    rec = det(im)[0]["det"]
+    np.testing.assert_allclose(rec["boxes"], boxes[v], rtol=0, atol=1e-3)
+    np.testing.assert_allclose(rec["scores"], np.asarray(o["scores"][0])[v], rtol=0, atol=1e-3)
+    np.testing.assert_array_equal(rec["labels"], np.asarray(o["labels"][0])[v])
+    R = o["masks"].shape[1]
+    np.testing.assert_array_equal(rec["has_mask"][: min(R, v.sum())],
+                                  np.asarray(o["mask_valid"][0])[v[:R]])
+    assert len(det([im, im])) == 2
+    df = det(im).pandas()
+    assert len(df) == int(v.sum())
+
+
+def test_detector_cuda_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Detector("yolov5s-test", "hyp-nuclei", device="cuda")

@@ -328,14 +328,10 @@ def profile_step(det: Detector, x):
                    if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
                   reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
-    os.makedirs("chiprun_out", exist_ok=True)
-    with open(os.path.join("chiprun_out", "profile_flagship.txt"), "w") as f:
-        for us, n, key in rows:
-            f.write(f"{us / 1e3:10.3f} ms {n:5d}x  {key}\n")
     log(f"  profiled step: wall {wall * 1e3:.2f} ms, device busy {busy * 1e3:.2f} ms "
         f"(idle share {max(0.0, 1 - busy / wall):.3f}), {sum(r[1] for r in rows)} kernel "
-        f"launches; top device time:")
-    for us, n, key in rows[:14]:
+        f"launches; device time by kernel:")
+    for us, n, key in rows[:30]:
         log(f"    {us / 1e3:8.3f} ms {n:4d}x  {key[:100]}")
 
 

@@ -21,7 +21,20 @@ Phases (any failure raises and the script exits non-zero):
      three images of different sizes;
   5. reference: ``yolov5s-test`` on a small batch through the kernels
      (CUDA, bf16) against the plain PyTorch path on the CPU (bf16) — the CPU
-     path is the one the repo's tests hold against the JAX package.
+     path is the one the repo's tests hold against the JAX package;
+  6. hnet: ``HNet.from_cfg(load_cfg("hnet-nucls"), dtype=torch.bfloat16)``
+     (Swin-T + FPN + Mask R-CNN, panoptic and cl headers) at full width with
+     seeded weights on 4 x 640 px tiles: one forward with every launch count
+     reset just before and read just after (the single-level ROI-align 4,
+     the canvas ROI-align 2, NMS 2, mask head 1, stem 0), then tiles/s
+     (median of >= 10 forwards) and a profiled forward;
+  7. hnet reference: a small hnet (Swin embed 32, depths 1/1/1/1, window 4,
+     FPN 256) on 2 x 128 px through the kernels (CUDA, bf16) against the
+     port's plain path on the CPU (bf16).
+
+Phase 3 also holds the single-level ROI-align kernel against its plain
+version at the four hnet-nucls level shapes (and a small f32 case with 5
+channels), and the canvas ROI-align kernel at the hnet box-head shapes.
 
 The last lines are the per-kernel JSON record, the ``nvidia-smi`` line, and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -43,13 +56,16 @@ import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from hd_yolo_tpu_torch import kernels  # noqa: E402
+from hd_yolo_tpu_torch import kernels, load_cfg  # noqa: E402
 from hd_yolo_tpu_torch.detector import Detector  # noqa: E402
+from hd_yolo_tpu_torch.hnet import HNet  # noqa: E402
 from hd_yolo_tpu_torch.models.detect_head import MaskHead  # noqa: E402
 from hd_yolo_tpu_torch.ops.boxes import box_iou, remove_small_boxes_mask, xywh2xyxy  # noqa: E402
 from hd_yolo_tpu_torch.ops import pallas_mask_head, pallas_nms, pallas_roi_align, pallas_stem  # noqa: E402
 from hd_yolo_tpu_torch.ops.nms import nms_padded  # noqa: E402
-from hd_yolo_tpu_torch.ops.roi_align import multiscale_roi_align_packed  # noqa: E402
+from hd_yolo_tpu_torch.ops.roi_align import (_multiscale_roi_align_canvas,  # noqa: E402
+                                             multiscale_roi_align_canvas,
+                                             multiscale_roi_align_packed)
 
 # H100 SXM published peaks (dense): HBM bytes/s, bf16 tensor-core and f32 FLOP/s.
 HBM_BPS = 3.35e12
@@ -61,7 +77,14 @@ TPU_KERNEL = {
     "nms": "hd_yolo_tpu/ops/pallas_nms.py:32",
     "roi_align": "hd_yolo_tpu/ops/pallas_roi_align.py:195",
     "mask_head": "hd_yolo_tpu/ops/pallas_mask_head.py:51",
+    "roi_align_single": "hd_yolo_tpu/ops/pallas_roi_align.py:31",
 }
+FLAGSHIP_KERNELS = ("stem", "nms", "roi_align", "mask_head")
+# launches of one hnet-nucls forward: 4 pyramid levels of the tile ROI, the
+# box-head and mask pooling, the RPN and class-aware NMS, one mask head
+HNET_LAUNCHES = {"stem": 0, "nms": 2, "roi_align": 2, "mask_head": 1, "roi_align_single": 4}
+# hnet-nucls at 640 px: the tile ROI's pyramid levels (size, stride)
+HNET_LEVELS = ((160, 4.0), (80, 8.0), (40, 16.0), (20, 32.0))
 
 
 def log(*a):
@@ -286,6 +309,61 @@ def phase_mask_head(gen, iters):
                 library_ms=lib_ms)
 
 
+def phase_roi_single(gen, iters):
+    """The single-level kernel at the four hnet-nucls level shapes (one
+    640 px tile ROI per image, M = S, sampling 2), timed together as one
+    forward's launches; then a small f32 case with 5 channels (the scalar
+    path) and boxes partly off the map."""
+    dev = "cuda"
+    feats = [torch.randn((4, s, s, 256), generator=gen, device=dev).to(torch.bfloat16)
+             for s, _ in HNET_LEVELS]
+    tile = torch.tensor([0.0, 0.0, 640.0, 640.0], device=dev).expand(4, 1, 4).contiguous()
+
+    def forward(fn):
+        return [fn(f, tile, s, 1.0 / st, 2) for f, (s, st) in zip(feats, HNET_LEVELS)]
+
+    got, want = forward(pallas_roi_align.roi_align_single), \
+        forward(pallas_roi_align.roi_align_single_plain)
+    torch.cuda.synchronize()
+    # the plain version rounds its matrices and row sums to bf16 as the JAX path does
+    err = max(check_close(f"roi_align_single {tuple(f.shape)}", g, w, atol=3e-2, rtol=2e-2)
+              for f, g, w in zip(feats, got, want))
+    f5 = torch.randn((2, 37, 23, 5), generator=gen, device=dev)
+    xy = torch.rand((2, 9, 2), generator=gen, device=dev) * 110 - 10
+    b5 = torch.cat([xy, xy + torch.rand((2, 9, 2), generator=gen, device=dev) * 70], -1)
+    check_close("roi_align_single f32 (2, 37, 23, 5), 9 ROIs, M 7",
+                pallas_roi_align.roi_align_single(f5, b5, 7, 0.25, 2),
+                pallas_roi_align.roi_align_single_plain(f5, b5, 7, 0.25, 2), atol=1e-5, rtol=0.0)
+    ms = cuda_ms(lambda: forward(pallas_roi_align.roi_align_single), iters)
+    plain_ms = cuda_ms(lambda: forward(pallas_roi_align.roi_align_single_plain), iters)
+    # per output element: n x n samples of 4 taps, one multiply-add each
+    flops = sum(o.numel() for o in got) * 4 * 4 * 2
+    b_ms, by = bound(nbytes(*feats, *got) + 4 * tile.numel() * 4, flops, F32_FLOPS)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                library_ms=None)
+
+
+def check_canvas_hnet_box_head(gen):
+    """The canvas ROI-align kernel at the hnet box-head shapes, correctness
+    only: the (4, 300, 160, 256) bf16 canvas of the four levels, 4 x 512
+    ROIs at 7x7, each on the level torchvision's LevelMapper gives it."""
+    dev = "cuda"
+    feats = [torch.randn((4, s, s, 256), generator=gen, device=dev).to(torch.bfloat16)
+             for s, _ in HNET_LEVELS]
+    strides = tuple(st for _, st in HNET_LEVELS)
+    xy = torch.rand((4, 512, 2), generator=gen, device=dev) * 660 - 10
+    wh = torch.exp(torch.rand((4, 512, 2), generator=gen, device=dev) * math.log(100.0)) * 4
+    boxes = torch.cat([xy, xy + wh], -1)
+    area = torch.sqrt((wh[..., 0] * wh[..., 1]).clamp(min=1e-6))
+    levels = (torch.floor(4.0 + torch.log2(area / 224.0) + 1e-6) - 2).clamp(0, 3).to(torch.int32)
+    got = multiscale_roi_align_canvas(feats, boxes, levels, strides, 7)
+    want = _multiscale_roi_align_canvas(feats, boxes, levels, strides, 7)
+    torch.cuda.synchronize()
+    check_close(f"roi_align canvas (4, 300, 160, 256), 2048 ROIs at 7x7, levels "
+                f"{torch.bincount(levels.flatten().long(), minlength=4).tolist()}",
+                got, want, atol=3e-2, rtol=2e-2)
+
+
 # ---------------------------------------------------------------- flagship
 @torch.no_grad()
 def calibrate_objectness(det: Detector, x, frac: float):
@@ -312,16 +390,16 @@ def calibrate_objectness(det: Detector, x, frac: float):
             conv.bias.view(h.na, h.no)[:, 4] = math.log(conf / (1 - conf)) - float(q)
 
 
-def profile_step(det: Detector, x):
-    """One profiled batch: device time by kernel, and the device idle share
-    (1 - summed kernel time / wall time of the step)."""
+def profile_step(step):
+    """One profiled ``step()``: device time by kernel, and the device idle
+    share (1 - summed kernel time / wall time of the step)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        det.tiles(x)
+        step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = sorted(((e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
@@ -348,8 +426,8 @@ def phase_flagship(iters: int):
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     log(f"  launches on the main path (one batch): {launches}")
-    for k, n in launches.items():
-        if n < 1:
+    for k in FLAGSHIP_KERNELS:
+        if launches[k] < 1:
             raise AssertionError(f"kernel {k} was not launched on the main path")
     v = out["valid"]
     need(out["boxes"].shape == (16, 300, 4) and out["masks"].shape == (16, 100, 28, 28),
@@ -368,6 +446,8 @@ def phase_flagship(iters: int):
     times = []
     for _ in range(2):
         det.tiles(x)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()              # the steps' own peak, not phase 3's
     for _ in range(iters):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -378,7 +458,7 @@ def phase_flagship(iters: int):
     log(f"  batch-16 step median {step * 1e3:.2f} ms over {iters} runs "
         f"(min {min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}); "
         f"tiles/s {16 / step:.1f}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    profile_step(det, x)
+    profile_step(lambda: det.tiles(x))
 
     rng = np.random.default_rng(0)
     images = [rng.integers(0, 256, s, dtype=np.uint8) for s in ((640, 640, 3), (480, 700, 3),
@@ -404,16 +484,22 @@ def phase_flagship(iters: int):
     return launches
 
 
-def _match(a, b, n_img):
-    """Fraction of b's valid detections that a finds again (same label, IoU > 0.9)."""
+def match_detections(a, b):
+    """b's valid detections that a finds again (same label, IoU >= 0.9):
+    (matched, total, mean |mask difference| over the matched pairs)."""
     matched = total = 0
-    for i in range(n_img):
+    diffs = []
+    for i in range(len(b["valid"])):
         va, vb = a["valid"][i], b["valid"][i]
         total += int(vb.sum())
         if vb.any() and va.any():
             best, j = box_iou(b["boxes"][i][vb].float(), a["boxes"][i][va].float()).max(1)
-            matched += int(((best > 0.9) & (a["labels"][i][va][j] == b["labels"][i][vb])).sum())
-    return matched, total
+            ok = (best >= 0.9) & (a["labels"][i][va][j] == b["labels"][i][vb])
+            matched += int(ok.sum())
+            if "masks" in a:
+                ma, mb = a["masks"][i][va][j[ok]], b["masks"][i][vb][ok]
+                diffs += (ma - mb).abs().mean((1, 2)).tolist()
+    return matched, total, (statistics.mean(diffs) if diffs else float("nan"))
 
 
 @torch.no_grad()
@@ -421,7 +507,7 @@ def phase_reference():
     """yolov5s-test on a small batch, the card against the plain path on the
     CPU (the path the repo's tests hold against the JAX package):
       * f32 detections (stem and NMS kernels, cuDNN without TF32): >= 98% of
-        the CPU's detections found again (same label, IoU > 0.9);
+        the CPU's detections found again (same label, IoU >= 0.9);
       * bf16 masks (ROI-align and mask-head kernels) on the card's own
         features and detections against the plain packed mask branch run on
         the CPU from the same inputs: the same ``mask_valid``, and mean
@@ -436,7 +522,7 @@ def phase_reference():
     cpu = Detector(device="cpu", dtype=torch.float32, **kw)
     cpu.model.load_state_dict(gpu.model.state_dict())
     a = {k: t.cpu() for k, t in gpu.tiles(x, compute_masks=False)["det"].items()}
-    matched, total = _match(a, cpu.tiles(x, compute_masks=False)["det"], 2)
+    matched, total, _ = match_detections(a, cpu.tiles(x, compute_masks=False)["det"])
     msg = f"  f32 detections: {total} on the CPU, {matched / max(total, 1):.3f} matched (need >= 0.98)"
     log(msg)
     if total < 10 or matched < 0.98 * total:
@@ -467,6 +553,149 @@ def phase_reference():
         raise AssertionError(msg)
 
 
+# ---------------------------------------------------------------- hnet
+def phase_hnet(iters: int):
+    """hnet-nucls at full width, bf16, seeded weights, 4 x 640 px tiles."""
+    model = HNet.from_cfg(load_cfg("hnet-nucls"), dtype=torch.bfloat16, seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randint(0, 256, (4, 640, 640, 3), generator=gen, device="cuda", dtype=torch.uint8)
+    det = model.headers["det40x"]
+    model(x)                                          # warm-up (cuDNN/cuBLAS algorithm choice)
+    torch.cuda.synchronize()
+    captured = {}
+    propose = det.propose
+    det.propose = lambda *a: captured.setdefault("proposals", propose(*a))
+    try:
+        kernels.reset_launches()
+        losses, out = model(x)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        del det.propose
+    log(f"  launches in one forward: {launches}")
+    for k, n in HNET_LAUNCHES.items():
+        if launches[k] != n:
+            raise AssertionError(f"kernel {k}: {launches[k]} launches in one hnet forward, "
+                                 f"expected {n}")
+    need(losses == {"seg10x": {}, "det40x": {}, "cl5x": {}}, f"unexpected losses {losses}")
+    d, seg, cl = out["det40x"], out["seg10x"], out["cl5x"]
+    need(d["boxes"].shape == (4, 100, 4) and d["masks"].shape == (4, 100, 28, 28)
+         and seg["probs"].shape == (4, 40, 40, 5) and cl["probs"].shape == (4, 3),
+         f"unexpected shapes {[tuple(t.shape) for t in (d['boxes'], d['masks'], seg['probs'], cl['probs'])]}")
+    for name, t in (("boxes", d["boxes"]), ("masks", d["masks"]), ("seg", seg["probs"]),
+                    ("cl", cl["probs"])):
+        need(bool(torch.isfinite(t.float()).all()), f"non-finite hnet {name}")
+    need(bool(((seg["probs"].sum(-1) - 1).abs() < 1e-4).all()), "seg probabilities do not sum to 1")
+    v = d["valid"]
+    m = d["masks"][v]
+    need(int(v.sum()) >= 4 and float(m.min()) >= 0 and 0 < float(m.max()) <= 1,
+         "no hnet detections, or mask probabilities out of [0, 1]")
+    need(bool((d["boxes"][v] <= 640 + 1e-3).all() and (d["boxes"][v] >= 0).all()),
+         "hnet boxes outside the tile")
+    log(f"  RPN proposals kept per image {captured['proposals'][1].sum(1).tolist()} (of 512); "
+        f"valid detections per image {v.sum(1).tolist()} (of 100); labels "
+        f"{torch.bincount(d['labels'][v].long(), minlength=5)[1:].tolist()}; mean mask prob "
+        f"{float(m.mean()):.3f}")
+
+    for _ in range(2):
+        model(x)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model(x)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step = statistics.median(times)
+    log(f"  batch-4 forward median {step * 1e3:.2f} ms over {iters} runs "
+        f"(min {min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}); tiles/s {4 / step:.1f}; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    profile_step(lambda: model(x))
+    return launches
+
+
+@torch.no_grad()
+def phase_hnet_reference():
+    """A small hnet (Swin embed 32, depths 1/1/1/1, window 4, FPN 256 so the
+    mask-head kernel takes its (14, 14, 256) ROIs) on 2 x 128 px, through
+    the kernels on the card against the port's plain path on the CPU, same
+    weights and input:
+      * bf16 end to end: seg and cl probabilities mean |d| <= 0.01, max <= 0.1;
+      * bf16 masks (canvas ROI-align and mask-head kernels) of the card's own
+        detections from the card's own ROI pyramid, against the CPU's mask
+        branch on the same inputs: mean |d| <= 0.01, max <= 0.1;
+      * f32 detections (the det header without masks; single-level and
+        canvas ROI-align and NMS kernels in f32, cuDNN/cuBLAS without TF32):
+        >= 98% of the CPU's valid detections found again (same label, IoU
+        >= 0.9).  Random weights leave the proposal and detection scores
+        within bf16 noise of each other, so in bf16 a rounding step reorders
+        NMS; the bf16 match fraction is printed for information."""
+    cfg = {
+        "backbone": {"type": "swin", "embed_dim": 32, "depths": [1, 1, 1, 1],
+                     "num_heads": [1, 2, 4, 8], "window_size": 4},
+        "fpn": {"out_channels": 256},
+        "headers": {
+            "seg": {"type": "panoptic", "num_classes": 5, "channels": 64, "amplification": 0.25},
+            "det": {"type": "maskrcnn", "num_classes": 4, "pre_nms_topk": 256,
+                    "num_proposals": 64, "num_detections": 24,
+                    "anchor_sizes": [16.0, 32.0, 64.0, 128.0]},
+            "cl": {"type": "cl", "num_classes": 3, "hidden": 64, "amplification": 0.125},
+        },
+    }
+    x = torch.randint(0, 256, (2, 128, 128, 3), generator=torch.Generator().manual_seed(8),
+                      dtype=torch.uint8)
+    gpu = HNet.from_cfg(cfg, dtype=torch.bfloat16, seed=7)
+    cpu = HNet(cfg, dtype=torch.bfloat16).eval()
+    cpu.load_state_dict(gpu.state_dict())
+    det = gpu.headers["det"]
+    captured = {}
+    infer = det.infer
+    det.infer = lambda pyr, size: infer(captured.setdefault("pyr", pyr), size)
+    try:
+        _, a = gpu(x.cuda())
+    finally:
+        del det.infer
+    _, b = cpu(x)
+    a = {t: {k: v.cpu() for k, v in o.items()} for t, o in a.items()}
+    ok = True
+
+    def report(name, d, mean_lim, max_lim):
+        good = float(d.mean()) <= mean_lim and float(d.max()) <= max_lim
+        log(f"  {name}: mean |d| {float(d.mean()):.5f} (need <= {mean_lim}), max "
+            f"{float(d.max()):.4f} (need <= {max_lim})")
+        return good
+
+    for t in ("seg", "cl"):
+        ok &= report(f"bf16 {t} probabilities {tuple(a[t]['probs'].shape)}",
+                     (a[t]["probs"] - b[t]["probs"]).abs(), 0.01, 0.1)
+    o = a["det"]
+    v = o["valid"]
+    ref = cpu.headers["det"].masks([p.cpu() for p in captured["pyr"]], o["boxes"], o["labels"], v)
+    ok &= int(v.sum()) >= 10 and report(f"bf16 masks of the card's {int(v.sum())} detections",
+                                        (o["masks"] - ref)[v].abs(), 0.01, 0.1)
+    m16, t16, _ = match_detections(a["det"], b["det"])
+    log(f"  bf16 detections (for information): {m16} of the CPU's {t16} found again")
+
+    cfg32 = {**cfg, "headers": {**cfg["headers"], "det": {**cfg["headers"]["det"],
+                                                          "with_masks": False}}}
+    sd = {k: t for k, t in cpu.state_dict().items() if ".mask_head." not in k}
+    gpu32, cpu32 = HNet(cfg32).eval(), HNet(cfg32).eval()
+    gpu32.load_state_dict(sd)
+    cpu32.load_state_dict(sd)
+    _, a32 = gpu32.cuda()(x.cuda())
+    _, b32 = cpu32(x)
+    a32 = {k: t.cpu() for k, t in a32["det"].items()}
+    matched, total, _ = match_detections(a32, b32["det"])
+    good = total >= 10 and matched >= 0.98 * total
+    ok &= good
+    log(f"  f32 detections: {total} valid on the CPU, {matched / max(total, 1):.3f} found again "
+        f"on the card (need >= 0.98)")
+    if not ok:
+        raise AssertionError("hnet reference check failed")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -486,22 +715,28 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
     for kname, fn in (("stem", phase_stem), ("nms", phase_nms), ("roi_align", phase_roi),
-                      ("mask_head", phase_mask_head)):
+                      ("mask_head", phase_mask_head), ("roi_align_single", phase_roi_single)):
         results[kname] = fn(gen, 20)
         r = results[kname]
-        lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"  {kname}: kernel {r['ms']:.4f} ms | plain {r['plain_ms']:.4f} ms | "
             f"library {lib} ms | bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    check_canvas_hnet_box_head(gen)
 
     log("[4] flagship yolov5l6-mask, batch 16 x 640, bf16")
     launches = phase_flagship(10)
     log("[5] reference check on a small input")
     phase_reference()
+    log("[6] hnet-nucls, batch 4 x 640, bf16")
+    hnet_launches = phase_hnet(10)
+    log("[7] hnet reference check on a small input")
+    phase_hnet_reference()
 
+    launches["roi_align_single"] = hnet_launches["roi_align_single"]
     record = {"kernels": [
         {"name": k, "route": "cuda", "source": f"hd_yolo_tpu_torch/kernels/{k}.cu",
          "replaces": TPU_KERNEL[k], "launches": launches[k], **results[k]}
-        for k in ("stem", "nms", "roi_align", "mask_head")]}
+        for k in FLAGSHIP_KERNELS + ("roi_align_single",)]}
     print(json.dumps(record), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

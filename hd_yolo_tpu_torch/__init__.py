@@ -26,7 +26,7 @@ if not LOGGER.handlers:
 from .config import load_cfg  # noqa: E402,F401
 
 
-def __getattr__(name):  # lazy top-level API: hd_yolo_tpu_torch.Detector etc.
+def __getattr__(name):  # lazy top-level API: hd_yolo_tpu_torch.Detector, .HNet etc.
     if name in ("Detector", "Detections"):
         from . import detector
 
@@ -35,4 +35,8 @@ def __getattr__(name):  # lazy top-level API: hd_yolo_tpu_torch.Detector etc.
         from .models.yolo import Model
 
         return Model
+    if name == "HNet":
+        from .hnet import HNet
+
+        return HNet
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

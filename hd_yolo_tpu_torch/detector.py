@@ -59,9 +59,10 @@ class Detections:
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
+    """``device`` as a ``torch.device``; raises for CUDA when no card is there."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("Detector(device='cuda') needs a CUDA device; none is available. "
+        raise RuntimeError(f"device {str(device)!r} needs a CUDA device; none is available. "
                            "Pass device='cpu' to run the plain PyTorch path.")
     return device
 

@@ -1,0 +1,9 @@
+"""hnet inference: Swin-T backbone + FPN, with Mask R-CNN, panoptic
+segmentation and classification headers at per-task amplifications (port
+of ``hd_yolo_tpu/hnet/``)."""
+
+from .fpn import FeaturePyramidNetwork, PanopticFeatureConnector  # noqa: F401
+from .heads import ClassificationHead, PanopticSegHead  # noqa: F401
+from .hnet import HNet  # noqa: F401
+from .mask_rcnn import MaskRCNN  # noqa: F401
+from .swin import SwinTransformer  # noqa: F401

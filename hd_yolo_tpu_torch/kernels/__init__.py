@@ -39,6 +39,7 @@ KERNELS: Dict[str, list] = {
     "nms": ["--fmad=false"],
     "roi_align": [],
     "mask_head": [],
+    "roi_align_single": [],
 }
 
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
@@ -55,6 +56,7 @@ _SIGNATURES = {
     "nms_keep": ("nms", [_P] * 5 + [_I, _I, _I, _F, _I, _P]),
     "roi_align_bounded": ("roi_align", [_P] * 6 + [_I] * 10 + [_P]),
     "mask_head": ("mask_head", [_P] * 8 + [_I, _I, _P]),
+    "roi_align_single": ("roi_align_single", [_P] * 3 + [_I] * 7 + [_F] + [_I] * 3 + [_P]),
 }
 
 

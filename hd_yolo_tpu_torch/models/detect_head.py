@@ -30,10 +30,10 @@ DEFAULT_NMS_PARAMS = {"conf_thres": 0.15, "iou_thres": 0.45, "max_det": 300}
 
 
 class _MaskHeads(nn.Module):
-    def __init__(self, c: int):
+    def __init__(self, c: int, c_in: int):
         super().__init__()
         for j in range(1, 5):
-            setattr(self, f"mask_fcn{j}", nn.Conv2d(c, c, 3, 1, 1))
+            setattr(self, f"mask_fcn{j}", nn.Conv2d(c_in if j == 1 else c, c, 3, 1, 1))
 
 
 class _MaskPredictor(nn.Module):
@@ -47,11 +47,12 @@ class MaskHead(nn.Module):
     """MaskRCNNHeads(256×4) + MaskRCNNPredictor: 4 × (3x3 conv + ReLU),
     2x2/s2 deconv + ReLU, 1x1 logits.  ``forward`` is the plain PyTorch
     chain on NHWC input, returning NHWC logits; the inference path runs the
-    fused kernel through ``ops/pallas_mask_head.fused_mask_probs``."""
+    fused kernel through ``ops/pallas_mask_head.fused_mask_probs``.  The
+    first conv takes ``in_channels`` (default ``dim_reduced``)."""
 
-    def __init__(self, nc_masks: int, dim_reduced: int = 256):
+    def __init__(self, nc_masks: int, dim_reduced: int = 256, in_channels: Optional[int] = None):
         super().__init__()
-        self.maskrcnn_heads = _MaskHeads(dim_reduced)
+        self.maskrcnn_heads = _MaskHeads(dim_reduced, in_channels or dim_reduced)
         self.maskrcnn_preds = _MaskPredictor(dim_reduced, nc_masks)
 
     @property

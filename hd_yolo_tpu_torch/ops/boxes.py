@@ -21,6 +21,12 @@ def xywh2xyxy(x: Tensor) -> Tensor:
     return torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1)
 
 
+def xyxy2xywh(x: Tensor) -> Tensor:
+    """(..., 4) corner-format → center-format."""
+    x1, y1, x2, y2 = x.unbind(-1)
+    return torch.stack([(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1], -1)
+
+
 def clip_boxes(boxes: Tensor, shape: Tuple[float, float]) -> Tensor:
     """Clip xyxy boxes to image (height, width)."""
     h, w = shape

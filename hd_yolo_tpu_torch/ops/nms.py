@@ -90,8 +90,11 @@ def nms_dispatch(boxes: Tensor, scores: Tensor, valid: Tensor, iou_threshold: fl
 
 def batched_nms_padded(boxes: Tensor, scores: Tensor, labels: Tensor, valid: Tensor,
                        iou_threshold: float, max_det: int) -> Tuple[Tensor, Tensor]:
-    """Class-aware NMS via the coordinate-offset trick (one image)."""
-    span = torch.where(valid[..., None], boxes, torch.zeros_like(boxes)).max() + 1.0
+    """Class-aware NMS via the coordinate-offset trick, for one image (K, 4)
+    or a batch (B, K, 4).  The offset span is each image's own largest valid
+    coordinate, as the JAX package computes it per image under ``vmap``."""
+    span = torch.where(valid[..., None], boxes, torch.zeros_like(boxes)).amax(
+        dim=(-2, -1), keepdim=True) + 1.0
     offsets = labels.to(boxes.dtype)[..., None] * span
     return nms_dispatch(boxes + offsets, scores, valid, iou_threshold, max_det)
 

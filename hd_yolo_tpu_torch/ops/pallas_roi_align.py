@@ -1,5 +1,6 @@
-"""Bounded multiscale ROI-align on the card: wrapper of ``kernels/roi_align.cu``
-(the Hopper port of ``hd_yolo_tpu/ops/pallas_roi_align.py``'s canvas kernel).
+"""ROI-align on the card: wrappers of ``kernels/roi_align.cu`` (the Hopper
+port of ``hd_yolo_tpu/ops/pallas_roi_align.py``'s canvas kernel) and
+``kernels/roi_align_single.cu`` (the port of its single-level ``_kernel``).
 
 ``roi_align_bounded`` pools a flat ROI list from a level-stacked canvas.
 Each ROI names its image and a window origin ``(oy, ox)`` in the canvas;
@@ -24,7 +25,7 @@ from typing import Tuple
 import torch
 
 from .. import kernels
-from .roi_align import _bounded_interp_matrix
+from .roi_align import _bounded_interp_matrix, _pooled_interp_matrix, _sample_coords
 
 Tensor = torch.Tensor
 
@@ -71,4 +72,60 @@ def roi_align_bounded(canvas: Tensor, meta: Tensor, ys: Tensor, xs: Tensor, boun
         1 if canvas.dtype == torch.bfloat16 else 0, dev, stream)
     kernels.check(code, "roi_align_bounded")
     kernels.LAUNCHES["roi_align"] += 1
+    return out
+
+
+def roi_align_single_plain(features: Tensor, boxes: Tensor, output_size: int,
+                           spatial_scale: float = 1.0, sampling_ratio: int = 2,
+                           aligned: bool = False) -> Tensor:
+    """The JAX ``_roi_align_chunk`` with the batch in front: ``Wy · F · Wxᵀ``
+    with the bin-pooled interpolation matrices, which (like the row
+    intermediate) are rounded to the compute dtype (bf16 for bf16 features,
+    else f32), products accumulated in f32."""
+    B, H, W, C = features.shape
+    K = boxes.shape[1]
+    M, n = output_size, sampling_ratio
+    ys, xs = _sample_coords(boxes.reshape(B * K, 4).float(), M, n, spatial_scale, aligned)
+    cd = torch.bfloat16 if features.dtype == torch.bfloat16 else torch.float32
+    Wy = _pooled_interp_matrix(ys, H, M, n).to(cd).float().reshape(B, K, M, H)
+    Wx = _pooled_interp_matrix(xs, W, M, n).to(cd).float().reshape(B, K, M, W)
+    rows = torch.einsum("bksh,bhwc->bkswc", Wy, features.to(cd).float()).to(cd).float()
+    out = torch.einsum("bktw,bkswc->bkstc", Wx, rows)
+    return out.to(features.dtype)
+
+
+def roi_align_single(features: Tensor, boxes: Tensor, output_size: int,
+                     spatial_scale: float = 1.0, sampling_ratio: int = 2,
+                     aligned: bool = False) -> Tensor:
+    """features (B, H, W, C) f32|bf16, any C; boxes (B, K, 4) xyxy in image
+    coordinates → (B, K, M, M, C) in the features' dtype.  The kernel works
+    in f32 until its single write, so for bf16 it agrees with the plain
+    version to bf16 rounding."""
+    if features.device.type == "cpu":
+        return roi_align_single_plain(features, boxes, output_size, spatial_scale,
+                                      sampling_ratio, aligned)
+    if features.dim() != 4 or features.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"roi_align_single kernel takes (B, H, W, C) f32/bf16 features, got "
+                         f"{features.dtype} {tuple(features.shape)}")
+    B, H, W, C = features.shape
+    if boxes.dim() != 3 or boxes.shape[0] != B or boxes.shape[2] != 4:
+        raise ValueError(f"roi_align_single kernel takes ({B}, K, 4) boxes, got {tuple(boxes.shape)}")
+    M, n = int(output_size), int(sampling_ratio)
+    if min(H, W, C, M, n) < 1:
+        raise ValueError(f"roi_align_single kernel takes positive sizes, got features "
+                         f"{tuple(features.shape)}, output {M}, sampling {n}")
+    K = boxes.shape[1]
+    features = features.contiguous()
+    boxes = boxes.float().contiguous()
+    if boxes.data_ptr() % 16:                         # the kernel reads each box as a float4
+        boxes = boxes.clone()
+    kernels.require_cuda(features, boxes)
+    out = torch.empty((B, K, M, M, C), dtype=features.dtype, device=features.device)
+    dev, stream = kernels.device_and_stream(features)
+    code = kernels.fn("roi_align_single")(
+        features.data_ptr(), boxes.data_ptr(), out.data_ptr(), B, H, W, C, K, M, n,
+        float(spatial_scale), 1 if aligned else 0,
+        1 if features.dtype == torch.bfloat16 else 0, dev, stream)
+    kernels.check(code, "roi_align_single")
+    kernels.LAUNCHES["roi_align_single"] += 1
     return out

@@ -1,27 +1,89 @@
-"""Multiscale bilinear ROI-align (port of ``hd_yolo_tpu/ops/roi_align.py``).
+"""Bilinear ROI-align, single-level and multiscale (port of
+``hd_yolo_tpu/ops/roi_align.py``).
 
 torchvision ``aligned=False`` semantics (the reference's mode):
 ``roi_start = coord * spatial_scale``, ``roi_w/h = max(roi_w/h, 1)``,
 samples outside ``(lo-1, hi)`` contribute zero, in-range coordinates clamp
 to the border, a fixed ``n x n`` sample grid per output bin, average-pooled.
 
-All pyramid levels are stacked along rows into one channels-last canvas
-(B, ΣH_l, W0, C); each ROI samples its own level's sub-rectangle through
-per-ROI bounds (``_bounded_interp_matrix``), so nothing reads across a
-level boundary.  The geometry (sample coordinates, bounds, window origins)
-is computed here in float32 with the JAX package's op order; the pooling
-itself is ``ops/pallas_roi_align.roi_align_bounded`` — the CUDA kernel for
-a CUDA canvas, its plain version for a CPU canvas.
+Single level: ``roi_align`` pools (B, K) boxes from one (B, H, W, C) map —
+``ops/pallas_roi_align.roi_align_single``, the CUDA kernel for a CUDA map,
+its plain version (the helpers below, as the JAX package's matmul form) for
+a CPU map.
+
+Multiscale: all pyramid levels are stacked along rows into one
+channels-last canvas (B, ΣH_l, W0, C); each ROI samples its own level's
+sub-rectangle through per-ROI bounds (``_bounded_interp_matrix``), so
+nothing reads across a level boundary.  The geometry (sample coordinates,
+bounds, window origins) is computed here in float32 with the JAX package's
+op order; the pooling itself is ``ops/pallas_roi_align.roi_align_bounded``
+— the CUDA kernel for a CUDA canvas, its plain version for a CPU canvas.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 Tensor = torch.Tensor
+
+
+def _sample_weights(coord: Tensor, size: int) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """1-D bilinear sample: (low_idx, high_idx, low_w, high_w) with
+    torchvision's out-of-range zeroing and border clamping."""
+    in_range = (coord > -1.0) & (coord < size)
+    c = coord.clamp(0.0, size - 1)
+    low = torch.floor(c).to(torch.int64)
+    high = (low + 1).clamp(max=size - 1)
+    lw = c - low.to(coord.dtype)
+    zero = torch.zeros_like(lw)
+    return low, high, torch.where(in_range, 1.0 - lw, zero), torch.where(in_range, lw, zero)
+
+
+def _interp_matrix(coords: Tensor, size: int) -> Tensor:
+    """(..., S) sample coords → (..., S, size) dense bilinear rows (≤ 2
+    nonzeros each; an out-of-range sample gets an all-zero row)."""
+    low, high, w_low, w_high = _sample_weights(coords, size)
+    grid = torch.arange(size, device=coords.device)
+    m_low = (grid == low[..., None]).to(coords.dtype) * w_low[..., None]
+    m_high = (grid == high[..., None]).to(coords.dtype) * w_high[..., None]
+    return m_low + m_high
+
+
+def _sample_coords(boxes: Tensor, M: int, n: int, spatial_scale: float, aligned: bool):
+    """boxes (K, 4) → per-axis sample centres ys, xs, each (K, M·n)."""
+    offset = 0.5 if aligned else 0.0
+    x1 = boxes[:, 0] * spatial_scale - offset
+    y1 = boxes[:, 1] * spatial_scale - offset
+    x2 = boxes[:, 2] * spatial_scale - offset
+    y2 = boxes[:, 3] * spatial_scale - offset
+    roi_w, roi_h = x2 - x1, y2 - y1
+    if not aligned:
+        roi_w = roi_w.clamp(min=1.0)
+        roi_h = roi_h.clamp(min=1.0)
+    s = torch.arange(M * n, dtype=boxes.dtype, device=boxes.device) + 0.5
+    ys = y1[:, None] + s[None, :] * (roi_h / (M * n))[:, None]
+    xs = x1[:, None] + s[None, :] * (roi_w / (M * n))[:, None]
+    return ys, xs
+
+
+def _pooled_interp_matrix(coords: Tensor, size: int, M: int, n: int) -> Tensor:
+    """(k, M·n) sample coords → (k, M, size) rows with each bin's n-sample
+    mean folded in (the sample grid is separable, so this is exact)."""
+    m = _interp_matrix(coords, size)
+    return m.reshape(m.shape[0], M, n, size).mean(2)
+
+
+def roi_align(features: Tensor, boxes: Tensor, output_size: int, spatial_scale: float = 1.0,
+              sampling_ratio: int = 2, aligned: bool = False) -> Tensor:
+    """ROI-align (B, K, 4) xyxy boxes against their image's map of
+    ``features`` (B, H, W, C) → (B, K, M, M, C) in the features' dtype (the
+    JAX ``roi_align`` with the batch in front, as it runs under ``vmap``)."""
+    from .pallas_roi_align import roi_align_single
+
+    return roi_align_single(features, boxes, output_size, spatial_scale, sampling_ratio, aligned)
 
 
 def _bounded_interp_matrix(coords: Tensor, lo: Tensor, hi: Tensor, size: int, M: int,
@@ -143,3 +205,35 @@ def multiscale_roi_align_canvas(features: Sequence[Tensor], boxes: Tensor, level
     roi_meta = torch.stack([b_idx, zero, zero, zero], -1)
     out = roi_align_bounded(canvas, roi_meta, ys, xs, bounds, (Ht, W0), M, n)
     return out.reshape(B, K, M, M, C)
+
+
+def multiscale_roi_align_batched(features: Sequence[Tensor], boxes: Tensor, levels: Tensor,
+                                 strides: Sequence[float], output_size: int,
+                                 sampling_ratio: int = 2, aligned: bool = False,
+                                 use_pallas: Optional[bool] = None,
+                                 window: Optional[int] = None) -> Tensor:
+    """Batched multi-level ROI-align → (B, K, M, M, C): (B, K) boxes, each
+    pooled from the level ``levels`` names.
+
+    Default (``use_pallas`` None or True): the exact canvas semantics,
+    ``multiscale_roi_align_canvas``.  ``use_pallas=False``: pool every box
+    from every level with the single-level ``roi_align`` and keep its own
+    level's result (the JAX package's differential-testing form).
+    ``window=w``: each ROI pools from a w x w window of its level, exact
+    while its sampled span fits (``multiscale_roi_align_packed``)."""
+    if window is not None:
+        B, K = boxes.shape[:2]
+        b_idx = torch.arange(B, device=boxes.device).repeat_interleave(K)
+        out = multiscale_roi_align_packed(features, boxes.reshape(B * K, 4),
+                                          levels.reshape(B * K), b_idx, strides, output_size,
+                                          sampling_ratio, aligned, int(window))
+        return out.reshape((B, K) + out.shape[1:])
+    if use_pallas is None or use_pallas:
+        return multiscale_roi_align_canvas(features, boxes, levels, strides, output_size,
+                                           sampling_ratio, aligned)
+    out = None
+    for i, (fmap, stride) in enumerate(zip(features, strides)):
+        pooled = roi_align(fmap, boxes, output_size, 1.0 / float(stride), sampling_ratio, aligned)
+        sel = (levels == i).to(pooled.dtype)[..., None, None, None]
+        out = pooled * sel if out is None else out + pooled * sel
+    return out

@@ -8,6 +8,14 @@ The key map and layout rules of ``hd_yolo_tpu/utils/export_torch.py``:
   header ``seg.k``                    ↔ flax ``seg{nl-1-k}`` (the reference list is top-down)
 BatchNorm buffers also get ``num_batches_tracked`` = 0, so the converted
 tree loads with ``strict=True``.
+
+``hnet_state_dict_from_flax`` does the same for ``hnet.HNet``, with the key
+layouts of the JAX package's importers inverted (``utils/import_swin.py``,
+``utils/import_maskrcnn.py``): dense kernel (I, O) → weight (O, I), norm
+{scale, bias} → weight / bias, the box head's fc6 input columns (7, 7, C) →
+the reference's (C, 7, 7); the Mask R-CNN mask head takes the port's
+``MaskHead`` names and the flipped deconv, the panoptic and cl headers their
+flax names.
 """
 
 from __future__ import annotations
@@ -63,6 +71,17 @@ class _Reader:
         self.sd[tkey + ".running_var"] = np.asarray(s["var"])
         self.sd[tkey + ".num_batches_tracked"] = np.zeros((), np.int64)
 
+    def dense(self, tkey: str, *fpath):
+        node = self._get(self.params, fpath)
+        self.sd[tkey + ".weight"] = np.ascontiguousarray(np.asarray(node["kernel"]).T)
+        if "bias" in node:
+            self.sd[tkey + ".bias"] = np.asarray(node["bias"])
+
+    def norm(self, tkey: str, *fpath):
+        node = self._get(self.params, fpath)
+        self.sd[tkey + ".weight"] = np.asarray(node["scale"])
+        self.sd[tkey + ".bias"] = np.asarray(node["bias"])
+
     def conv_block(self, tkey: str, fpath):
         self.conv(tkey + ".conv", *fpath, "conv")
         self.bn(tkey + ".bn", *fpath, "bn")
@@ -103,6 +122,103 @@ def state_dict_from_flax(variables_np: Mapping, spec: NetworkSpec) -> Dict[str, 
         r.deconv(f"{hkey}.seg_h.maskrcnn_preds.conv5_mask", fh, "mask_head", "deconv")
         r.conv(f"{hkey}.seg_h.maskrcnn_preds.mask_fcn_logits", fh, "mask_head", "logits")
     return {k: torch.from_numpy(np.array(v)) for k, v in r.sd.items()}
+
+
+def swin_state_dict_from_flax(params: Mapping) -> Dict[str, np.ndarray]:
+    """flax ``SwinTransformer`` params → ``hnet.swin.SwinTransformer`` keys."""
+    r = _Reader(params, {})
+    r.conv("patch_embed.proj", "patch_embed")
+    r.norm("patch_embed.norm", "patch_norm")
+    i = 0
+    while f"stage{i}_block0" in params:
+        j = 0
+        while f"stage{i}_block{j}" in params:
+            t, f = f"layers.{i}.blocks.{j}", f"stage{i}_block{j}"
+            for tk, fk in (("norm1", "norm1"), ("norm2", "norm2")):
+                r.norm(f"{t}.{tk}", f, fk)
+            for tk, fk in (("attn.qkv", ("attn", "qkv")), ("attn.proj", ("attn", "proj")),
+                           ("mlp.fc1", ("fc1",)), ("mlp.fc2", ("fc2",))):
+                r.dense(f"{t}.{tk}", f, *fk)
+            r.sd[f"{t}.attn.relative_position_bias_table"] = np.asarray(
+                params[f]["attn"]["relative_position_bias_table"])
+            j += 1
+        if f"merge{i}" in params:
+            r.dense(f"layers.{i}.downsample.reduction", f"merge{i}", "reduction")
+            r.norm(f"layers.{i}.downsample.norm", f"merge{i}", "norm")
+        if f"out_norm{i}" in params:
+            r.norm(f"norm{i}", f"out_norm{i}")
+        i += 1
+    return r.sd
+
+
+def fpn_state_dict_from_flax(params: Mapping) -> Dict[str, np.ndarray]:
+    """flax ``FeaturePyramidNetwork`` params → torchvision FPN keys."""
+    r = _Reader(params, {})
+    i = 0
+    while f"lateral{i}" in params:
+        r.conv(f"inner_blocks.{i}", f"lateral{i}")
+        r.conv(f"layer_blocks.{i}", f"out{i}")
+        i += 1
+    r.conv("extra_blocks.p6", "p6")
+    r.conv("extra_blocks.p7", "p7")
+    return r.sd
+
+
+def maskrcnn_state_dict_from_flax(params: Mapping) -> Dict[str, np.ndarray]:
+    """flax ``MaskRCNN`` params → torchvision keys (``rpn.head.*``,
+    ``roi_heads.*``), the mask head under the port's ``MaskHead`` names."""
+    r = _Reader(params, {})
+    for tk, fk in (("conv", "conv"), ("cls_logits", "cls"), ("bbox_pred", "reg")):
+        r.conv(f"rpn.head.{tk}", "rpn_head", fk)
+    r.dense("roi_heads.box_head.fc6", "box_head", "fc6")
+    w = r.sd["roi_heads.box_head.fc6.weight"]                      # (O, 7·7·C), (h, w, c) order
+    O, S = w.shape[0], 7
+    r.sd["roi_heads.box_head.fc6.weight"] = np.ascontiguousarray(
+        w.reshape(O, S, S, -1).transpose(0, 3, 1, 2).reshape(O, -1))
+    r.dense("roi_heads.box_head.fc7", "box_head", "fc7")
+    r.dense("roi_heads.box_predictor.cls_score", "box_head", "cls_score")
+    r.dense("roi_heads.box_predictor.bbox_pred", "box_head", "bbox_pred")
+    if "mask_head" in params:
+        m = "roi_heads.mask_head"
+        for j in range(4):
+            r.conv(f"{m}.maskrcnn_heads.mask_fcn{j + 1}", "mask_head", f"fcn{j}")
+        r.deconv(f"{m}.maskrcnn_preds.conv5_mask", "mask_head", "deconv")
+        r.conv(f"{m}.maskrcnn_preds.mask_fcn_logits", "mask_head", "logits")
+    return r.sd
+
+
+def panoptic_state_dict_from_flax(params: Mapping) -> Dict[str, np.ndarray]:
+    """flax ``PanopticSegHead`` params → the same names (``connector.conv*``,
+    ``connector.gn*``, ``logits``)."""
+    r = _Reader(params, {})
+    for name in params["connector"]:
+        (r.conv if name.startswith("conv") else r.norm)(f"connector.{name}", "connector", name)
+    r.conv("logits", "logits")
+    return r.sd
+
+
+def hnet_state_dict_from_flax(variables_np: Mapping, cfg: Mapping) -> Dict[str, torch.Tensor]:
+    """flax ``HNet`` variables (numpy) → ``hnet.HNet`` state_dict, loadable
+    with ``strict=True``."""
+    params = variables_np["params"]
+    sd = {f"backbone.{k}": v for k, v in swin_state_dict_from_flax(params["backbone"]).items()}
+    sd.update({f"fpn.{k}": v for k, v in fpn_state_dict_from_flax(params["fpn"]).items()})
+    for task, h in cfg.get("headers", {}).items():
+        node = params[f"header_{task}"]
+        kind = h.get("type", "maskrcnn")
+        if kind == "maskrcnn":
+            part = maskrcnn_state_dict_from_flax(node)
+        elif kind == "panoptic":
+            part = panoptic_state_dict_from_flax(node)
+        elif kind in ("cl", "classification"):
+            r = _Reader(node, {})
+            r.dense("fc1", "fc1")
+            r.dense("fc2", "fc2")
+            part = r.sd
+        else:
+            raise NotImplementedError(f"no weight map for header type {kind!r}")
+        sd.update({f"headers.{task}.{k}": v for k, v in part.items()})
+    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
 
 
 def load_weights(model, path: str) -> None:

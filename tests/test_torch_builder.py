@@ -15,7 +15,7 @@ from hd_yolo_tpu_torch.config import CONFIG_DIR, load_cfg
 from hd_yolo_tpu_torch.models.builder import normalize_legacy_cfg, parse_model_cfg
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PORT_CONFIGS = ["yolov5l6-mask", "yolov5s-test", "hyp-nuclei"]
+PORT_CONFIGS = ["yolov5l6-mask", "yolov5s-test", "hyp-nuclei", "hnet-nucls"]
 
 
 @pytest.mark.parametrize("name", PORT_CONFIGS)

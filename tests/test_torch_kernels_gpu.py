@@ -18,7 +18,7 @@ from hd_yolo_tpu_torch import kernels
 from hd_yolo_tpu_torch.models.detect_head import MaskHead
 from hd_yolo_tpu_torch.ops import pallas_mask_head, pallas_nms, pallas_roi_align, pallas_stem
 from hd_yolo_tpu_torch.ops.nms import nms_padded
-from hd_yolo_tpu_torch.ops.roi_align import multiscale_roi_align_canvas
+from hd_yolo_tpu_torch.ops.roi_align import multiscale_roi_align_canvas, roi_align
 
 pytestmark = pytest.mark.gpu
 
@@ -75,6 +75,29 @@ def test_roi_align_kernel_f32_canvas_matches_plain(cuda):
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("C,dtype,M,n", [(5, torch.float32, 7, 2), (16, torch.float32, 40, 2),
+                                         (256, torch.bfloat16, 20, 2), (24, torch.bfloat16, 14, 1),
+                                         (6, torch.bfloat16, 28, 2)])
+def test_roi_align_single_kernel_matches_plain(cuda, C, dtype, M, n):
+    """Boxes partly off the map and one of zero area; (40, 2) is 80 samples
+    per axis.  f32 atol 1e-5; bf16 to bf16 rounding (the plain version rounds
+    its matrices and row sums to bf16, the kernel stays f32)."""
+    B, K, H, W, scale = 2, 9, 37, 23, 0.25
+    f = torch.randn((B, H, W, C), generator=cuda, device="cuda").to(dtype)
+    xy = torch.rand((B, K, 2), generator=cuda, device="cuda") * 110 - 10
+    boxes = torch.cat([xy, xy + torch.rand((B, K, 2), generator=cuda, device="cuda") * 70], -1)
+    boxes[:, 0, 2:] = boxes[:, 0, :2]
+    n0 = kernels.LAUNCHES["roi_align_single"]
+    got = roi_align(f, boxes, M, scale, n)
+    assert kernels.LAUNCHES["roi_align_single"] == n0 + 1
+    want = pallas_roi_align.roi_align_single_plain(f, boxes, M, scale, n)
+    assert got.dtype == dtype and got.shape == (B, K, M, M, C)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=3e-2)
+
+
 def test_mask_head_kernel_matches_plain(cuda):
     N, C, nc = 37, 256, 3
     head = MaskHead(nc, C)
@@ -97,6 +120,9 @@ def test_kernels_raise_on_what_they_do_not_take(cuda):
         pallas_mask_head.fused_mask_probs(MaskHead(2, 32).cuda(),
                                           torch.zeros((1, 14, 14, 32), device="cuda"),
                                           torch.zeros(1, dtype=torch.long, device="cuda"))
+    with pytest.raises(ValueError):
+        roi_align(torch.zeros((1, 4, 4, 8), dtype=torch.float16, device="cuda"),
+                  torch.zeros((1, 2, 4), device="cuda"), 7)
     with pytest.raises(ValueError):
         pallas_roi_align.roi_align_bounded(torch.zeros((1, 4, 4, 3), device="cuda"),
                                            torch.zeros((1, 4), device="cuda"),

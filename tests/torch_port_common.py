@@ -21,6 +21,12 @@ def random_variables(model, x_shape, seed: int = 0, obj_bias: float = 0.0, no: i
 
     shapes = jax.eval_shape(
         lambda: model.init(jax.random.PRNGKey(0), jnp.zeros(x_shape, jnp.float32), train=False))
+    return random_tree(shapes, seed, obj_bias, no)
+
+
+def random_tree(shapes, seed: int = 0, obj_bias: float = 0.0, no: int = 9):
+    """Numpy leaves for a tree of shapes (``jax.eval_shape`` of an init), by
+    the rules of ``random_variables``."""
     rng = np.random.default_rng(seed)
 
     def walk(node, path):

@@ -8,7 +8,7 @@ from typing import List, Sequence
 
 import torch
 
-from ..ops.roi_align import roi_align
+from ..ops.pallas_roi_align import roi_align_single
 
 Tensor = torch.Tensor
 
@@ -20,5 +20,5 @@ def extract_roi_feature_maps(features: Sequence[Tensor], rois: Tensor, strides: 
     each ROI pooled from every level at a resolution that halves with the
     level, one single-level ROI-align per level."""
     base = int(round(roi_size * amplification))
-    return [roi_align(f, rois, max(base >> lvl, 1), spatial_scale=1.0 / float(s))
+    return [roi_align_single(f, rois, max(base >> lvl, 1), spatial_scale=1.0 / float(s))
             for lvl, (f, s) in enumerate(zip(features, strides))]

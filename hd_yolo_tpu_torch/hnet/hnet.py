@@ -44,8 +44,14 @@ Tensor = torch.Tensor
 
 
 class HNet(nn.Module):
-    def __init__(self, cfg: Dict, dtype: torch.dtype = torch.float32):
+    """``HNet(cfg, dtype, device)`` builds the model with torch's default
+    init on ``device`` (CUDA by default; raises when CUDA is missing), to
+    load a state dict into; ``HNet.from_cfg`` gives it seeded weights."""
+
+    def __init__(self, cfg: Dict, dtype: torch.dtype = torch.float32,
+                 device: Union[str, torch.device] = "cuda"):
         super().__init__()
+        device = resolve_device(device)
         self.dtype = dtype
         b = cfg.get("backbone", {"type": "swin"})
         if b.get("type", "swin") != "swin":
@@ -91,6 +97,7 @@ class HNet(nn.Module):
             else:
                 raise ValueError(f"unknown header type {kind!r}")
         self.headers = nn.ModuleDict(headers)
+        self.eval().to(device)
 
     @classmethod
     def from_cfg(cls, cfg: Dict, dtype: torch.dtype = torch.float32,
@@ -98,10 +105,9 @@ class HNet(nn.Module):
         """The model for ``cfg`` with seeded random weights (``seed``), in eval
         mode on ``device`` (CUDA by default; raises when CUDA is missing).
         ``dtype`` is the compute dtype; parameters stay f32 masters."""
-        device = resolve_device(device)
-        model = cls(cfg, dtype)
+        model = cls(cfg, dtype, device)
         model.reset_parameters(torch.Generator().manual_seed(seed))
-        return model.eval().to(device)
+        return model
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:

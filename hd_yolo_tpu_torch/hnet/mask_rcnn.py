@@ -5,9 +5,10 @@ Static shapes as in the JAX package: ``pre_nms_topk`` anchors per image →
 NMS → ``num_proposals`` padded proposals → box head → class-aware NMS →
 ``num_detections`` padded detections, each with a 28x28 mask.  Both NMS
 calls go through ``ops/nms.nms_dispatch`` (the NMS kernel on the card), the
-ROI pooling through ``multiscale_roi_align_batched`` (the canvas ROI-align
+ROI pooling through ``multiscale_roi_align_canvas`` (the canvas ROI-align
 kernel) and the masks through ``fused_mask_probs`` (the mask-head kernel).
-The training losses are not ported yet.
+``infer`` runs the stages ``propose`` (``proposals``), ``classify``,
+``select`` and ``masks``.  The training losses are not ported yet.
 
 Key layout (``hd_yolo_tpu/utils/import_maskrcnn.py``, torchvision's):
 ``rpn.head.{conv,cls_logits,bbox_pred}``, ``roi_heads.box_head.{fc6,fc7}``,
@@ -29,7 +30,7 @@ from ..models.layers import cached
 from ..ops.boxes import clip_boxes, xywh2xyxy, xyxy2xywh
 from ..ops.nms import batched_nms_padded, nms_dispatch
 from ..ops.pallas_mask_head import fused_mask_probs
-from ..ops.roi_align import multiscale_roi_align_batched
+from ..ops.roi_align import multiscale_roi_align_canvas
 from .layers import conv, dense
 
 Tensor = torch.Tensor
@@ -177,7 +178,12 @@ class MaskRCNN(nn.Module):
         """RPN → (proposals (B, num_proposals, 4) xyxy, valid (B, num_proposals))."""
         anchors = self.anchors([tuple(f.shape[1:3]) for f in feats], feats[0].device)
         logits, deltas = self.rpn.head(feats)
-        logits, deltas = logits.float(), deltas.float()
+        return self.proposals(logits.float(), deltas.float(), anchors, image_size)
+
+    def proposals(self, logits: Tensor, deltas: Tensor, anchors: Tensor,
+                  image_size: Tuple[int, int]) -> Tuple[Tensor, Tensor]:
+        """f32 RPN outputs → top ``pre_nms_topk`` anchors, decoded, clipped
+        and NMS-ed to ``num_proposals`` padded proposals."""
         k = min(self.pre_nms_topk, logits.shape[1])
         # lax.top_k order: descending, ties to the lower index (stable sort)
         scores, sel = torch.sort(logits, dim=-1, descending=True, stable=True)
@@ -195,21 +201,35 @@ class MaskRCNN(nn.Module):
                           .clamp(min=1e-6))
         lvl = torch.floor(4.0 + torch.log2(area / 224.0) + 1e-6) - 2
         lvl = lvl.clamp(0, len(self.strides) - 1).to(torch.int32)
-        return multiscale_roi_align_batched(feats, boxes, lvl, self.strides, output_size)
+        return multiscale_roi_align_canvas(feats, boxes, lvl, self.strides, output_size)
 
     def infer(self, feats: Sequence[Tensor], image_size: Tuple[int, int]) -> Dict[str, Tensor]:
         """Detections: boxes (B, D, 4) xyxy, scores (B, D), labels (B, D) in
         1..num_classes (-100 where invalid), valid (B, D) and, with masks,
         masks (B, D, 28, 28) in-box probabilities (0 where invalid)."""
         proposals, pvalid = self.propose(feats, image_size)
+        probs, box_deltas = self.classify(feats, proposals)
+        out = self.select(probs, box_deltas, proposals, pvalid, image_size)
+        if self.with_masks:
+            out["masks"] = self.masks(feats, out["boxes"], out["labels"], out["valid"])
+        return out
+
+    def classify(self, feats: Sequence[Tensor], proposals: Tensor) -> Tuple[Tensor, Tensor]:
+        """Box head on 7x7 ROIs → f32 class probabilities (B, R, 1 + nc) and
+        box deltas (B, R, 1 + nc, 4)."""
         pooled = self.pool(feats, proposals, 7)
         B, R = proposals.shape[:2]
         x = self.roi_heads.box_head(pooled.reshape((B * R,) + pooled.shape[2:]))
         pred = self.roi_heads.box_predictor
         probs = torch.softmax(dense(pred.cls_score, x).float(), -1).reshape(B, R, -1)
         box_deltas = dense(pred.bbox_pred, x).float().reshape(B, R, self.num_classes + 1, 4)
+        return probs, box_deltas
 
-        # best foreground class per proposal, then class-aware NMS
+    def select(self, probs: Tensor, box_deltas: Tensor, proposals: Tensor, pvalid: Tensor,
+               image_size: Tuple[int, int]) -> Dict[str, Tensor]:
+        """Best foreground class per proposal, then class-aware NMS →
+        ``num_detections`` padded detections (no masks)."""
+        B, R = proposals.shape[:2]
         fg_probs = probs[..., 1:]
         label = fg_probs.argmax(-1)
         score = torch.gather(fg_probs, -1, label[..., None])[..., 0]
@@ -217,16 +237,13 @@ class MaskRCNN(nn.Module):
         boxes = clip_boxes(decode_deltas(proposals, d), image_size)
         ok = pvalid & (score > SCORE_THRESH)
         idx, keep = batched_nms_padded(boxes, score, label, ok, NMS_THRESH, self.num_detections)
-        out = {
+        return {
             "boxes": _take(boxes, idx) * keep[..., None],
             "scores": _take(score, idx) * keep,
             "labels": torch.where(keep, _take(label, idx) + 1, torch.full_like(idx, -100,
                                                                                dtype=torch.int64)),
             "valid": keep,
         }
-        if self.with_masks:
-            out["masks"] = self.masks(feats, out["boxes"], out["labels"], keep)
-        return out
 
     def masks(self, feats: Sequence[Tensor], boxes: Tensor, labels: Tensor,
               valid: Tensor) -> Tensor:

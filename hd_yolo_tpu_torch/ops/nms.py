@@ -88,15 +88,22 @@ def nms_dispatch(boxes: Tensor, scores: Tensor, valid: Tensor, iou_threshold: fl
     return nms_padded_pallas(boxes, scores, valid, iou_threshold, max_det, presorted=presorted)
 
 
+def class_offset_boxes(boxes: Tensor, labels: Tensor, valid: Tensor) -> Tensor:
+    """Boxes (K, 4) or (B, K, 4) shifted by label x span, so boxes of
+    different classes never overlap.  The span is each image's own largest
+    valid coordinate + 1, as the JAX package computes it per image under
+    ``vmap``."""
+    span = torch.where(valid[..., None], boxes, torch.zeros_like(boxes)).amax(
+        dim=(-2, -1), keepdim=True) + 1.0
+    return boxes + labels.to(boxes.dtype)[..., None] * span
+
+
 def batched_nms_padded(boxes: Tensor, scores: Tensor, labels: Tensor, valid: Tensor,
                        iou_threshold: float, max_det: int) -> Tuple[Tensor, Tensor]:
     """Class-aware NMS via the coordinate-offset trick, for one image (K, 4)
-    or a batch (B, K, 4).  The offset span is each image's own largest valid
-    coordinate, as the JAX package computes it per image under ``vmap``."""
-    span = torch.where(valid[..., None], boxes, torch.zeros_like(boxes)).amax(
-        dim=(-2, -1), keepdim=True) + 1.0
-    offsets = labels.to(boxes.dtype)[..., None] * span
-    return nms_dispatch(boxes + offsets, scores, valid, iou_threshold, max_det)
+    or a batch (B, K, 4)."""
+    return nms_dispatch(class_offset_boxes(boxes, labels, valid), scores, valid, iou_threshold,
+                        max_det)
 
 
 def nms_per_image(preds: Tensor, nc: int, conf_thres: float = 0.15, iou_thres: float = 0.45,

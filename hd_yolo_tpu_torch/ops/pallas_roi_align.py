@@ -25,7 +25,7 @@ from typing import Tuple
 import torch
 
 from .. import kernels
-from .roi_align import _bounded_interp_matrix, _pooled_interp_matrix, _sample_coords
+from .roi_align import _bounded_interp_matrix, roi_align
 
 Tensor = torch.Tensor
 
@@ -75,35 +75,15 @@ def roi_align_bounded(canvas: Tensor, meta: Tensor, ys: Tensor, xs: Tensor, boun
     return out
 
 
-def roi_align_single_plain(features: Tensor, boxes: Tensor, output_size: int,
-                           spatial_scale: float = 1.0, sampling_ratio: int = 2,
-                           aligned: bool = False) -> Tensor:
-    """The JAX ``_roi_align_chunk`` with the batch in front: ``Wy · F · Wxᵀ``
-    with the bin-pooled interpolation matrices, which (like the row
-    intermediate) are rounded to the compute dtype (bf16 for bf16 features,
-    else f32), products accumulated in f32."""
-    B, H, W, C = features.shape
-    K = boxes.shape[1]
-    M, n = output_size, sampling_ratio
-    ys, xs = _sample_coords(boxes.reshape(B * K, 4).float(), M, n, spatial_scale, aligned)
-    cd = torch.bfloat16 if features.dtype == torch.bfloat16 else torch.float32
-    Wy = _pooled_interp_matrix(ys, H, M, n).to(cd).float().reshape(B, K, M, H)
-    Wx = _pooled_interp_matrix(xs, W, M, n).to(cd).float().reshape(B, K, M, W)
-    rows = torch.einsum("bksh,bhwc->bkswc", Wy, features.to(cd).float()).to(cd).float()
-    out = torch.einsum("bktw,bkswc->bkstc", Wx, rows)
-    return out.to(features.dtype)
-
-
 def roi_align_single(features: Tensor, boxes: Tensor, output_size: int,
                      spatial_scale: float = 1.0, sampling_ratio: int = 2,
                      aligned: bool = False) -> Tensor:
     """features (B, H, W, C) f32|bf16, any C; boxes (B, K, 4) xyxy in image
     coordinates → (B, K, M, M, C) in the features' dtype.  The kernel works
     in f32 until its single write, so for bf16 it agrees with the plain
-    version to bf16 rounding."""
+    version (``ops/roi_align.roi_align``) to bf16 rounding."""
     if features.device.type == "cpu":
-        return roi_align_single_plain(features, boxes, output_size, spatial_scale,
-                                      sampling_ratio, aligned)
+        return roi_align(features, boxes, output_size, spatial_scale, sampling_ratio, aligned)
     if features.dim() != 4 or features.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"roi_align_single kernel takes (B, H, W, C) f32/bf16 features, got "
                          f"{features.dtype} {tuple(features.shape)}")

@@ -6,10 +6,10 @@ torchvision ``aligned=False`` semantics (the reference's mode):
 samples outside ``(lo-1, hi)`` contribute zero, in-range coordinates clamp
 to the border, a fixed ``n x n`` sample grid per output bin, average-pooled.
 
-Single level: ``roi_align`` pools (B, K) boxes from one (B, H, W, C) map —
-``ops/pallas_roi_align.roi_align_single``, the CUDA kernel for a CUDA map,
-its plain version (the helpers below, as the JAX package's matmul form) for
-a CPU map.
+Single level: ``roi_align`` pools (B, K) boxes from one (B, H, W, C) map
+with the JAX package's matmul form — the plain version of
+``ops/pallas_roi_align.roi_align_single``, which launches the CUDA kernel
+for a CUDA map and runs ``roi_align`` for a CPU map.
 
 Multiscale: all pyramid levels are stacked along rows into one
 channels-last canvas (B, ΣH_l, W0, C); each ROI samples its own level's
@@ -22,7 +22,7 @@ op order; the pooling itself is ``ops/pallas_roi_align.roi_align_bounded``
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -79,11 +79,22 @@ def _pooled_interp_matrix(coords: Tensor, size: int, M: int, n: int) -> Tensor:
 def roi_align(features: Tensor, boxes: Tensor, output_size: int, spatial_scale: float = 1.0,
               sampling_ratio: int = 2, aligned: bool = False) -> Tensor:
     """ROI-align (B, K, 4) xyxy boxes against their image's map of
-    ``features`` (B, H, W, C) → (B, K, M, M, C) in the features' dtype (the
-    JAX ``roi_align`` with the batch in front, as it runs under ``vmap``)."""
-    from .pallas_roi_align import roi_align_single
+    ``features`` (B, H, W, C) → (B, K, M, M, C) in the features' dtype: the
+    JAX ``roi_align`` with the batch in front, as it runs under ``vmap``.
 
-    return roi_align_single(features, boxes, output_size, spatial_scale, sampling_ratio, aligned)
+    The plain version: ``Wy · F · Wxᵀ`` with the bin-pooled interpolation
+    matrices, which (like the row intermediate) are rounded to the compute
+    dtype (bf16 for bf16 features, else f32), products accumulated in f32."""
+    B, H, W, C = features.shape
+    K = boxes.shape[1]
+    M, n = output_size, sampling_ratio
+    ys, xs = _sample_coords(boxes.reshape(B * K, 4).float(), M, n, spatial_scale, aligned)
+    cd = torch.bfloat16 if features.dtype == torch.bfloat16 else torch.float32
+    Wy = _pooled_interp_matrix(ys, H, M, n).to(cd).float().reshape(B, K, M, H)
+    Wx = _pooled_interp_matrix(xs, W, M, n).to(cd).float().reshape(B, K, M, W)
+    rows = torch.einsum("bksh,bhwc->bkswc", Wy, features.to(cd).float()).to(cd).float()
+    out = torch.einsum("bktw,bkswc->bkstc", Wx, rows)
+    return out.to(features.dtype)
 
 
 def _bounded_interp_matrix(coords: Tensor, lo: Tensor, hi: Tensor, size: int, M: int,
@@ -205,35 +216,3 @@ def multiscale_roi_align_canvas(features: Sequence[Tensor], boxes: Tensor, level
     roi_meta = torch.stack([b_idx, zero, zero, zero], -1)
     out = roi_align_bounded(canvas, roi_meta, ys, xs, bounds, (Ht, W0), M, n)
     return out.reshape(B, K, M, M, C)
-
-
-def multiscale_roi_align_batched(features: Sequence[Tensor], boxes: Tensor, levels: Tensor,
-                                 strides: Sequence[float], output_size: int,
-                                 sampling_ratio: int = 2, aligned: bool = False,
-                                 use_pallas: Optional[bool] = None,
-                                 window: Optional[int] = None) -> Tensor:
-    """Batched multi-level ROI-align → (B, K, M, M, C): (B, K) boxes, each
-    pooled from the level ``levels`` names.
-
-    Default (``use_pallas`` None or True): the exact canvas semantics,
-    ``multiscale_roi_align_canvas``.  ``use_pallas=False``: pool every box
-    from every level with the single-level ``roi_align`` and keep its own
-    level's result (the JAX package's differential-testing form).
-    ``window=w``: each ROI pools from a w x w window of its level, exact
-    while its sampled span fits (``multiscale_roi_align_packed``)."""
-    if window is not None:
-        B, K = boxes.shape[:2]
-        b_idx = torch.arange(B, device=boxes.device).repeat_interleave(K)
-        out = multiscale_roi_align_packed(features, boxes.reshape(B * K, 4),
-                                          levels.reshape(B * K), b_idx, strides, output_size,
-                                          sampling_ratio, aligned, int(window))
-        return out.reshape((B, K) + out.shape[1:])
-    if use_pallas is None or use_pallas:
-        return multiscale_roi_align_canvas(features, boxes, levels, strides, output_size,
-                                           sampling_ratio, aligned)
-    out = None
-    for i, (fmap, stride) in enumerate(zip(features, strides)):
-        pooled = roi_align(fmap, boxes, output_size, 1.0 / float(stride), sampling_ratio, aligned)
-        sel = (levels == i).to(pooled.dtype)[..., None, None, None]
-        out = pooled * sel if out is None else out + pooled * sel
-    return out

@@ -71,7 +71,7 @@ def hnet_pair():
     variables = random_variables(jm, X_SHAPE, seed=0)
     x = np.random.default_rng(1).uniform(0, 1, X_SHAPE).astype(np.float32)
     _, want = jax.jit(lambda v, xx: jm.apply(v, xx, train=False))(variables, jnp.asarray(x))
-    model = HNet(CFG)
+    model = HNet(CFG, device="cpu")
     model.load_state_dict(hnet_state_dict_from_flax(variables, CFG), strict=True)
     return model.eval(), variables, x, jax.tree.map(np.asarray, want)
 
@@ -255,7 +255,7 @@ def test_hnet_nucls_builds_with_the_jax_parameter_count():
     shapes = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0),
                                             jnp.zeros((1, 128, 128, 3)), train=False))
     n_jax = sum(int(np.prod(s.shape)) for s in jax.tree.leaves(shapes["params"]))
-    m = HNet(load_cfg("hnet-nucls"))
+    m = HNet(load_cfg("hnet-nucls"), device="cpu")
     assert sum(p.numel() for p in m.parameters()) == n_jax
 
 
@@ -263,17 +263,19 @@ def test_hnet_from_cfg_defaults_to_cuda_and_raises_without_it(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         HNet.from_cfg(CFG)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        HNet(CFG)
     m = HNet.from_cfg(CFG, device="cpu", seed=3)
-    assert next(m.parameters()).device.type == "cpu"
+    assert next(m.parameters()).device.type == "cpu" and not m.training
 
 
 def test_hnet_raises_for_what_is_not_ported():
     with pytest.raises(NotImplementedError):
         HNet.from_cfg(CFG, device="cpu")(torch.zeros(X_SHAPE), targets={})
     with pytest.raises(NotImplementedError):
-        HNet({**CFG, "backbone": {"type": "darknet"}})
+        HNet({**CFG, "backbone": {"type": "darknet"}}, device="cpu")
     with pytest.raises(NotImplementedError):
-        HNet({**CFG, "headers": {"d": {"type": "fcos", "num_classes": 2}}})
+        HNet({**CFG, "headers": {"d": {"type": "fcos", "num_classes": 2}}}, device="cpu")
 
 
 @pytest.mark.parametrize("h,w,tile,overlap", [(640, 640, 640, 0), (1000, 700, 640, 64),

@@ -88,9 +88,9 @@ def test_roi_align_single_kernel_matches_plain(cuda, C, dtype, M, n):
     boxes = torch.cat([xy, xy + torch.rand((B, K, 2), generator=cuda, device="cuda") * 70], -1)
     boxes[:, 0, 2:] = boxes[:, 0, :2]
     n0 = kernels.LAUNCHES["roi_align_single"]
-    got = roi_align(f, boxes, M, scale, n)
+    got = pallas_roi_align.roi_align_single(f, boxes, M, scale, n)
     assert kernels.LAUNCHES["roi_align_single"] == n0 + 1
-    want = pallas_roi_align.roi_align_single_plain(f, boxes, M, scale, n)
+    want = roi_align(f, boxes, M, scale, n)
     assert got.dtype == dtype and got.shape == (B, K, M, M, C)
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
@@ -121,8 +121,9 @@ def test_kernels_raise_on_what_they_do_not_take(cuda):
                                           torch.zeros((1, 14, 14, 32), device="cuda"),
                                           torch.zeros(1, dtype=torch.long, device="cuda"))
     with pytest.raises(ValueError):
-        roi_align(torch.zeros((1, 4, 4, 8), dtype=torch.float16, device="cuda"),
-                  torch.zeros((1, 2, 4), device="cuda"), 7)
+        pallas_roi_align.roi_align_single(torch.zeros((1, 4, 4, 8), dtype=torch.float16,
+                                                      device="cuda"),
+                                          torch.zeros((1, 2, 4), device="cuda"), 7)
     with pytest.raises(ValueError):
         pallas_roi_align.roi_align_bounded(torch.zeros((1, 4, 4, 3), device="cuda"),
                                            torch.zeros((1, 4), device="cuda"),

@@ -1,5 +1,6 @@
-"""PyTorch port, single-level ROI-align: the plain version (what
-``roi_align`` runs on CPU tensors) against the JAX ``roi_align`` under
+"""PyTorch port, single-level ROI-align: the plain version ``roi_align``
+(what the kernel's wrapper ``roi_align_single`` runs on CPU tensors) against
+the JAX ``roi_align`` under
 ``vmap`` and against the Pallas kernel ``roi_align_pallas`` in interpret
 mode, in f32 and bf16, at sampling ratios 1 and 2, with boxes partly off the
 map, zero-area boxes and more than 64 samples per axis.
@@ -19,8 +20,9 @@ from hd_yolo_tpu.ops.pallas_roi_align import roi_align_pallas
 from hd_yolo_tpu.ops.roi_align import multiscale_roi_align_batched as jax_batched
 from hd_yolo_tpu.ops.roi_align import roi_align as jax_roi_align
 from hd_yolo_tpu_torch import kernels
-from hd_yolo_tpu_torch.ops.roi_align import (_interp_matrix, multiscale_roi_align_batched,
-                                             roi_align)
+from hd_yolo_tpu_torch.ops.pallas_roi_align import roi_align_single
+from hd_yolo_tpu_torch.ops.roi_align import (_interp_matrix, multiscale_roi_align_canvas,
+                                             multiscale_roi_align_packed)
 
 STRIDES = (8.0, 16.0, 32.0, 64.0)
 
@@ -48,7 +50,7 @@ def test_roi_align_f32_matches_jax(rng, n, M, H, W, C):
     f = rng.standard_normal((B, H, W, C)).astype(np.float32)
     b = _boxes(rng, B, K, W / scale)
     n0 = kernels.LAUNCHES["roi_align_single"]
-    got = roi_align(torch.from_numpy(f), torch.from_numpy(b), M, scale, n)
+    got = roi_align_single(torch.from_numpy(f), torch.from_numpy(b), M, scale, n)
     assert kernels.LAUNCHES["roi_align_single"] == n0          # CPU tensors: the plain version
     assert got.shape == (B, K, M, M, C) and got.dtype == torch.float32
     want = _jax(f, b, M, scale, n)
@@ -59,7 +61,7 @@ def test_roi_align_f32_matches_jax(rng, n, M, H, W, C):
 def test_roi_align_aligned_matches_jax(rng):
     f = rng.standard_normal((1, 16, 16, 8)).astype(np.float32)
     b = _boxes(rng, 1, 5, 64.0)
-    got = roi_align(torch.from_numpy(f), torch.from_numpy(b), 7, 0.25, 2, aligned=True)
+    got = roi_align_single(torch.from_numpy(f), torch.from_numpy(b), 7, 0.25, 2, aligned=True)
     np.testing.assert_allclose(got.numpy(), _jax(f, b, 7, 0.25, 2, aligned=True), rtol=0,
                                atol=1e-5)
 
@@ -70,7 +72,7 @@ def test_roi_align_bf16_matches_jax(rng, n):
     f = rng.standard_normal((B, H, W, C)).astype(np.float32)
     b = _boxes(rng, B, K, W / scale)
     ft = torch.from_numpy(f).to(torch.bfloat16)
-    got = roi_align(ft, torch.from_numpy(b), M, scale, n)
+    got = roi_align_single(ft, torch.from_numpy(b), M, scale, n)
     assert got.dtype == torch.bfloat16
     want = np.asarray(jax.vmap(lambda ff, bb: jax_roi_align(
         ff, bb, M, spatial_scale=scale, sampling_ratio=n))(
@@ -86,7 +88,7 @@ def test_roi_align_matches_pallas_interpret(rng):
     b = _boxes(rng, B, K, 64.0)
     want = np.asarray(roi_align_pallas(jnp.asarray(f), jnp.asarray(b), M, 0.25, 2, False, 4,
                                        True))
-    got = roi_align(torch.from_numpy(f), torch.from_numpy(b), M, 0.25, 2)
+    got = roi_align_single(torch.from_numpy(f), torch.from_numpy(b), M, 0.25, 2)
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
 
 
@@ -98,11 +100,30 @@ def test_interp_matrix_rows_zero_out_of_range():
     np.testing.assert_allclose(m[3].numpy(), [0.75, 0.25, 0, 0])
 
 
+def _per_level(feats, boxes, levels, strides, M):
+    """Every box pooled from every level by the single-level ROI-align, each
+    keeping its own level's result (the JAX package's differential form)."""
+    out = 0
+    for i, (f, s) in enumerate(zip(feats, strides)):
+        out = out + roi_align_single(f, boxes, M, 1.0 / s) * (levels == i)[..., None, None, None]
+    return out
+
+
+def _window(feats, boxes, levels, strides, M):
+    B, K = boxes.shape[:2]
+    b_idx = torch.arange(B).repeat_interleave(K)
+    out = multiscale_roi_align_packed(feats, boxes.reshape(B * K, 4), levels.reshape(B * K),
+                                      b_idx, strides, M, window=12)
+    return out.reshape((B, K) + out.shape[1:])
+
+
 @pytest.mark.parametrize("mode", ["canvas", "per_level", "window"])
 def test_multiscale_batched_matches_jax(rng, mode):
-    """The three forms of ``multiscale_roi_align_batched`` against the JAX
-    function's default canvas form (the window form is exact for ROIs whose
-    span fits it, which these do)."""
+    """Three forms of the multiscale ROI-align against the JAX
+    ``multiscale_roi_align_batched`` (its default canvas form): the canvas
+    form the Mask R-CNN header runs, the single-level ROI-align per level,
+    and the 12 x 12 window form (exact for ROIs whose span fits it, which
+    these do)."""
     B, K, C, img = 2, 7, 8, 256
     feats = [rng.standard_normal((B, img // int(s), img // int(s), C)).astype(np.float32)
              for s in STRIDES]
@@ -116,8 +137,7 @@ def test_multiscale_batched_matches_jax(rng, mode):
             boxes[i, k] = [x1, y1, x1 + w, y1 + h]
     want = np.asarray(jax_batched([jnp.asarray(f) for f in feats], jnp.asarray(boxes),
                                   jnp.asarray(levels), STRIDES, 7))
-    kw = {"canvas": {}, "per_level": {"use_pallas": False}, "window": {"window": 12}}[mode]
-    got = multiscale_roi_align_batched([torch.from_numpy(f) for f in feats],
-                                       torch.from_numpy(boxes), torch.from_numpy(levels),
-                                       STRIDES, 7, **kw)
+    fn = {"canvas": multiscale_roi_align_canvas, "per_level": _per_level, "window": _window}[mode]
+    got = fn([torch.from_numpy(f) for f in feats], torch.from_numpy(boxes),
+             torch.from_numpy(levels), STRIDES, 7)
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)

@@ -32,13 +32,32 @@ Phases (any failure raises and the script exits non-zero):
      FPN 256) on 2 x 128 px through the kernels (CUDA, bf16) against the
      port's plain path on the CPU (bf16), end to end and, for the detection
      path, stage by stage on the card's own inputs to each stage; and in f32
-     end to end.
+     end to end;
+  8. stem lab: ``hd_yolo_tpu_torch.tools.stem_lab.main`` at its defaults
+     (16 x 640, all nine formulations, one JSON line each) with every launch
+     count reset just before and read just after (``stem_k108``,
+     ``stem_dot108`` and ``stem`` each launched);
+  9. slide: ``Detector("yolov5l6-mask", "hyp-nuclei")`` in bf16,
+     ``Detector.slide`` on a synthetic 4096 x 4096 uint8 slide with tile 640,
+     overlap 64 and batch 16 (49 tiles, 4 batches), the objectness
+     calibrated to ~20 detections per tile: the launch counts of one slide
+     (stem 4, NMS 5 = 4 per-tile + 1 stitch, ROI-align 4, mask head 4), the
+     median wall time over >= 5 slides and tiles/s, the band population
+     against ``max_band`` (and the saturation warning exactly when it is
+     reached), the mask-carrying rows against ``mask_rows``, every box inside
+     the slide, no two kept detections of one label at IoU > 0.45, and a
+     paste of the top masks into a crop;
+ 10. slide reference: ``yolov5s-test`` on a 600 x 900 slide in f32, the card
+     against the plain path on the CPU: >= 98% of the CPU's stitched
+     detections found again (same label, IoU >= 0.9).
 
 Phase 3 also holds the single-level ROI-align kernel against its plain
 version at the four hnet-nucls level shapes (and a small f32 case with 5
-channels), and kernels 2–4 at the shapes hnet-nucls gives them: both NMS
-calls, the canvas ROI-align at the box head's and the mask head's ROIs, and
-the mask head at 400 ROIs with five mask classes.
+channels), kernels 2–4 at the shapes hnet-nucls gives them (both NMS calls,
+the canvas ROI-align at the box head's and the mask head's ROIs, the mask
+head at 400 ROIs with five mask classes), the NMS kernel at the slide
+stitch's shapes ((1, 1024) band, (1, 4096) full, IoU 0.45, bit-identical,
+timed), and the K=108 stem kernels 6 and 7 at (16, 640, 640, 3).
 
 The last lines are the per-kernel JSON record, the ``nvidia-smi`` line, and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -53,6 +72,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -67,9 +87,12 @@ from hd_yolo_tpu_torch.models.detect_head import MaskHead  # noqa: E402
 from hd_yolo_tpu_torch.ops.boxes import box_iou, remove_small_boxes_mask, xywh2xyxy  # noqa: E402
 from hd_yolo_tpu_torch.ops import pallas_mask_head, pallas_nms, pallas_roi_align, pallas_stem  # noqa: E402
 from hd_yolo_tpu_torch.ops.nms import batched_nms_padded, class_offset_boxes, nms_padded  # noqa: E402
+from hd_yolo_tpu_torch.ops.paste import paste_masks_in_image  # noqa: E402
 from hd_yolo_tpu_torch.ops.roi_align import (_multiscale_roi_align_canvas,  # noqa: E402
                                              multiscale_roi_align_canvas,
                                              multiscale_roi_align_packed, roi_align)
+from hd_yolo_tpu_torch.tools import stem_lab  # noqa: E402
+from hd_yolo_tpu_torch.wsi import tiling  # noqa: E402
 
 # H100 SXM published peaks (dense): HBM bytes/s, bf16 tensor-core and f32 FLOP/s.
 HBM_BPS = 3.35e12
@@ -82,8 +105,18 @@ TPU_KERNEL = {
     "roi_align": "hd_yolo_tpu/ops/pallas_roi_align.py:195",
     "mask_head": "hd_yolo_tpu/ops/pallas_mask_head.py:51",
     "roi_align_single": "hd_yolo_tpu/ops/pallas_roi_align.py:31",
+    "stem_k108": "tools/stem_lab.py:132",
+    "stem_dot108": "tools/stem_lab.py:168",
 }
 FLAGSHIP_KERNELS = ("stem", "nms", "roi_align", "mask_head")
+LAB_KERNELS = ("stem", "stem_k108", "stem_dot108")
+
+
+def slide_launches(n_batches: int) -> dict:
+    """Launches of one flagship slide: per tile batch one stem, one per-tile
+    NMS, one ROI-align and one mask head; one stitch NMS."""
+    return {"stem": n_batches, "nms": n_batches + 1, "roi_align": n_batches,
+            "mask_head": n_batches, "roi_align_single": 0, "stem_k108": 0, "stem_dot108": 0}
 # launches of one hnet-nucls forward: 4 pyramid levels of the tile ROI, the
 # box-head and mask pooling, the RPN and class-aware NMS, one mask head
 HNET_LAUNCHES = {"stem": 0, "nms": 2, "roi_align": 2, "mask_head": 1, "roi_align_single": 4}
@@ -408,6 +441,90 @@ def check_hnet_shapes(gen):
                     pallas_mask_head.fused_mask_probs(head, pooled, labels),
                     pallas_mask_head.fused_mask_probs_plain(head, pooled, labels),
                     atol=2e-2, rtol=0.0)
+
+
+
+def stem_inputs(gen):
+    dev = "cuda"
+    x = torch.rand((16, 640, 640, 3), generator=gen, device=dev)
+    w = torch.randn((6, 6, 3, 64), generator=gen, device=dev) * 0.05
+    scale = torch.rand(64, generator=gen, device=dev) + 0.5
+    bias = torch.randn(64, generator=gen, device=dev) * 0.1
+    return x, w, scale, bias
+
+
+def stem_library_ms(x, w, scale, bias, iters):
+    """cuDNN bf16 conv with the scale folded into the weights + bias, then SiLU."""
+    xl = x.to(torch.bfloat16).permute(0, 3, 1, 2)
+    wl = (w.permute(3, 2, 0, 1) * scale[:, None, None, None]).to(torch.bfloat16)
+    bl = bias.to(torch.bfloat16)
+    return cuda_ms(lambda: F.silu(F.conv2d(xl, wl, bl, 2, 2)), iters)
+
+
+def phase_stem_k108(gen, iters):
+    """Kernel 6 at (16, 640, 640, 3): it reads the f32 image and does the
+    space-to-depth itself.  Bound: x + weights + the bf16 output."""
+    x, w, scale, bias = stem_inputs(gen)
+    got = stem_lab.stem_k108(x, w, scale, bias)
+    want = stem_lab.stem_k108_plain(x, w, scale, bias)
+    torch.cuda.synchronize()
+    # the same bf16 operands and f32 accumulation in another order: one bf16 ulp
+    err = check_close("stem_k108", got, want, atol=1e-3, rtol=2 ** -7)
+    ms = cuda_ms(lambda: stem_lab.stem_k108(x, w, scale, bias), iters)
+    plain_ms = cuda_ms(lambda: stem_lab.stem_k108_plain(x, w, scale, bias), iters)
+    flops = 2.0 * got.numel() * stem_lab.KDIM
+    b_ms, by = bound(nbytes(x, got, scale, bias) + stem_lab.KDIM * 64 * 2, flops, BF16_FLOPS)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                library_ms=stem_library_ms(x, w, scale, bias, iters))
+
+
+def phase_stem_dot108(gen, iters):
+    """Kernel 7 at (16, 640, 640, 3): the wrapper (torch im2col + kernel)
+    against the shared plain version; timed as the kernel alone on the
+    (1,638,400, 108) bf16 im2col against the plain product on the same
+    im2col.  Bound: the im2col + weights + the bf16 output."""
+    x, w, scale, bias = stem_inputs(gen)
+    got = stem_lab.stem_dot108(x, w, scale, bias)
+    want = stem_lab.stem_k108_plain(x, w, scale, bias)
+    torch.cuda.synchronize()
+    err = check_close("stem_dot108", got, want, atol=1e-3, rtol=2 ** -7)
+    cols = stem_lab.im2col108(stem_lab.s2d(x), 320, 320).contiguous()
+    w108 = stem_lab.w_108(w)
+    ms = cuda_ms(lambda: stem_lab.dot108(cols, w108, scale, bias), iters)
+    plain_ms = cuda_ms(lambda: stem_lab.dot108_plain(cols, w108, scale, bias), iters)
+    wrapper_ms = cuda_ms(lambda: stem_lab.stem_dot108(x, w, scale, bias), iters)
+    log(f"  stem_dot108 with its torch im2col (the wrapper, x -> y): {wrapper_ms:.4f} ms")
+    flops = 2.0 * got.numel() * stem_lab.KDIM
+    b_ms, by = bound(nbytes(cols, got, scale, bias, w108), flops, BF16_FLOPS)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                library_ms=stem_library_ms(x, w, scale, bias, iters))
+
+
+def check_stitch_nms(gen, iters):
+    """The NMS kernel at the slide stitch's shapes: the band form (1, 1024)
+    and the full form (1, 4096), IoU 0.45, bit-identical to the plain
+    version, with times (plain: few runs, its sweep is a host loop)."""
+    dev = "cuda"
+    out = {}
+    for K in (1024, 4096):
+        boxes, scores, valid = clustered_boxes(gen, 1, K, dev, extent=4000.0, pairs_at=4100.0)
+        i1, k1 = pallas_nms.nms_padded_pallas(boxes, scores, valid, 0.45, K)
+        i2, k2 = nms_padded(boxes, scores, valid, 0.45, K)
+        same = torch.equal(i1.to(torch.int64), i2.to(torch.int64)) and torch.equal(k1, k2)
+        order = torch.sort(torch.where(valid, scores, torch.full_like(scores, -math.inf)), dim=-1,
+                           descending=True, stable=True).indices
+        sb = torch.gather(boxes, 1, order[..., None].expand_as(boxes)).contiguous()
+        sv = torch.gather(valid, 1, order)
+        ms = cuda_ms(lambda: pallas_nms.nms_keep_sorted(sb, sv, 0.45, K), iters)
+        plain_ms = cuda_ms(lambda: pallas_nms.nms_keep_sorted_plain(sb, sv, 0.45, K), 3, warmup=1)
+        nv = sv.sum(1).double()
+        b_ms, by = bound(nbytes(sb, sv, i1, k1), float((nv * (nv - 1) / 2).sum()) * 20, F32_FLOPS)
+        log(f"  nms stitch (1, {K}) -> {K} at IoU 0.45: bit-identical {same}, kept "
+            f"{int(k1.sum())}; kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | bound {b_ms:.4f} ms "
+            f"({by})")
+        need(same, f"nms: kernel disagrees with its plain version at the stitch shape (1, {K})")
+        out[f"1x{K}"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by)
+    return out
 
 
 # ---------------------------------------------------------------- flagship
@@ -804,6 +921,205 @@ def phase_hnet_reference():
         raise AssertionError("hnet reference check failed")
 
 
+# ---------------------------------------------------------------- lab and slide
+def phase_lab():
+    """The stem lab at its defaults; every launch count reset just before
+    and read just after."""
+    kernels.reset_launches()
+    recs = stem_lab.main([])
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    log(f"  launches in the lab run: {launches}")
+    need([r["name"] for r in recs] == list(stem_lab.CANDIDATES), "the lab skipped a candidate")
+    for r in recs:
+        need(math.isfinite(r["ms_per_batch"]) and r["max_abs_err"] <= 0.05,
+             f"lab candidate {r['name']}: {r}")
+    for k in LAB_KERNELS:
+        need(launches[k] >= 1, f"kernel {k} was not launched by the stem lab")
+    return launches
+
+
+def pairwise_violations(boxes, labels, thr):
+    """Pairs of one label with IoU > thr among (K, 4) boxes (on the card)."""
+    iou = box_iou(boxes, boxes)
+    same = labels[:, None] == labels[None, :]
+    upper = torch.ones_like(same).triu(1)
+    return int(((iou > thr) & same & upper).sum())
+
+
+@torch.no_grad()
+def calibrate_detections(det: Detector, x, per_tile: float):
+    """Calibrate the objectness (``calibrate_objectness``) so that ``x``
+    gives about ``per_tile`` valid detections per tile: a bisection over
+    the fraction of anchors that clear ``conf_thres``."""
+    lo, hi = 1e-5, 0.05
+    for _ in range(12):
+        frac = math.sqrt(lo * hi)
+        calibrate_objectness(det, x, frac)
+        out = det.tiles(x, compute_masks=False)
+        n = float(next(iter(out.values()))["valid"].sum()) / x.shape[0]
+        if n < per_tile:
+            lo = frac
+        else:
+            hi = frac
+        if abs(n - per_tile) <= 1.5:
+            break
+    return frac, n
+
+
+def phase_slide(iters: int):
+    """The flagship on a 4096 x 4096 slide through ``Detector.slide``."""
+    det = Detector("yolov5l6-mask", "hyp-nuclei", device="cuda", seed=0, pre_nms_topk=1024,
+                   max_masks=100, mask_budget=768, mask_window=16)
+    dev, task, tile, batch = det.device, "detSC", 640, 16
+    slide = np.random.default_rng(9).integers(0, 256, (4096, 4096, 3), dtype=np.uint8)
+    H, W = slide.shape[:2]
+    kw = dict(tile=tile, overlap=64, batch=batch)
+    grid = tiling.sliding_window_grid(H, W, tile, 64)
+    n_tiles = len(grid)
+    x = tiling.extract_tiles(torch.from_numpy(slide).to(dev), torch.from_numpy(grid[:batch]),
+                             tile)
+    frac, per_tile = calibrate_detections(det, x, 20.0)
+    log(f"  objectness calibrated: {frac:.2e} of anchors clear conf_thres, "
+        f"{per_tile:.1f} valid detections per tile on the first batch")
+    det.slide(slide, **kw)                            # warm-up
+    torch.cuda.synchronize()
+
+    captured = {}
+    orig_si = tiling.slide_inference
+
+    def spy_si(*a, **k):
+        captured["out"] = orig_si(*a, **k)
+        return captured["out"]
+
+    tiling.slide_inference = spy_si
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            kernels.reset_launches()
+            res = det.slide(slide, **kw)
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+    finally:
+        tiling.slide_inference = orig_si
+    log(f"  launches in one slide of {n_tiles} tiles: {launches}")
+    for k, n in slide_launches(-(-n_tiles // batch)).items():
+        need(launches[k] == n, f"kernel {k}: {launches[k]} launches in one slide, expected {n}")
+    o = res[0][task]
+    raw = captured["out"]
+    n_det = len(o["boxes"])
+    need(n_det >= n_tiles and np.isfinite(o["boxes"]).all() and np.isfinite(o["scores"]).all(),
+         f"slide: {n_det} detections or non-finite values")
+    need(o["masks"].shape[1:] == (28, 28), f"slide masks {o['masks'].shape}")
+    b = o["boxes"]
+    inside = ((b[:, 0] < W) & (b[:, 1] < H) & (b[:, 2] <= W) & (b[:, 3] <= H)
+              & (b[:, 2] >= 0) & (b[:, 3] >= 0))
+    need(bool(inside.all()), f"{int((~inside).sum())} slide boxes outside the slide")
+    log(f"  {n_det} detections ({n_det / n_tiles:.1f} per tile), {int(o['has_mask'].sum())} with "
+        f"masks; all boxes inside the {W} x {H} slide ({int(((b[:, 0] < 0) | (b[:, 1] < 0)).sum())} "
+        f"reach past its left or top edge, as the reference keeps them)")
+
+    # the invariants, on the stitched rows before the slide clip
+    v = raw["valid"] & (raw["boxes"][:, 0] < W) & (raw["boxes"][:, 1] < H)
+    bx = torch.from_numpy(raw["boxes"][v]).to(dev)
+    viol = pairwise_violations(bx, torch.from_numpy(raw["labels"][v]).to(dev), 0.45)
+    log(f"  pairs of one label at IoU > 0.45 among the {int(v.sum())} kept: {viol}")
+    need(viol == 0, f"{viol} kept pairs of one label overlap at IoU > 0.45")
+
+    # band population and mask-carrying rows: one more slide with the stitch
+    # also run without compaction (its own NMS launch, outside the count)
+    stitched = {}
+    orig_stitch = tiling._global_stitch_nms
+
+    def spy_stitch(flat, labels, *a, **k):
+        dense = orig_stitch(dict(flat), labels, *a, **{**k, "max_mask_rows": None})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig_stitch(flat, labels, *a, **k)
+        torch.cuda.synchronize()
+        stitched.update(ms=(time.perf_counter() - t0) * 1e3, rows=int(flat["boxes"].shape[0]),
+                        band=int(dense["band_count"][0]),
+                        mask_rows=int((dense["mask_valid"] & dense["valid"]).sum()),
+                        kept=int(out["valid"].sum()), kept_masks=int(out["mask_valid"].sum()))
+        return out
+
+    tiling._global_stitch_nms = spy_stitch
+    try:
+        det.slide(slide, **kw)
+    finally:
+        tiling._global_stitch_nms = orig_stitch
+    saturated = [w for w in caught if "max_band" in str(w.message)]
+    log(f"  stitch: {stitched['rows']} stitched rows, band population {stitched['band']} of "
+        f"max_band 1024, mask-carrying rows {stitched['mask_rows']} of mask_rows 1024 "
+        f"({stitched['mask_rows'] - stitched['kept_masks']} lose their mask to the cap, without a "
+        f"warning, as in the reference), {stitched['kept']} kept; the stitch (band NMS + gathers "
+        f"+ compaction) {stitched['ms']:.3f} ms wall")
+    need(bool(saturated) == (stitched["band"] >= 1024),
+         f"band population {stitched['band']} but {len(saturated)} saturation warnings")
+    need(stitched["kept_masks"] == min(stitched["mask_rows"], 1024),
+         f"the compaction kept {stitched['kept_masks']} of {stitched['mask_rows']} mask rows")
+
+    # a paste of the top masks into a 640 x 640 crop around the best one
+    top = np.argsort(-np.where(o["has_mask"], o["scores"], -np.inf), kind="stable")[:32]
+    top = top[o["has_mask"][top]]
+    cx, cy = (o["boxes"][top[0], 0] + o["boxes"][top[0], 2]) / 2, \
+        (o["boxes"][top[0], 1] + o["boxes"][top[0], 3]) / 2
+    x0, y0 = int(np.clip(cx - tile / 2, 0, W - tile)), int(np.clip(cy - tile / 2, 0, H - tile))
+    boxes_c = torch.from_numpy((o["boxes"][top] - [x0, y0, x0, y0]).astype(np.float32)).to(dev)
+    pasted = paste_masks_in_image(torch.from_numpy(o["masks"][top]).to(dev), boxes_c, tile, tile)
+    torch.cuda.synchronize()
+    need(pasted.shape == (len(top), tile, tile) and bool(torch.isfinite(pasted).all())
+         and float(pasted.min()) >= 0 and float(pasted.max()) <= 1 + 1e-6,
+         "pasted masks out of [0, 1]")
+    need(float(pasted[0].sum()) > 0, "the best mask pasted nothing")
+    log(f"  pasted the top {len(top)} masks into the crop at ({x0}, {y0}): "
+        f"{int((pasted > 0.5).sum())} mask pixels above 0.5")
+
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        det.slide(slide, **kw)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    med = statistics.median(times)
+    log(f"  slide median {med * 1e3:.2f} ms over {iters} runs (min {min(times) * 1e3:.2f}, "
+        f"max {max(times) * 1e3:.2f}); {n_tiles / med:.1f} tiles/s")
+    profile_step(lambda: det.slide(slide, **kw))
+    return launches
+
+
+@torch.no_grad()
+def phase_slide_reference():
+    """``yolov5s-test`` on a 600 x 900 slide in f32, 256 px tiles: the card
+    (stem and NMS kernels, cuDNN without TF32) against the plain path on the
+    CPU, >= 98% of the CPU's stitched detections found again (same label,
+    IoU >= 0.9)."""
+    kw = dict(cfg="yolov5s-test", hyp="hyp-nuclei", input_size=256, seed=5, pre_nms_topk=512,
+              max_masks=32, mask_budget=48, mask_window=16)
+    slide = np.random.default_rng(2).integers(0, 256, (600, 900, 3), dtype=np.uint8)
+    gpu = Detector(device="cuda", dtype=torch.float32, **kw)
+    x = tiling.extract_tiles(torch.from_numpy(slide).cuda(),
+                             torch.from_numpy(tiling.sliding_window_grid(600, 900, 256, 64)[:4]),
+                             256)
+    calibrate_objectness(gpu, x, 0.01)
+    cpu = Detector(device="cpu", dtype=torch.float32, **kw)
+    cpu.model.load_state_dict(gpu.model.state_dict())
+    a = gpu.slide(slide, compute_masks=False)[0]["det"]
+    b = cpu.slide(slide, compute_masks=False)[0]["det"]
+    total = len(b["boxes"])
+    matched = 0
+    if total and len(a["boxes"]):
+        iou = box_iou(torch.from_numpy(b["boxes"]).float(), torch.from_numpy(a["boxes"]).float())
+        best, j = iou.max(1)
+        matched = int(((best >= 0.9) & torch.from_numpy(a["labels"][j.numpy()] == b["labels"]))
+                      .sum())
+    msg = (f"  f32 slide detections: {total} on the CPU, {len(a['boxes'])} on the card, "
+           f"{matched / max(total, 1):.3f} of the CPU's found again (need >= 0.98)")
+    log(msg)
+    need(total >= 10 and matched >= 0.98 * total, msg)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -823,7 +1139,8 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
     for kname, fn in (("stem", phase_stem), ("nms", phase_nms), ("roi_align", phase_roi),
-                      ("mask_head", phase_mask_head), ("roi_align_single", phase_roi_single)):
+                      ("mask_head", phase_mask_head), ("roi_align_single", phase_roi_single),
+                      ("stem_k108", phase_stem_k108), ("stem_dot108", phase_stem_dot108)):
         results[kname] = fn(gen, 20)
         r = results[kname]
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
@@ -831,6 +1148,8 @@ def main() -> int:
             f"library {lib} ms | bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     log("    kernels 2-4 at the hnet-nucls shapes")
     check_hnet_shapes(gen)
+    log("    the NMS kernel at the slide stitch's shapes")
+    stitch = check_stitch_nms(gen, 20)
 
     log("[4] flagship yolov5l6-mask, batch 16 x 640, bf16")
     launches = phase_flagship(10)
@@ -840,12 +1159,23 @@ def main() -> int:
     hnet_launches = phase_hnet(10)
     log("[7] hnet reference check on a small input")
     phase_hnet_reference()
+    log("[8] stem lab, batch 16 x 640, every formulation")
+    lab_launches = phase_lab()
+    log("[9] flagship slide, 4096 x 4096, tile 640, overlap 64, batch 16, bf16")
+    slide_launches = phase_slide(5)
+    log("[10] slide reference check on a small slide")
+    phase_slide_reference()
 
-    launches["roi_align_single"] = hnet_launches["roi_align_single"]
+    paths = {"flagship": launches, "hnet": hnet_launches, "lab": lab_launches,
+             "slide": slide_launches}
+    main_path = {k: "flagship" for k in FLAGSHIP_KERNELS}
+    main_path.update(roi_align_single="hnet", stem_k108="lab", stem_dot108="lab")
+    results["nms"]["stitch"] = stitch
     record = {"kernels": [
         {"name": k, "route": "cuda", "source": f"hd_yolo_tpu_torch/kernels/{k}.cu",
-         "replaces": TPU_KERNEL[k], "launches": launches[k], **results[k]}
-        for k in FLAGSHIP_KERNELS + ("roi_align_single",)]}
+         "replaces": TPU_KERNEL[k], "launches": paths[main_path[k]][k],
+         "launches_by_path": {p: n[k] for p, n in paths.items()}, **results[k]}
+        for k in TPU_KERNEL]}
     print(json.dumps(record), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -4,8 +4,8 @@ model on the card, rescale boxes back, export records or a DataFrame.
 
 ``Detector(..., device="cuda")`` is the default and raises when CUDA is
 missing; pass ``device="cpu"`` to run the plain PyTorch versions of the
-kernels on the CPU.  ``Detector.slide`` (whole-slide tiling) and
-``Detections.render`` are not ported yet.
+kernels on the CPU.  ``Detector.slide`` runs tiled whole-slide inference
+with the stitched global NMS.  ``Detections.render`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -155,3 +155,40 @@ class Detector:
                 rec = {task: rec[task]}
             records.append(rec)
         return Detections(records, arrs, self.labels_text)
+
+    def slide(self, image: Any, task: Optional[str] = None, tile: Optional[int] = None,
+              overlap: int = 64, batch: int = 8, compute_masks: bool = True, fused: bool = True,
+              mask_uint8: bool = False, iou_thres: float = 0.45,
+              max_total: int = 4096) -> Detections:
+        """Tiled whole-slide inference with the stitched global NMS.
+
+        The slide goes to the device once (uint8 stays uint8: the model
+        normalizes at entry), tiles are gathered there, and detections come
+        back in slide coords (``wsi/tiling.slide_inference``).  A slide
+        smaller than one tile is padded to it; detections that start inside
+        the pad are dropped and boxes are clipped to the slide.  Returns a
+        one-record :class:`Detections` (record key = ``task``)."""
+        from .wsi.tiling import slide_inference
+
+        arr = self._to_numpy(image)
+        tile = tile or self.input_size
+        task = task or self.model.spec.headers[0].tag
+        h, w = arr.shape[:2]
+        if h < tile or w < tile:  # small slides: pad to one full tile
+            arr = np.pad(arr, ((0, max(0, tile - h)), (0, max(0, tile - w)), (0, 0)))
+        out = slide_inference(
+            lambda t: self.model(t, compute_masks=compute_masks)[task],
+            torch.from_numpy(np.ascontiguousarray(arr)).to(self.device),
+            tile=tile, overlap=overlap, batch=batch, iou_thres=iou_thres, max_total=max_total,
+            mask_uint8=mask_uint8, fused=fused)
+        # drop detections that only exist inside the small-slide pad
+        v = out["valid"] & (out["boxes"][:, 0] < w) & (out["boxes"][:, 1] < h)
+        entry: Dict[str, np.ndarray] = {
+            "boxes": np.minimum(out["boxes"][v], [w, h, w, h]),
+            "scores": out["scores"][v],
+            "labels": out["labels"][v],
+        }
+        if "masks" in out:
+            entry["masks"] = out["masks"][v]
+            entry["has_mask"] = out["mask_valid"][v]
+        return Detections([{task: entry}], [arr[:h, :w]], self.labels_text)

@@ -40,6 +40,8 @@ KERNELS: Dict[str, list] = {
     "roi_align": [],
     "mask_head": [],
     "roi_align_single": [],
+    "stem_k108": [],
+    "stem_dot108": [],
 }
 
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
@@ -57,6 +59,8 @@ _SIGNATURES = {
     "roi_align_bounded": ("roi_align", [_P] * 6 + [_I] * 10 + [_P]),
     "mask_head": ("mask_head", [_P] * 8 + [_I, _I, _P]),
     "roi_align_single": ("roi_align_single", [_P] * 3 + [_I] * 7 + [_F] + [_I] * 3 + [_P]),
+    "stem_k108": ("stem_k108", [_P] * 5 + [_I] * 7 + [_P]),
+    "stem_dot108": ("stem_dot108", [_P] * 5 + [ctypes.c_longlong, _I, _P]),
 }
 
 
@@ -82,7 +86,8 @@ def _flags(name: str) -> list:
 def _lib_path(name: str) -> str:
     src = os.path.join(_DIR, name + ".cu")
     h = hashlib.sha256()
-    for path in (src, os.path.join(_DIR, "common.cuh")):
+    headers = sorted(f for f in os.listdir(_DIR) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(_DIR, f) for f in headers]:
         with open(path, "rb") as f:
             h.update(f.read())
     h.update(" ".join(_flags(name)).encode())

@@ -1,2 +1,3 @@
-"""Whole-slide tiling (port of ``hd_yolo_tpu/wsi/``): so far only the tile
-grid that hnet's detection header uses."""
+"""Whole-slide tiling and stitched inference (port of ``hd_yolo_tpu/wsi/``)."""
+
+from .tiling import extract_tiles, slide_inference, sliding_window_grid  # noqa: F401

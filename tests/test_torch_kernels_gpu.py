@@ -19,6 +19,7 @@ from hd_yolo_tpu_torch.models.detect_head import MaskHead
 from hd_yolo_tpu_torch.ops import pallas_mask_head, pallas_nms, pallas_roi_align, pallas_stem
 from hd_yolo_tpu_torch.ops.nms import nms_padded
 from hd_yolo_tpu_torch.ops.roi_align import multiscale_roi_align_canvas, roi_align
+from hd_yolo_tpu_torch.tools import stem_lab
 
 pytestmark = pytest.mark.gpu
 
@@ -115,6 +116,31 @@ def test_mask_head_kernel_matches_plain(cuda):
     torch.testing.assert_close(got, want, rtol=0, atol=2e-2)
 
 
+@pytest.mark.parametrize("B,H,W,bh", [(2, 64, 64, 4), (1, 50, 94, 3), (3, 36, 20, 8)])
+def test_stem_k108_kernels_match_plain(cuda, B, H, W, bh):
+    """Kernels 6 and 7 against their shared plain version; widths that are
+    not multiples of the 16-pixel tile, a last band of fewer rows than bh,
+    and an im2col whose row count is odd (kernel 7's 8-byte tail copy).
+    One bf16 ulp of the output: |d| <= 1e-3 + 2^-7·|plain|."""
+    x = torch.rand((B, H, W, 3), generator=cuda, device="cuda")
+    w = torch.randn((6, 6, 3, 64), generator=cuda, device="cuda") * 0.1
+    scale = torch.rand(64, generator=cuda, device="cuda") + 0.5
+    bias = torch.randn(64, generator=cuda, device="cuda") * 0.1
+    want = stem_lab.stem_k108_plain(x, w, scale, bias).float()
+    n6, n7 = kernels.LAUNCHES["stem_k108"], kernels.LAUNCHES["stem_dot108"]
+    got6 = stem_lab.stem_k108(x, w, scale, bias, bh=bh)
+    got7 = stem_lab.stem_dot108(x, w, scale, bias)
+    assert (kernels.LAUNCHES["stem_k108"], kernels.LAUNCHES["stem_dot108"]) == (n6 + 1, n7 + 1)
+    for got in (got6, got7):
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        assert ((got.float() - want).abs() <= 1e-3 + 2 ** -7 * want.abs()).all()
+    odd = stem_lab.im2col108(stem_lab.s2d(x), want.shape[1], want.shape[2]).reshape(-1, 108)[:77]
+    w108 = stem_lab.w_108(w)
+    got = stem_lab.dot108(odd.clone(), w108, scale, bias).float()
+    ref = stem_lab.dot108_plain(odd, w108, scale, bias).float()
+    assert ((got - ref).abs() <= 1e-3 + 2 ** -7 * ref.abs()).all()
+
+
 def test_kernels_raise_on_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         pallas_mask_head.fused_mask_probs(MaskHead(2, 32).cuda(),
@@ -130,3 +156,11 @@ def test_kernels_raise_on_what_they_do_not_take(cuda):
                                            torch.zeros((1, 4), device="cuda"),
                                            torch.zeros((1, 4), device="cuda"),
                                            torch.zeros((1, 4), device="cuda"), (4, 4), 2, 2)
+    with pytest.raises(ValueError):
+        stem_lab.stem_k108(torch.zeros((1, 8, 8, 4), device="cuda"),
+                           torch.zeros((6, 6, 3, 64), device="cuda"),
+                           torch.ones(64, device="cuda"), torch.zeros(64, device="cuda"))
+    with pytest.raises(ValueError):
+        stem_lab.dot108(torch.zeros((5, 112), dtype=torch.bfloat16, device="cuda"),
+                        torch.zeros((112, 64), dtype=torch.bfloat16, device="cuda"),
+                        torch.ones(64, device="cuda"), torch.zeros(64, device="cuda"))

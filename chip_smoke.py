@@ -9,16 +9,24 @@ Phases (any failure raises and the script exits non-zero):
   1. the card: ``nvidia-smi`` name and power limit, ``torch.cuda`` name;
   2. build: every kernel under ``hd_yolo_tpu_torch/kernels/`` compiled from
      the checkout by ``nvcc`` for sm_90a, one process per source, in parallel;
+     ``nvcc -Xptxas -v``'s registers, shared memory and spills for the two
+     kernels redesigned for Hopper (``mask_head``, ``stem_tc``);
   3. kernels: each kernel against its plain PyTorch version on the same
      inputs, at the flagship path's shapes, with the stated tolerance (NMS
-     bit-identical); median times over >= 20 launches (CUDA events) of the
-     kernel, the plain version and, where one exists, a PyTorch library call;
+     bit-identical); median times (CUDA events around windows of 5
+     back-to-back calls) of the kernel, the plain version and, where one
+     exists, a PyTorch library call.  The bf16 stem form ``stem_tc`` is timed
+     in turns with the direct kernel at bf16, ``stem_k108`` and cuDNN and
+     must beat the first two; the mask head with all 768 slots active and
+     with a 360-slot prefix (inactive slots exactly 0, two launches
+     bit-identical) must beat cuDNN's chain;
   4. flagship: ``Detector("yolov5l6-mask", "hyp-nuclei", device="cuda")`` at
      full width in bf16 with seeded weights (objectness bias raised so NMS
      and the 768-ROI mask budget do real work): one batch of 16 x 640 px
-     tiles with every launch count reset just before and read just after,
-     then tiles/s (median of >= 10 runs), then ``Detector.__call__`` on
-     three images of different sizes;
+     tiles with every launch count reset just before and read just after
+     (``stem_tc`` 1, the direct stem 0; the mask head's active prefix
+     printed), then tiles/s (median of >= 10 runs), then
+     ``Detector.__call__`` on three images of different sizes;
   5. reference: ``yolov5s-test`` on a small batch through the kernels
      (CUDA, bf16) against the plain PyTorch path on the CPU (bf16) — the CPU
      path is the one the repo's tests hold against the JAX package;
@@ -34,14 +42,15 @@ Phases (any failure raises and the script exits non-zero):
      path, stage by stage on the card's own inputs to each stage; and in f32
      end to end;
   8. stem lab: ``hd_yolo_tpu_torch.tools.stem_lab.main`` at its defaults
-     (16 x 640, all nine formulations, one JSON line each) with every launch
+     (16 x 640, all ten formulations, one JSON line each) with every launch
      count reset just before and read just after (``stem_k108``,
-     ``stem_dot108`` and ``stem`` each launched);
+     ``stem_dot108``, ``stem_tc`` and the direct ``stem`` each launched);
   9. slide: ``Detector("yolov5l6-mask", "hyp-nuclei")`` in bf16,
      ``Detector.slide`` on a synthetic 4096 x 4096 uint8 slide with tile 640,
      overlap 64 and batch 16 (49 tiles, 4 batches), the objectness
      calibrated to ~20 detections per tile: the launch counts of one slide
-     (stem 4, NMS 5 = 4 per-tile + 1 stitch, ROI-align 4, mask head 4), the
+     (``stem_tc`` 4 and the direct stem 0, NMS 5 = 4 per-tile + 1 stitch,
+     ROI-align 4, mask head 4, each with its active prefix printed), the
      median wall time over >= 5 slides and tiles/s, the band population
      against ``max_band`` (and the saturation warning exactly when it is
      reached), the mask-carrying rows against ``mask_rows``, every box inside
@@ -83,6 +92,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from hd_yolo_tpu_torch import kernels, load_cfg  # noqa: E402
 from hd_yolo_tpu_torch.detector import Detector  # noqa: E402
 from hd_yolo_tpu_torch.hnet import HNet  # noqa: E402
+from hd_yolo_tpu_torch.models import detect_head  # noqa: E402
 from hd_yolo_tpu_torch.models.detect_head import MaskHead  # noqa: E402
 from hd_yolo_tpu_torch.ops.boxes import box_iou, remove_small_boxes_mask, xywh2xyxy  # noqa: E402
 from hd_yolo_tpu_torch.ops import pallas_mask_head, pallas_nms, pallas_roi_align, pallas_stem  # noqa: E402
@@ -107,19 +117,24 @@ TPU_KERNEL = {
     "roi_align_single": "hd_yolo_tpu/ops/pallas_roi_align.py:31",
     "stem_k108": "tools/stem_lab.py:132",
     "stem_dot108": "tools/stem_lab.py:168",
+    "stem_tc": "hd_yolo_tpu/ops/pallas_stem.py:79",
 }
-FLAGSHIP_KERNELS = ("stem", "nms", "roi_align", "mask_head")
-LAB_KERNELS = ("stem", "stem_k108", "stem_dot108")
+FLAGSHIP_KERNELS = ("stem_tc", "nms", "roi_align", "mask_head")
+LAB_KERNELS = ("stem", "stem_k108", "stem_dot108", "stem_tc")
+# the two kernels redesigned for Hopper: their ptxas report is printed at build
+REDESIGNED = ("mask_head", "stem_tc")
 
 
 def slide_launches(n_batches: int) -> dict:
-    """Launches of one flagship slide: per tile batch one stem, one per-tile
-    NMS, one ROI-align and one mask head; one stitch NMS."""
-    return {"stem": n_batches, "nms": n_batches + 1, "roi_align": n_batches,
+    """Launches of one flagship slide: per tile batch one stem (the bf16
+    tensor-core form, never the direct one), one per-tile NMS, one ROI-align
+    and one mask head; one stitch NMS."""
+    return {"stem": 0, "stem_tc": n_batches, "nms": n_batches + 1, "roi_align": n_batches,
             "mask_head": n_batches, "roi_align_single": 0, "stem_k108": 0, "stem_dot108": 0}
 # launches of one hnet-nucls forward: 4 pyramid levels of the tile ROI, the
 # box-head and mask pooling, the RPN and class-aware NMS, one mask head
-HNET_LAUNCHES = {"stem": 0, "nms": 2, "roi_align": 2, "mask_head": 1, "roi_align_single": 4}
+HNET_LAUNCHES = {"stem": 0, "stem_tc": 0, "nms": 2, "roi_align": 2, "mask_head": 1,
+                 "roi_align_single": 4}
 # hnet-nucls at 640 px: the tile ROI's pyramid levels (size, stride)
 HNET_LEVELS = ((160, 4.0), (80, 8.0), (40, 16.0), (20, 32.0))
 
@@ -128,8 +143,11 @@ def log(*a):
     print(*a, flush=True)
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median milliseconds of ``fn()`` over ``iters`` launches, CUDA events."""
+def cuda_ms(fn, iters: int = 20, warmup: int = 3, reps: int = 5) -> float:
+    """Median milliseconds of one ``fn()``, CUDA events around ``iters``
+    windows of ``reps`` back-to-back calls each: where the card is slower
+    than the host's enqueue, the window holds device time only (one call per
+    window would also count the wrapper's host time)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -138,10 +156,11 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(reps):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / reps)
     return statistics.median(times)
 
 
@@ -173,27 +192,69 @@ def nbytes(*ts) -> int:
 
 # ---------------------------------------------------------------- kernels
 def phase_stem(gen, iters):
+    """The direct kernel (stem.cu) at the flagship shape in bf16 (forced: on
+    the trunk's bf16 path ``stem_form`` picks ``stem_tc``), and in f32 (its
+    form on the card) at a small shape."""
     dev = "cuda"
     x = torch.rand((16, 640, 640, 3), generator=gen, device=dev)
     w = torch.randn((6, 6, 3, 64), generator=gen, device=dev) * 0.15
     scale = torch.rand(64, generator=gen, device=dev) + 0.5
     bias = torch.randn(64, generator=gen, device=dev) * 0.1
     kw = dict(stride=2, padding=2, out_dtype=torch.bfloat16)
-    got = pallas_stem.stem_conv(x, w, scale, bias, **kw)
+    got = pallas_stem.stem_conv(x, w, scale, bias, form="direct", **kw)
     want = pallas_stem.stem_conv_plain(x, w, scale, bias, **kw)
     torch.cuda.synchronize()
     # both round inputs to bf16 and accumulate in f32 (in other orders): one bf16 ulp
-    err = check_close("stem", got, want, atol=1e-2, rtol=2 ** -7)
-    ms = cuda_ms(lambda: pallas_stem.stem_conv(x, w, scale, bias, **kw), iters)
+    err = check_close("stem (direct, bf16)", got, want, atol=1e-2, rtol=2 ** -7)
+    x32 = x[:2, :128, :160].contiguous()
+    check_close("stem (direct, f32) (2, 128, 160, 3)",
+                pallas_stem.stem_conv(x32, w, scale, bias, stride=2, padding=2,
+                                      out_dtype=torch.float32),
+                pallas_stem.stem_conv_plain(x32, w, scale, bias, stride=2, padding=2,
+                                            out_dtype=torch.float32), atol=1e-5, rtol=0.0)
+    ms = cuda_ms(lambda: pallas_stem.stem_conv(x, w, scale, bias, form="direct", **kw), iters)
     plain_ms = cuda_ms(lambda: pallas_stem.stem_conv_plain(x, w, scale, bias, **kw), iters)
-    xl = x.to(torch.bfloat16).permute(0, 3, 1, 2)
-    wl = (w.permute(3, 2, 0, 1) * scale[:, None, None, None]).to(torch.bfloat16)
-    bl = bias.to(torch.bfloat16)
-    lib_ms = cuda_ms(lambda: F.silu(F.conv2d(xl, wl, bl, 2, 2)), iters)
     flops = 2.0 * got.numel() * 6 * 6 * 3
     b_ms, by = bound(nbytes(x, w, scale, bias, got), flops, BF16_FLOPS)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-                library_ms=lib_ms)
+                library_ms=stem_library_ms(x, w, scale, bias, iters))
+
+
+def phase_stem_tc(gen, iters):
+    """The trunk's bf16 stem form (stem_tc.cu) at (16, 640, 640, 3), timed
+    in turns with the direct kernel at bf16, ``stem_k108`` and cuDNN on the
+    same inputs."""
+    x, w, scale, bias = stem_inputs(gen)
+    kw = dict(stride=2, padding=2, out_dtype=torch.bfloat16)
+    need(pallas_stem.stem_form(x.shape, w.shape, 2, 2, torch.bfloat16) == "tc",
+         "stem_form does not pick stem_tc for the flagship stem")
+    got = pallas_stem.stem_conv(x, w, scale, bias, **kw)
+    want = pallas_stem.stem_conv_plain(x, w, scale, bias, **kw)
+    torch.cuda.synchronize()
+    err = check_close("stem_tc", got, want, atol=1e-2, rtol=2 ** -7)
+    again = pallas_stem.stem_conv(x, w, scale, bias, **kw)
+    need(torch.equal(got, again), "stem_tc: two launches differ")
+    tc = lambda: pallas_stem.stem_conv(x, w, scale, bias, **kw)
+    direct = lambda: pallas_stem.stem_conv(x, w, scale, bias, form="direct", **kw)
+    k108 = lambda: stem_lab.stem_k108(x, w, scale, bias)
+    t = {"stem_tc": [], "direct": [], "stem_k108": []}
+    for _ in range(2):                                # in turns: tc, direct, k108, k108, direct, tc
+        for name, fn in (("stem_tc", tc), ("direct", direct), ("stem_k108", k108)):
+            t[name].append(cuda_ms(fn, iters))
+        for name, fn in (("stem_k108", k108), ("direct", direct), ("stem_tc", tc)):
+            t[name].append(cuda_ms(fn, iters))
+    ms = {k: statistics.median(v) for k, v in t.items()}
+    plain_ms = cuda_ms(lambda: pallas_stem.stem_conv_plain(x, w, scale, bias, **kw), iters)
+    lib_ms = stem_library_ms(x, w, scale, bias, iters)
+    flops = 2.0 * got.numel() * stem_lab.KDIM
+    b_ms, by = bound(nbytes(x, got, scale, bias) + stem_lab.KDIM * 64 * 2, flops, BF16_FLOPS)
+    log(f"  stem at (16, 640, 640, 3) bf16, median of 4 turns: stem_tc {ms['stem_tc']:.4f} ms | "
+        f"direct {ms['direct']:.4f} | stem_k108 {ms['stem_k108']:.4f} | cuDNN {lib_ms:.4f} | "
+        f"bound {b_ms:.4f} ({by})")
+    need(ms["stem_tc"] < ms["direct"] and ms["stem_tc"] < ms["stem_k108"],
+         f"stem_tc is not faster than both the direct kernel and stem_k108: {ms}")
+    return dict(max_abs_err=err, ms=ms["stem_tc"], plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                library_ms=lib_ms, direct_ms=ms["direct"], stem_k108_ms=ms["stem_k108"])
 
 
 def clustered_boxes(gen, B, K, dev, thr=0.45, extent=600.0, pairs_at=700.0):
@@ -304,9 +365,18 @@ def phase_roi(gen, iters):
                 library_ms=None)
 
 
+def mask_head_flops(n: int, C: int = 256) -> float:
+    return float(n) * (4 * 196 * 9 * C * C * 2 + 4 * 196 * C * C * 2 + 4 * 196 * C * 2)
+
+
 def phase_mask_head(gen, iters):
+    """The mask head at the flagship's 768-ROI budget, all slots active and
+    with a 360-of-768 prefix (``active``, as the slide's packed branch gives
+    it): within 2e-2 of the plain version, inactive slots exactly 0, two
+    launches bit-identical; timed beside cuDNN's chain on all 768 and on the
+    360 used ROIs."""
     dev = "cuda"
-    N, C, nc = 768, 256, 2
+    N, C, nc, used = 768, 256, 2, 360
     head = MaskHead(nc, C)
     with torch.no_grad():
         g = torch.Generator().manual_seed(1)
@@ -316,19 +386,28 @@ def phase_mask_head(gen, iters):
     head = head.to(dev)
     pooled = torch.randn((N, 14, 14, C), generator=gen, device=dev).to(torch.bfloat16)
     labels = torch.randint(0, nc, (N,), generator=gen, device=dev)
+    act = torch.tensor(used, dtype=torch.int32, device=dev)
     with torch.no_grad():
         got = pallas_mask_head.fused_mask_probs(head, pooled, labels)
         want = pallas_mask_head.fused_mask_probs_plain(head, pooled, labels)
         torch.cuda.synchronize()
         # same rounding points; a bf16 intermediate may round the other way
         err = check_close("mask_head", got, want, atol=2e-2, rtol=0.0)
+        need(torch.equal(got, pallas_mask_head.fused_mask_probs(head, pooled, labels)),
+             "mask_head: two launches differ")
+        got_p = pallas_mask_head.fused_mask_probs(head, pooled, labels, act)
+        check_close(f"mask_head, active {used} of {N}", got_p,
+                    pallas_mask_head.fused_mask_probs_plain(head, pooled, labels, act),
+                    atol=2e-2, rtol=0.0)
+        need(bool((got_p[used:] == 0).all()), "mask_head: an inactive slot is not 0")
+        need(torch.equal(got_p[:used], got[:used]), "mask_head: the prefix changed active slots")
         ms = cuda_ms(lambda: pallas_mask_head.fused_mask_probs(head, pooled, labels), iters)
+        ms_p = cuda_ms(lambda: pallas_mask_head.fused_mask_probs(head, pooled, labels, act), iters)
         plain_ms = cuda_ms(lambda: pallas_mask_head.fused_mask_probs_plain(head, pooled, labels),
                            iters)
         hb = head.to(torch.bfloat16)
-        xb = pooled.permute(0, 3, 1, 2)
 
-        def library():
+        def library(xb):
             y = xb
             for conv in hb.fcn:
                 y = F.relu(F.conv2d(y, conv.weight, conv.bias, padding=1))
@@ -337,12 +416,22 @@ def phase_mask_head(gen, iters):
             return torch.sigmoid(F.conv2d(y, hb.maskrcnn_preds.mask_fcn_logits.weight,
                                           hb.maskrcnn_preds.mask_fcn_logits.bias))
 
-        lib_ms = cuda_ms(library, iters)
-    flops = N * (4 * 196 * 9 * C * C * 2 + 4 * 196 * C * C * 2 + 4 * 196 * C * 2)
+        xb = pooled.permute(0, 3, 1, 2)
+        lib_ms = cuda_ms(lambda: library(xb), iters)
+        lib_ms_p = cuda_ms(lambda: library(xb[:used]), iters)
+        ms2 = cuda_ms(lambda: pallas_mask_head.fused_mask_probs(head, pooled, labels), iters)
     wbytes = (4 * 9 * C * C + 4 * C + 4 * C * C + C) * 2
-    b_ms, by = bound(nbytes(pooled, got) + wbytes + N * C * 2 + N * 4, flops, BF16_FLOPS)
+    b_ms, by = bound(nbytes(pooled, got) + wbytes + N * C * 2 + N * 4, mask_head_flops(N),
+                     BF16_FLOPS)
+    b_ms_p, _ = bound(nbytes(pooled[:used], got) + wbytes + used * (C * 2 + 4),
+                      mask_head_flops(used), BF16_FLOPS)
+    log(f"  mask_head at {N}: kernel {ms:.4f} ms, again {ms2:.4f} | cuDNN chain {lib_ms:.4f} | "
+        f"bound {b_ms:.4f} ({by}); active {used}: kernel {ms_p:.4f} ms | cuDNN chain on {used} "
+        f"{lib_ms_p:.4f} | bound {b_ms_p:.4f}")
+    need(min(ms, ms2) < lib_ms, f"mask_head ({ms:.4f} ms) is not faster than cuDNN's chain "
+                                f"({lib_ms:.4f} ms)")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-                library_ms=lib_ms)
+                library_ms=lib_ms, active_360=dict(ms=ms_p, bound_ms=b_ms_p, library_ms=lib_ms_p))
 
 
 def phase_roi_single(gen, iters):
@@ -553,6 +642,27 @@ def calibrate_objectness(det: Detector, x, frac: float):
             conv.bias.view(h.na, h.no)[:, 4] = math.log(conf / (1 - conf)) - float(q)
 
 
+class MaskPrefix:
+    """Records the ``active`` count each packed mask branch hands the mask
+    head (``with MaskPrefix() as p: ...``; ``p.counts`` after)."""
+
+    def __enter__(self):
+        self.counts, self._orig = [], detect_head.fused_mask_probs
+
+        def spy(head, pooled, labels, active=None):
+            self.counts.append((None if active is None else active.clone(), pooled.shape[0]))
+            return self._orig(head, pooled, labels, active)
+
+        detect_head.fused_mask_probs = spy
+        return self
+
+    def __exit__(self, *exc):
+        detect_head.fused_mask_probs = self._orig
+
+    def text(self) -> str:
+        return ", ".join(f"{'all' if a is None else int(a)} of {n}" for a, n in self.counts)
+
+
 def profile_step(step):
     """One profiled ``step()``: device time by kernel, and the device idle
     share (1 - summed kernel time / wall time of the step)."""
@@ -584,14 +694,18 @@ def phase_flagship(iters: int):
     calibrate_objectness(det, x, 0.02)                # ~500 candidates, ~90 detections per tile
     det.tiles(x)                                      # warm-up (cuDNN algorithm choice)
     torch.cuda.synchronize()
-    kernels.reset_launches()
-    out = det.tiles(x)["detSC"]
-    torch.cuda.synchronize()
-    launches = dict(kernels.LAUNCHES)
-    log(f"  launches on the main path (one batch): {launches}")
+    with MaskPrefix() as prefix:
+        kernels.reset_launches()
+        out = det.tiles(x)["detSC"]
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+    log(f"  launches on the main path (one batch): {launches}; mask-head slots computed "
+        f"(the active prefix): {prefix.text()}")
     for k in FLAGSHIP_KERNELS:
         if launches[k] < 1:
             raise AssertionError(f"kernel {k} was not launched on the main path")
+    need(launches["stem_tc"] == 1 and launches["stem"] == 0,
+         "the flagship batch must launch the bf16 stem form once and the direct form never")
     v = out["valid"]
     need(out["boxes"].shape == (16, 300, 4) and out["masks"].shape == (16, 100, 28, 28),
          f"unexpected output shapes {tuple(out['boxes'].shape)} {tuple(out['masks'].shape)}")
@@ -994,7 +1108,7 @@ def phase_slide(iters: int):
 
     tiling.slide_inference = spy_si
     try:
-        with warnings.catch_warnings(record=True) as caught:
+        with warnings.catch_warnings(record=True) as caught, MaskPrefix() as prefix:
             warnings.simplefilter("always")
             kernels.reset_launches()
             res = det.slide(slide, **kw)
@@ -1002,7 +1116,11 @@ def phase_slide(iters: int):
             launches = dict(kernels.LAUNCHES)
     finally:
         tiling.slide_inference = orig_si
-    log(f"  launches in one slide of {n_tiles} tiles: {launches}")
+    log(f"  launches in one slide of {n_tiles} tiles: {launches}; mask-head slots computed per "
+        f"batch (the active prefix): {prefix.text()}")
+    need(len(prefix.counts) == launches["mask_head"]
+         and all(a is not None for a, _ in prefix.counts),
+         "the slide's mask head did not get its active prefix")
     for k, n in slide_launches(-(-n_tiles // batch)).items():
         need(launches[k] == n, f"kernel {k}: {launches[k]} launches in one slide, expected {n}")
     o = res[0][task]
@@ -1133,14 +1251,22 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     secs = kernels.build_all()
-    log(f"[2] built {sorted(kernels.KERNELS)} in {secs:.1f} s")
+    log(f"[2] built {sorted(kernels.KERNELS)} in {secs:.1f} s; ptxas of the redesigned kernels:")
+    for k in REDESIGNED:
+        for line in kernels.ptxas_report(k).splitlines():
+            if "Used" in line or "spill" in line or "C75" in line:
+                log(f"  {k}: {line}")
+    log(f"  dynamic shared memory per block: mask_head {kernels.fn('mask_head_smem_bytes')()} B; "
+        f"stem_tc at W 640, N 64 {kernels.fn('stem_tc_smem_bytes')(640, 320, 64)} B "
+        f"(2 blocks per SM), at W 640, N 32 {kernels.fn('stem_tc_smem_bytes')(640, 320, 32)} B")
 
     log("[3] kernels vs plain versions (each at its path's shapes)")
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
-    for kname, fn in (("stem", phase_stem), ("nms", phase_nms), ("roi_align", phase_roi),
-                      ("mask_head", phase_mask_head), ("roi_align_single", phase_roi_single),
-                      ("stem_k108", phase_stem_k108), ("stem_dot108", phase_stem_dot108)):
+    for kname, fn in (("stem", phase_stem), ("stem_tc", phase_stem_tc), ("nms", phase_nms),
+                      ("roi_align", phase_roi), ("mask_head", phase_mask_head),
+                      ("roi_align_single", phase_roi_single), ("stem_k108", phase_stem_k108),
+                      ("stem_dot108", phase_stem_dot108)):
         results[kname] = fn(gen, 20)
         r = results[kname]
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
@@ -1169,7 +1295,7 @@ def main() -> int:
     paths = {"flagship": launches, "hnet": hnet_launches, "lab": lab_launches,
              "slide": slide_launches}
     main_path = {k: "flagship" for k in FLAGSHIP_KERNELS}
-    main_path.update(roi_align_single="hnet", stem_k108="lab", stem_dot108="lab")
+    main_path.update(roi_align_single="hnet", stem_k108="lab", stem_dot108="lab", stem="lab")
     results["nms"]["stitch"] = stitch
     record = {"kernels": [
         {"name": k, "route": "cuda", "source": f"hd_yolo_tpu_torch/kernels/{k}.cu",

@@ -42,11 +42,13 @@ KERNELS: Dict[str, list] = {
     "roi_align_single": [],
     "stem_k108": [],
     "stem_dot108": [],
+    "stem_tc": [],
 }
 
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FNS: Dict[str, object] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -57,10 +59,13 @@ _SIGNATURES = {
     "stem_conv": ("stem", [_P] * 5 + [_I] * 13 + [_P]),
     "nms_keep": ("nms", [_P] * 5 + [_I, _I, _I, _F, _I, _P]),
     "roi_align_bounded": ("roi_align", [_P] * 6 + [_I] * 10 + [_P]),
-    "mask_head": ("mask_head", [_P] * 8 + [_I, _I, _P]),
+    "mask_head": ("mask_head", [_P] * 9 + [_I, _I, _P]),
     "roi_align_single": ("roi_align_single", [_P] * 3 + [_I] * 7 + [_F] + [_I] * 3 + [_P]),
     "stem_k108": ("stem_k108", [_P] * 5 + [_I] * 7 + [_P]),
     "stem_dot108": ("stem_dot108", [_P] * 5 + [ctypes.c_longlong, _I, _P]),
+    "stem_tc": ("stem_tc", [_P] * 5 + [_I] * 7 + [_P]),
+    "mask_head_smem_bytes": ("mask_head", []),
+    "stem_tc_smem_bytes": ("stem_tc", [_I, _I, _I]),
 }
 
 
@@ -132,6 +137,20 @@ def build_all() -> float:
     return time.perf_counter() - t0
 
 
+def ptxas_report(name: str) -> str:
+    """``nvcc -Xptxas -v``'s lines for one source (registers, shared memory
+    and spill bytes of each kernel), from a build into a scratch file."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as d:
+        cmd = [nvcc()] + _flags(name) + ["-Xptxas", "-v", "-o", os.path.join(d, "lib.so"),
+                                         os.path.join(_DIR, name + ".cu")]
+        r = subprocess.run(cmd, capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu (exit {r.returncode}):\n{r.stdout}{r.stderr}")
+    return "\n".join(line.strip() for line in (r.stdout + r.stderr).splitlines()
+                     if "ptxas" in line or "spill" in line)
+
+
 def _lib(name: str) -> ctypes.CDLL:
     if name not in _LIBS:
         job = _start_build(name)
@@ -143,11 +162,13 @@ def _lib(name: str) -> ctypes.CDLL:
 
 def fn(symbol: str):
     """The bound C entry point ``symbol`` (building its source if needed)."""
-    lib_name, argtypes = _SIGNATURES[symbol]
-    f = getattr(_lib(lib_name), symbol)
-    f.argtypes = argtypes
-    f.restype = ctypes.c_int
-    return f
+    if symbol not in _FNS:
+        lib_name, argtypes = _SIGNATURES[symbol]
+        f = getattr(_lib(lib_name), symbol)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+        _FNS[symbol] = f
+    return _FNS[symbol]
 
 
 def check(code: int, symbol: str) -> None:

@@ -1,8 +1,10 @@
 """Fused inference mask head on the card: wrapper of ``kernels/mask_head.cu``
 (the Hopper port of ``hd_yolo_tpu/ops/pallas_mask_head.py``).
 
-``fused_mask_probs(head, pooled, labels)`` computes
-``sigmoid(MaskHead(pooled))[..., label]`` per ROI as (N, 2M, 2M) f32.  On a
+``fused_mask_probs(head, pooled, labels, active=None)`` computes
+``sigmoid(MaskHead(pooled))[..., label]`` per ROI as (N, 2M, 2M) f32 for
+the first ``active`` ROIs (a 0-d integer tensor; ``None`` means all) and
+exactly 0 for the rest.  On a
 CUDA tensor the kernel runs the whole chain (4 convs, deconv, selected
 logits, sigmoid); on a CPU tensor the plain version below runs the same
 function with the same rounding points: each GEMM on compute-dtype
@@ -15,6 +17,8 @@ already flipped back by ``utils/convert.py``.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -57,7 +61,7 @@ def _deinterleave(o: Tensor) -> Tensor:
 
 
 def kernel_weights(head, cd: torch.dtype = torch.bfloat16):
-    """The kernel's operand layouts: wf (4, 9, co, ci), bf (4, C), wd (4, co, ci)
+    """The operand layouts: wf (4, 9, co, ci), bf (4, C), wd (4, co, ci)
     with d = dy*2+dx, bd (C,), all in ``cd``."""
     wf = torch.stack([c.weight.permute(2, 3, 0, 1).reshape(9, c.out_channels, c.in_channels)
                       for c in head.fcn]).to(cd).contiguous()
@@ -68,35 +72,77 @@ def kernel_weights(head, cd: torch.dtype = torch.bfloat16):
     return wf, bf, wd, deconv.bias.to(cd).contiguous()
 
 
-def fused_mask_probs_plain(head, pooled: Tensor, labels: Tensor) -> Tensor:
-    wl_sel, bl_sel = _selected_logits(head, labels.to(torch.int64), pooled.dtype)
-    o = mask_head_plain(head, pooled, wl_sel) + bl_sel[:, None, None, None]
-    return _deinterleave(torch.sigmoid(o))
+def _slices(w: Tensor) -> Tensor:
+    """(..., 256 co, 256 ci) → (..., pass 2, ks 16, 2048): each (pass, ks)
+    k-slice (co 128·pass.., ci 16·ks..) in wgmma's no-swizzle K-major layout,
+    8-co groups of two 8-ci core matrices of 8 rows x 16 bytes."""
+    lead = w.shape[:-2]
+    w = w.reshape(*lead, 2, 16, 8, 16, 2, 8)            # pass, co group, co row, ks, k half, ci
+    n = len(lead)
+    perm = list(range(n)) + [n + i for i in (0, 3, 1, 4, 2, 5)]
+    return w.permute(*perm).reshape(*lead, 2, 16, 2048)
 
 
-def fused_mask_probs(head, pooled: Tensor, labels: Tensor) -> Tensor:
+def mask_head_stream(wf: Tensor, wd: Tensor) -> Tensor:
+    """The kernel's weight stream: its 1280 k-slices of 4 KB in the order it
+    consumes them, (layer, pass, tap, ks) for the convs then (d, pass, ks)
+    for the deconv taps, as one contiguous (1280, 2048) tensor."""
+    conv = _slices(wf).permute(0, 2, 1, 3, 4)            # layer, pass, tap, ks
+    return torch.cat([conv.reshape(-1, 2048), _slices(wd).reshape(-1, 2048)]).contiguous()
+
+
+def _active_count(active, N: int) -> int:
+    return N if active is None else max(0, min(int(active), N))
+
+
+def fused_mask_probs_plain(head, pooled: Tensor, labels: Tensor, active=None) -> Tensor:
+    N = pooled.shape[0]
+    k = _active_count(active, N)
+    wl_sel, bl_sel = _selected_logits(head, labels[:k].to(torch.int64), pooled.dtype)
+    o = mask_head_plain(head, pooled[:k], wl_sel) + bl_sel[:, None, None, None]
+    out = torch.zeros((N,) + (2 * pooled.shape[1],) * 2, dtype=torch.float32, device=pooled.device)
+    out[:k] = _deinterleave(torch.sigmoid(o))
+    return out
+
+
+def fused_mask_probs(head, pooled: Tensor, labels: Tensor, active: Optional[Tensor] = None) -> Tensor:
     """MaskHead → sigmoid → per-ROI channel select, fused.
 
     head: ``models/detect_head.MaskHead``; pooled (N, M, M, C); labels (N,)
-    mask-channel index (≥ 0).  Returns (N, 2M, 2M) f32 probabilities."""
+    mask-channel index in [0, number of mask classes) (the kernel reads the
+    index on the device and does not check it); active: a 0-d integer
+    tensor, how many leading ROIs to compute (the kernel reads it on the
+    device, no host sync), or ``None`` for all.  Returns (N, 2M, 2M) f32 probabilities, exactly 0 for
+    ROIs at or past ``active``."""
     if pooled.device.type == "cpu":
-        return fused_mask_probs_plain(head, pooled, labels)
-    labels = labels.to(torch.int64)
+        return fused_mask_probs_plain(head, pooled, labels, active)
+    labels = labels.to(torch.int64).contiguous()
     N, M, M2, C = pooled.shape
     if pooled.dtype != torch.bfloat16 or (M, M2, C) != (14, 14, 256):
         raise ValueError(f"mask head kernel takes (N, 14, 14, 256) bf16, got "
                          f"{tuple(pooled.shape)} {pooled.dtype}")
     pooled = pooled.contiguous()
-    wf, bf, wd, bd = cached(head, "kernel_weights", tuple(head.parameters()),
-                            lambda: kernel_weights(head))
-    wl_sel, bl_sel = _selected_logits(head, labels, torch.bfloat16)
-    wl_sel, bl_sel = wl_sel.contiguous(), bl_sel.contiguous()
-    kernels.require_cuda(pooled, wf, bf, wd, bd, wl_sel, bl_sel)
+
+    def weights():
+        wf, bf, wd, bd = kernel_weights(head)
+        logits = head.maskrcnn_preds.mask_fcn_logits
+        return (mask_head_stream(wf, wd), bf, bd,
+                logits.weight[:, :, 0, 0].to(torch.bfloat16).contiguous(),
+                logits.bias.float().contiguous())
+
+    # the kernel selects each ROI's logits column and bias itself
+    stream, bf, bd, wl, bl = cached(head, "kernel_weights", tuple(head.parameters()), weights)
+    tensors = [pooled, stream, bf, bd, wl, bl, labels]
+    if active is not None:
+        active = active.to(torch.int64).reshape(())  # the packed branch's sum is int64 already
+        tensors.append(active)
+    kernels.require_cuda(*tensors)
     out = torch.empty((N, 2 * M, 2 * M), dtype=torch.float32, device=pooled.device)
-    dev, stream = kernels.device_and_stream(pooled)
+    dev, stream_handle = kernels.device_and_stream(pooled)
     code = kernels.fn("mask_head")(
-        pooled.data_ptr(), wf.data_ptr(), bf.data_ptr(), wd.data_ptr(), bd.data_ptr(),
-        wl_sel.data_ptr(), bl_sel.data_ptr(), out.data_ptr(), N, dev, stream)
+        pooled.data_ptr(), stream.data_ptr(), bf.data_ptr(), bd.data_ptr(), wl.data_ptr(),
+        bl.data_ptr(), labels.data_ptr(), out.data_ptr(),
+        None if active is None else active.data_ptr(), N, dev, stream_handle)
     kernels.check(code, "mask_head")
     kernels.LAUNCHES["mask_head"] += 1
     return out

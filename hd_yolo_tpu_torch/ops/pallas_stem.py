@@ -1,16 +1,27 @@
-"""Stem convolution on the card: wrapper of ``kernels/stem.cu`` (the Hopper
-port of ``hd_yolo_tpu/ops/pallas_stem.py``).
+"""Stem convolution on the card: wrapper of ``kernels/stem_tc.cu`` and
+``kernels/stem.cu`` (the Hopper ports of ``hd_yolo_tpu/ops/pallas_stem.py``).
 
 ``stem_conv(x, w, scale, bias, stride=, padding=, out_dtype=)`` computes
 ``silu(conv2d(x, w, stride, padding) * scale + bias)`` in NHWC, the yolov5
 stem with its inference BatchNorm folded to a per-channel affine.
 Matmul inputs are rounded to the compute dtype (bf16 when ``out_dtype`` is
 bf16, else f32) and accumulate in f32; the affine and SiLU run in f32 before
-the single output write.  On a CUDA tensor it launches the kernel; on a CPU
-tensor it runs the plain version.
+the single output write.  On a CPU tensor it runs the plain version.  On a
+CUDA tensor :func:`stem_form` picks the kernel: the bf16 6x6/s2/p2 stem
+over 3 channels (N a multiple of 16 up to 64, both yolo configs) launches
+the tensor-core kernel ``stem_tc``; f32 compute and every other shape of
+the family launch the direct kernel ``stem``.
+
+``stem_tc``'s operands: per output pixel, K = 108 in the weight's own
+(ky, kx, c) order — for ky in 0..5 the 18 floats of input row 2oy-2+ky from
+column 2ox-2 on, contiguous in the image — against the (6, 6, 3, N) weight
+seen as (108, N), both rounded to bf16 (the kernel rounds them as it
+stages them).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -31,31 +42,73 @@ def stem_conv_plain(x: Tensor, w: Tensor, scale: Tensor, bias: Tensor, *, stride
     return y.permute(0, 2, 3, 1).to(out_dtype).contiguous()
 
 
-def stem_conv(x: Tensor, w: Tensor, scale: Tensor, bias: Tensor, *, stride: int, padding: int,
-              out_dtype=torch.bfloat16) -> Tensor:
-    """silu(conv2d(x, w, stride, padding) * scale + bias), NHWC."""
-    if x.device.type == "cpu":
-        return stem_conv_plain(x, w, scale, bias, stride=stride, padding=padding,
-                               out_dtype=out_dtype)
+def stem_form(x_shape, w_shape, stride: int, padding: int, out_dtype) -> str:
+    """Which kernel takes a stem on the card: ``"tc"`` (``stem_tc.cu``) for
+    the bf16 6x6/s2/p2 conv over 3 channels with N in {16, 32, 48, 64},
+    else ``"direct"`` (``stem.cu``)."""
+    K, K2, C, N = w_shape
+    if (out_dtype == torch.bfloat16 and (K, K2, C, stride, padding) == (6, 6, 3, 2, 2)
+            and x_shape[-1] == 3 and N % 16 == 0 and 16 <= N <= 64):
+        return "tc"
+    return "direct"
+
+
+def _launch_direct(x, w, scale, bias, stride, padding, out_dtype, Ho, Wo):
     B, H, W, C = x.shape
-    K, K2, C2, N = w.shape
-    out_codes = {torch.float32: 0, torch.bfloat16: 1}
-    if K != K2 or C != C2 or N % 8 or x.dtype != torch.float32 or out_dtype not in out_codes:
-        raise ValueError(f"stem kernel cannot take x {tuple(x.shape)} {x.dtype}, "
-                         f"w {tuple(w.shape)}, out {out_dtype}")
-    Ho = (H + 2 * padding - K) // stride + 1
-    Wo = (W + 2 * padding - K) // stride + 1
+    K, N = w.shape[0], w.shape[-1]
     cd = torch.bfloat16 if out_dtype == torch.bfloat16 else torch.float32
-    x = x.contiguous()
     wk = w.to(cd).float().contiguous()            # weights rounded like the plain version
-    scale, bias = scale.float().contiguous(), bias.float().contiguous()
     kernels.require_cuda(x, wk, scale, bias)
     y = torch.empty((B, Ho, Wo, N), dtype=out_dtype, device=x.device)
     dev, stream = kernels.device_and_stream(x)
     code = kernels.fn("stem_conv")(
         x.data_ptr(), wk.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
-        B, H, W, C, K, stride, padding, N, Ho, Wo, out_codes[out_dtype],
+        B, H, W, C, K, stride, padding, N, Ho, Wo, 1 if out_dtype == torch.bfloat16 else 0,
         1 if cd == torch.bfloat16 else 0, dev, stream)
     kernels.check(code, "stem_conv")
     kernels.LAUNCHES["stem"] += 1
     return y
+
+
+def _launch_tc(x, w, scale, bias, Ho, Wo):
+    B, H, W, _ = x.shape
+    N = w.shape[-1]
+    if x.data_ptr() % 16:                         # its 16-byte row copies need an aligned image
+        x = x.clone()
+    wk = w.float().contiguous()                   # rounded to bf16 as the kernel stages it
+    kernels.require_cuda(x, wk, scale, bias)
+    y = torch.empty((B, Ho, Wo, N), dtype=torch.bfloat16, device=x.device)
+    dev, stream = kernels.device_and_stream(x)
+    code = kernels.fn("stem_tc")(x.data_ptr(), wk.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                                 y.data_ptr(), B, H, W, Ho, Wo, N, dev, stream)
+    kernels.check(code, "stem_tc")
+    kernels.LAUNCHES["stem_tc"] += 1
+    return y
+
+
+def stem_conv(x: Tensor, w: Tensor, scale: Tensor, bias: Tensor, *, stride: int, padding: int,
+              out_dtype=torch.bfloat16, form: Optional[str] = None) -> Tensor:
+    """silu(conv2d(x, w, stride, padding) * scale + bias), NHWC.  ``form``
+    forces a kernel on the card (``"tc"`` or ``"direct"``; default
+    :func:`stem_form`)."""
+    if x.device.type == "cpu":
+        return stem_conv_plain(x, w, scale, bias, stride=stride, padding=padding,
+                               out_dtype=out_dtype)
+    B, H, W, C = x.shape
+    K, K2, C2, N = w.shape
+    if K != K2 or C != C2 or N % 8 or x.dtype != torch.float32 or out_dtype not in (
+            torch.float32, torch.bfloat16):
+        raise ValueError(f"stem kernel cannot take x {tuple(x.shape)} {x.dtype}, "
+                         f"w {tuple(w.shape)}, out {out_dtype}")
+    auto = stem_form(x.shape, w.shape, stride, padding, out_dtype)
+    form = form or auto
+    if form not in ("tc", "direct") or (form == "tc" and auto != "tc"):
+        raise ValueError(f"stem form {form!r} cannot take x {tuple(x.shape)}, w {tuple(w.shape)}, "
+                         f"stride {stride}, padding {padding}, out {out_dtype}")
+    Ho = (H + 2 * padding - K) // stride + 1
+    Wo = (W + 2 * padding - K) // stride + 1
+    x = x.contiguous()
+    scale, bias = scale.float().contiguous(), bias.float().contiguous()
+    if form == "tc":
+        return _launch_tc(x, w, scale, bias, Ho, Wo)
+    return _launch_direct(x, w, scale, bias, stride, padding, out_dtype, Ho, Wo)

@@ -13,12 +13,15 @@ with bf16 operands and f32 accumulation:
   merged_in      x through a (B, H, W*3) view first (free in torch)
   s2d            pad + space-to-depth(2) → dense 3x3 conv over 12 channels
   im2col         s2d + 9-tap concat (K = 108) → one matmul
-  stem_cu        ``ops/pallas_stem.stem_conv``: the stem kernel (direct conv
-                 on f32 CUDA cores, ``kernels/stem.cu``)
+  stem_cu        ``ops/pallas_stem.stem_conv(form="direct")``: the direct
+                 stem kernel (f32 CUDA cores, ``kernels/stem.cu``)
   stem_k108      ``stem_k108``: space-to-depth in shared memory + one K=108
                  tensor-core product per pixel tile (``kernels/stem_k108.cu``)
   stem_dot108    ``stem_dot108``: torch builds the K=108 im2col, the kernel
                  does the product + BN + SiLU (``kernels/stem_dot108.cu``)
+  stem_tc        ``ops/pallas_stem.stem_conv(form="tc")``: the trunk's bf16
+                 stem, raw f32 image rows streamed through a shared-memory
+                 ring + one K=108 tensor-core product (``kernels/stem_tc.cu``)
 
 Run::
 
@@ -206,7 +209,13 @@ def im2col(x, w, sc, bi):
 
 
 def stem_cu(x, w, sc, bi):
-    return pallas_stem.stem_conv(x, w, sc, bi, stride=S, padding=P, out_dtype=torch.bfloat16)
+    return pallas_stem.stem_conv(x, w, sc, bi, stride=S, padding=P, out_dtype=torch.bfloat16,
+                                 form="direct")
+
+
+def stem_tc(x, w, sc, bi):
+    return pallas_stem.stem_conv(x, w, sc, bi, stride=S, padding=P, out_dtype=torch.bfloat16,
+                                 form="tc")
 
 
 CANDIDATES: Dict[str, Callable] = {
@@ -219,6 +228,7 @@ CANDIDATES: Dict[str, Callable] = {
     "stem_cu": stem_cu,
     "stem_k108": stem_k108,
     "stem_dot108": stem_dot108,
+    "stem_tc": stem_tc,
 }
 
 

@@ -36,6 +36,8 @@ def cuda():
 @pytest.mark.parametrize("H,W,K,s,p,C,N", [(64, 64, 6, 2, 2, 3, 64), (40, 48, 4, 4, 0, 3, 96),
                                            (64, 64, 2, 2, 0, 4, 32), (37, 91, 6, 2, 2, 3, 64)])
 def test_stem_kernel_f32_matches_plain(cuda, H, W, K, s, p, C, N):
+    """The direct kernel (stem.cu) at f32 compute, its only form on the card
+    for these shapes."""
     x = torch.randn((2, H, W, C), generator=cuda, device="cuda")
     w = torch.randn((K, K, C, N), generator=cuda, device="cuda") * 0.1
     scale = torch.rand(N, generator=cuda, device="cuda") + 0.5
@@ -60,6 +62,27 @@ def test_nms_kernel_bit_identical(cuda, K, thr):
     i1, k1 = pallas_nms.nms_padded_pallas(boxes, scores, valid, thr, 300)
     i2, k2 = nms_padded(boxes, scores, valid, thr, 300)
     assert torch.equal(i1.long(), i2.long()) and torch.equal(k1, k2)
+
+
+@pytest.mark.parametrize("B,H,W,N", [(16, 640, 640, 64), (1, 256, 256, 32), (2, 600, 904, 64),
+                                     (3, 37, 91, 64), (2, 255, 130, 32), (1, 9, 6, 16),
+                                     (2, 61, 50, 48)])
+def test_stem_tc_kernel_matches_plain(cuda, B, H, W, N):
+    """The bf16 stem form: odd H, widths that are not 16-pixel multiples,
+    W % 4 != 0 (4-byte row copies), each N the kernel takes.  One bf16 ulp:
+    |d| <= 1e-2 + 2^-7·|plain|; the direct kernel is not launched."""
+    x = torch.rand((B, H, W, 3), generator=cuda, device="cuda")
+    w = torch.randn((6, 6, 3, N), generator=cuda, device="cuda") * 0.1
+    scale = torch.rand(N, generator=cuda, device="cuda") + 0.5
+    bias = torch.randn(N, generator=cuda, device="cuda") * 0.1
+    kw = dict(stride=2, padding=2, out_dtype=torch.bfloat16)
+    assert pallas_stem.stem_form(x.shape, w.shape, 2, 2, torch.bfloat16) == "tc"
+    n0, d0 = kernels.LAUNCHES["stem_tc"], kernels.LAUNCHES["stem"]
+    got = pallas_stem.stem_conv(x, w, scale, bias, **kw)
+    assert (kernels.LAUNCHES["stem_tc"], kernels.LAUNCHES["stem"]) == (n0 + 1, d0)
+    want = pallas_stem.stem_conv_plain(x, w, scale, bias, **kw).float()
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert ((got.float() - want).abs() <= 1e-2 + 2 ** -7 * want.abs()).all()
 
 
 def test_roi_align_kernel_f32_canvas_matches_plain(cuda):
@@ -99,20 +122,35 @@ def test_roi_align_single_kernel_matches_plain(cuda, C, dtype, M, n):
         torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=3e-2)
 
 
-def test_mask_head_kernel_matches_plain(cuda):
-    N, C, nc = 37, 256, 3
-    head = MaskHead(nc, C)
+def _mask_head(nc, seed):
+    head = MaskHead(nc, 256)
     with torch.no_grad():
-        g = torch.Generator().manual_seed(2)
+        g = torch.Generator().manual_seed(seed)
         for prm in head.parameters():
             scale = math.sqrt(2.0 / prm[0].numel()) if prm.dim() > 1 else 0.05
             prm.copy_(torch.randn(prm.shape, generator=g) * scale)
-    head = head.cuda()
-    pooled = torch.randn((N, 14, 14, C), generator=cuda, device="cuda").to(torch.bfloat16)
+    return head.cuda()
+
+
+@pytest.mark.parametrize("N,nc,active", [(1, 2, None), (7, 2, None), (7, 2, 0), (37, 3, None),
+                                         (768, 2, None), (768, 2, 0), (768, 2, 360),
+                                         (400, 5, None), (400, 5, 360)])
+def test_mask_head_kernel_matches_plain(cuda, N, nc, active):
+    """Within 2e-2 of the plain version on the active slots, exactly 0 past
+    them, and two launches bit-identical."""
+    head = _mask_head(nc, 2)
+    pooled = torch.randn((N, 14, 14, 256), generator=cuda, device="cuda").to(torch.bfloat16)
     labels = torch.randint(0, nc, (N,), generator=cuda, device="cuda")
+    act = None if active is None else torch.tensor(active, dtype=torch.int32, device="cuda")
     with torch.no_grad():
-        got = pallas_mask_head.fused_mask_probs(head, pooled, labels)
-        want = pallas_mask_head.fused_mask_probs_plain(head, pooled, labels)
+        n0 = kernels.LAUNCHES["mask_head"]
+        got = pallas_mask_head.fused_mask_probs(head, pooled, labels, act)
+        again = pallas_mask_head.fused_mask_probs(head, pooled, labels, act)
+        assert kernels.LAUNCHES["mask_head"] == n0 + 2
+        want = pallas_mask_head.fused_mask_probs_plain(head, pooled, labels, act)
+    k = N if active is None else active
+    assert torch.equal(got, again)
+    assert bool((got[k:] == 0).all())
     torch.testing.assert_close(got, want, rtol=0, atol=2e-2)
 
 
@@ -156,6 +194,10 @@ def test_kernels_raise_on_what_they_do_not_take(cuda):
                                            torch.zeros((1, 4), device="cuda"),
                                            torch.zeros((1, 4), device="cuda"),
                                            torch.zeros((1, 4), device="cuda"), (4, 4), 2, 2)
+    with pytest.raises(ValueError):
+        pallas_stem.stem_conv(torch.zeros((1, 8, 8, 3), device="cuda"),
+                              torch.zeros((6, 6, 3, 96), device="cuda"), torch.ones(96, device="cuda"),
+                              torch.zeros(96, device="cuda"), stride=2, padding=2, form="tc")
     with pytest.raises(ValueError):
         stem_lab.stem_k108(torch.zeros((1, 8, 8, 4), device="cuda"),
                            torch.zeros((6, 6, 3, 64), device="cuda"),

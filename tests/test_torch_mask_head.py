@@ -2,7 +2,8 @@
 JAX ``fused_mask_probs(interpret=True)`` and against ``sigmoid(MaskHead)`` +
 per-ROI channel select (copies
 ``tests/test_pallas.py::test_pallas_mask_head_matches_flax``).
-Tolerance: atol 1e-5, f32."""
+Tolerance: atol 1e-5, f32.  Also the ``active`` prefix (slots at or past
+it exactly 0) and the kernel's packed weight stream."""
 
 import jax
 import jax.numpy as jnp
@@ -13,7 +14,8 @@ import torch
 from hd_yolo_tpu.models.detect_head import MaskHead as JaxMaskHead
 from hd_yolo_tpu.ops.pallas_mask_head import fused_mask_probs as jax_fused_mask_probs
 from hd_yolo_tpu_torch.models.detect_head import MaskHead
-from hd_yolo_tpu_torch.ops.pallas_mask_head import _deinterleave, fused_mask_probs, kernel_weights
+from hd_yolo_tpu_torch.ops.pallas_mask_head import (_deinterleave, fused_mask_probs, kernel_weights,
+                                                     mask_head_stream)
 
 N, M, C, NC = 11, 14, 32, 5
 
@@ -92,3 +94,55 @@ def test_kernel_weight_layouts(inputs):
         taps = torch.stack([torch.einsum("nhwi,oi->nohw", xt, wd[d]) for d in range(4)], 1)
         for o in range(3):
             torch.testing.assert_close(_deinterleave(taps[:, :, o]), full[:, o], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("k", [0, 4, N])
+def test_plain_active_prefix_matches_jax_then_zero(inputs, k):
+    """``active = k``: the first k slots equal the JAX kernel's (interpret
+    mode), the rest are exactly 0; ``None`` is the same as N."""
+    head, v, th, x, labels = inputs
+    want = np.asarray(jax_fused_mask_probs(v["params"], jnp.asarray(x), jnp.asarray(labels), g=4,
+                                           interpret=True))
+    with torch.no_grad():
+        got = fused_mask_probs(th, torch.from_numpy(x), torch.from_numpy(labels),
+                               active=torch.tensor(k, dtype=torch.int32)).numpy()
+        full = fused_mask_probs(th, torch.from_numpy(x), torch.from_numpy(labels)).numpy()
+    assert got.shape == (N, 2 * M, 2 * M)
+    np.testing.assert_allclose(got[:k], want[:k], rtol=0, atol=1e-5)
+    assert (got[k:] == 0).all()
+    if k == N:
+        np.testing.assert_array_equal(got, full)
+
+
+def _unpack_stream(stream):
+    """(1280, 2048) stream → (wf (4, 9, 256, 256), wd (4, 256, 256))."""
+    def unslice(t, lead):
+        t = t.reshape(*lead, 2, 16, 16, 2, 8, 8)        # pass, ks, co group, k half, co row, ci
+        n = len(lead)
+        perm = list(range(n)) + [n + i for i in (0, 2, 4, 1, 3, 5)]
+        return t.permute(*perm).reshape(*lead, 256, 256)
+
+    conv = stream[:1152].reshape(4, 2, 9, 16, 2048).permute(0, 2, 1, 3, 4)
+    return unslice(conv, (4, 9)), unslice(stream[1152:], (4,))
+
+
+def test_weight_stream_layout(rng):
+    """The kernel's stream: 1280 slices of 16 ci x 128 co in consumption
+    order, element (k, n) of a slice at ((n//8)*2 + k//8)*64 + (n%8)*8 + k%8
+    (wgmma's no-swizzle K-major core matrices, LBO 128 B, SBO 256 B)."""
+    wf = torch.from_numpy(rng.standard_normal((4, 9, 256, 256)).astype(np.float32))
+    wd = torch.from_numpy(rng.standard_normal((4, 256, 256)).astype(np.float32))
+    stream = mask_head_stream(wf, wd)
+    assert stream.shape == (1280, 2048) and stream.is_contiguous()
+    back_f, back_d = _unpack_stream(stream)
+    assert torch.equal(back_f, wf) and torch.equal(back_d, wd)
+    n, k = np.meshgrid(np.arange(128), np.arange(16), indexing="ij")
+    off = torch.from_numpy((((n // 8) * 2 + k // 8) * 64 + (n % 8) * 8 + k % 8).ravel())
+    for layer, p, tap, ks in [(0, 0, 0, 0), (1, 1, 4, 7), (3, 1, 8, 15)]:
+        s = ((layer * 2 + p) * 9 + tap) * 16 + ks
+        want = wf[layer, tap, 128 * p:128 * p + 128, 16 * ks:16 * ks + 16].reshape(-1)
+        assert torch.equal(stream[s][off], want)
+    for d, p, ks in [(0, 0, 0), (2, 1, 9), (3, 1, 15)]:
+        s = 1152 + (d * 2 + p) * 16 + ks
+        want = wd[d, 128 * p:128 * p + 128, 16 * ks:16 * ks + 16].reshape(-1)
+        assert torch.equal(stream[s][off], want)

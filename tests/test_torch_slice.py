@@ -103,3 +103,22 @@ def test_detector_cuda_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         Detector("yolov5s-test", "hyp-nuclei", device="cuda")
+
+
+def test_slice_partial_mask_prefix_matches_jax(rng, tmp_path):
+    """A mask budget above the eligible count: the packed branch's ``sel_ok``
+    prefix is partial, so the head computes only its leading slots
+    (``active``) and the rest stay 0 — the same outputs as the JAX branch."""
+    kw = dict(KW, max_masks=300, mask_budget=600)
+    jm = JaxModel.from_cfg("yolov5s-test", "hyp-nuclei", **kw)
+    variables = random_variables(jm, X_SHAPE, seed=1, obj_bias=1.0)
+    path = tmp_path / "weights.pkl"
+    path.write_bytes(pickle.dumps(variables))
+    det = Detector("yolov5s-test", "hyp-nuclei", weights=str(path), input_size=SIZE,
+                   dtype=torch.float32, device="cpu", **kw)
+    x = rng.uniform(0, 1, X_SHAPE).astype(np.float32)
+    want = jax.jit(lambda v, x: jm.apply(v, x, train=False)[1])(variables, jnp.asarray(x))["det"]
+    got = det.tiles(x)["det"]
+    _compare(got, want)
+    eligible = int(np.asarray(want["mask_valid"]).sum())
+    assert 0 < eligible < kw["mask_budget"]

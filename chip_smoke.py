@@ -13,13 +13,16 @@ Phases (any failure raises and the script exits non-zero):
      kernels redesigned for Hopper (``mask_head``, ``stem_tc``);
   3. kernels: each kernel against its plain PyTorch version on the same
      inputs, at the flagship path's shapes, with the stated tolerance (NMS
-     bit-identical); median times (CUDA events around windows of 5
-     back-to-back calls) of the kernel, the plain version and, where one
-     exists, a PyTorch library call.  The bf16 stem form ``stem_tc`` is timed
-     in turns with the direct kernel at bf16, ``stem_k108`` and cuDNN and
-     must beat the first two; the mask head with all 768 slots active and
-     with a 360-slot prefix (inactive slots exactly 0, two launches
-     bit-identical) must beat cuDNN's chain;
+     bit-identical); median times (CUDA events, one call a window) of the
+     kernel, the plain version and, where one exists, a PyTorch library
+     call, and the kernel's time again over windows of 5 back-to-back calls
+     (device time only, without the wrapper's host time).  The bf16 stem
+     form ``stem_tc`` is held within one bf16 ulp also on pre-activations
+     out to |v| ~ 15 and, its SiLU alone, over [-20, 20]; it is timed in
+     turns with the direct kernel at bf16, ``stem_k108`` and cuDNN and must
+     beat the first two; the mask head with all 768 slots active and with a
+     360-slot prefix (inactive slots exactly 0, two launches bit-identical)
+     is timed in turns with cuDNN's chain and must beat it;
   4. flagship: ``Detector("yolov5l6-mask", "hyp-nuclei", device="cuda")`` at
      full width in bf16 with seeded weights (objectness bias raised so NMS
      and the 768-ROI mask budget do real work): one batch of 16 x 640 px
@@ -143,25 +146,43 @@ def log(*a):
     print(*a, flush=True)
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3, reps: int = 5) -> float:
-    """Median milliseconds of one ``fn()``, CUDA events around ``iters``
-    windows of ``reps`` back-to-back calls each: where the card is slower
-    than the host's enqueue, the window holds device time only (one call per
-    window would also count the wrapper's host time)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(reps):
+B2B = 5   # calls in a back-to-back timing window
+
+
+def cuda_ms_turns(fns: dict, iters: int = 20, warmup: int = 3, reps: int = 1) -> dict:
+    """Median milliseconds of one call of each ``fns[name]()``: CUDA events
+    around ``iters`` windows per function, the functions' windows taken in
+    turns.  ``reps`` 1 (the ``ms`` of the kernel record): one call a window,
+    so a window also holds whatever host work of the wrapper the card waits
+    for.  ``reps`` > 1 (``ms_back_to_back``): that many calls back to back, so
+    where the card is slower than the host's enqueue a window holds device
+    time only."""
+    for fn in fns.values():
+        for _ in range(warmup):
             fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / reps)
-    return statistics.median(times)
+    torch.cuda.synchronize()
+    times = {k: [] for k in fns}
+    for _ in range(iters):
+        for k, fn in fns.items():
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(reps):
+                fn()
+            b.record()
+            b.synchronize()
+            times[k].append(a.elapsed_time(b) / reps)
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3, reps: int = 1) -> float:
+    """Median milliseconds of one ``fn()`` (``cuda_ms_turns`` of one function)."""
+    return cuda_ms_turns({"fn": fn}, iters, warmup, reps)["fn"]
+
+
+def kernel_ms(fn, iters: int) -> dict:
+    """A kernel's two readings: one call a window and ``B2B`` back to back."""
+    return dict(ms=cuda_ms(fn, iters), ms_back_to_back=cuda_ms(fn, iters, reps=B2B))
 
 
 def bound(nbytes: float, flops: float, peak_flops: float):
@@ -212,18 +233,39 @@ def phase_stem(gen, iters):
                                       out_dtype=torch.float32),
                 pallas_stem.stem_conv_plain(x32, w, scale, bias, stride=2, padding=2,
                                             out_dtype=torch.float32), atol=1e-5, rtol=0.0)
-    ms = cuda_ms(lambda: pallas_stem.stem_conv(x, w, scale, bias, form="direct", **kw), iters)
+    t = kernel_ms(lambda: pallas_stem.stem_conv(x, w, scale, bias, form="direct", **kw), iters)
     plain_ms = cuda_ms(lambda: pallas_stem.stem_conv_plain(x, w, scale, bias, **kw), iters)
     flops = 2.0 * got.numel() * 6 * 6 * 3
     b_ms, by = bound(nbytes(x, w, scale, bias, got), flops, BF16_FLOPS)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+    return dict(max_abs_err=err, **t, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
                 library_ms=stem_library_ms(x, w, scale, bias, iters))
 
 
+def check_stem_tc_silu():
+    """``stem_tc``'s SiLU alone over v in [-20, 20]: a one-hot centre tap
+    makes each output silu(bf16(x) + bias), 65,536 pre-activations against
+    the f32 SiLU of the plain version; within one bf16 ulp (|d| <=
+    2^-7·|plain|, no absolute slack, so the tail's tiny values count)."""
+    x = torch.zeros((1, 64, 64, 3), device="cuda")
+    x[0, :, :, 0] = torch.linspace(-20.0, 20.0, 64 * 64, device="cuda").view(64, 64)
+    w = torch.zeros((6, 6, 3, 64), device="cuda")
+    w[2, 2, 0] = 1.0
+    scale, bias = torch.ones(64, device="cuda"), torch.linspace(0.0, 0.04, 64, device="cuda")
+    kw = dict(stride=2, padding=2, out_dtype=torch.bfloat16)
+    got = pallas_stem.stem_conv(x, w, scale, bias, **kw)
+    want = pallas_stem.stem_conv_plain(x, w, scale, bias, **kw)
+    need(float(want[0, 0, 0, 0]) < 0 and float(want.max()) > 19.0, "the sweep missed [-20, 20]")
+    rel = ((got.float() - want.float()).abs() / want.float().abs().clamp_min(1e-30)).max()
+    log(f"  stem_tc SiLU alone over v in [-20, 20]: max relative error {float(rel):.3g}")
+    check_close("stem_tc SiLU alone", got, want, atol=0.0, rtol=2 ** -7)
+
+
 def phase_stem_tc(gen, iters):
-    """The trunk's bf16 stem form (stem_tc.cu) at (16, 640, 640, 3), timed
-    in turns with the direct kernel at bf16, ``stem_k108`` and cuDNN on the
-    same inputs."""
+    """The trunk's bf16 stem form (stem_tc.cu) at (16, 640, 640, 3): within
+    one bf16 ulp of the plain version on the common stem inputs, on inputs
+    whose pre-activations reach |v| ~ 15 (SiLU's negative tail) and, SiLU
+    alone, over [-20, 20]; timed in turns with the direct kernel at bf16,
+    ``stem_k108`` and cuDNN on the same inputs, by both timing methods."""
     x, w, scale, bias = stem_inputs(gen)
     kw = dict(stride=2, padding=2, out_dtype=torch.bfloat16)
     need(pallas_stem.stem_form(x.shape, w.shape, 2, 2, torch.bfloat16) == "tc",
@@ -231,30 +273,40 @@ def phase_stem_tc(gen, iters):
     got = pallas_stem.stem_conv(x, w, scale, bias, **kw)
     want = pallas_stem.stem_conv_plain(x, w, scale, bias, **kw)
     torch.cuda.synchronize()
-    err = check_close("stem_tc", got, want, atol=1e-2, rtol=2 ** -7)
+    err = check_close("stem_tc", got, want, atol=1e-3, rtol=2 ** -7)
     again = pallas_stem.stem_conv(x, w, scale, bias, **kw)
     need(torch.equal(got, again), "stem_tc: two launches differ")
-    tc = lambda: pallas_stem.stem_conv(x, w, scale, bias, **kw)
-    direct = lambda: pallas_stem.stem_conv(x, w, scale, bias, form="direct", **kw)
-    k108 = lambda: stem_lab.stem_k108(x, w, scale, bias)
-    t = {"stem_tc": [], "direct": [], "stem_k108": []}
-    for _ in range(2):                                # in turns: tc, direct, k108, k108, direct, tc
-        for name, fn in (("stem_tc", tc), ("direct", direct), ("stem_k108", k108)):
-            t[name].append(cuda_ms(fn, iters))
-        for name, fn in (("stem_k108", k108), ("direct", direct), ("stem_tc", tc)):
-            t[name].append(cuda_ms(fn, iters))
-    ms = {k: statistics.median(v) for k, v in t.items()}
+    wt, bt = w * 12, bias * 30                        # pre-activations out to |v| ~ 15
+    v = F.conv2d(x.to(torch.bfloat16).float().permute(0, 3, 1, 2),
+                 wt.to(torch.bfloat16).float().permute(3, 2, 0, 1), stride=2, padding=2)
+    v = v * scale[:, None, None] + bt[:, None, None]
+    log(f"  stem_tc tail inputs: pre-activations in [{float(v.min()):.2f}, {float(v.max()):.2f}], "
+        f"{float((v < -4).float().mean()):.3f} of them below -4")
+    del v
+    err = max(err, check_close("stem_tc, tail inputs",
+                               pallas_stem.stem_conv(x, wt, scale, bt, **kw),
+                               pallas_stem.stem_conv_plain(x, wt, scale, bt, **kw),
+                               atol=1e-3, rtol=2 ** -7))
+    check_stem_tc_silu()
+    fns = {"stem_tc": lambda: pallas_stem.stem_conv(x, w, scale, bias, **kw),
+           "direct": lambda: pallas_stem.stem_conv(x, w, scale, bias, form="direct", **kw),
+           "stem_k108": lambda: stem_lab.stem_k108(x, w, scale, bias),
+           "cuDNN": stem_library(x, w, scale, bias)}
+    ms = cuda_ms_turns(fns, iters)
+    b2b = cuda_ms_turns(fns, iters, reps=B2B)
     plain_ms = cuda_ms(lambda: pallas_stem.stem_conv_plain(x, w, scale, bias, **kw), iters)
-    lib_ms = stem_library_ms(x, w, scale, bias, iters)
     flops = 2.0 * got.numel() * stem_lab.KDIM
     b_ms, by = bound(nbytes(x, got, scale, bias) + stem_lab.KDIM * 64 * 2, flops, BF16_FLOPS)
-    log(f"  stem at (16, 640, 640, 3) bf16, median of 4 turns: stem_tc {ms['stem_tc']:.4f} ms | "
-        f"direct {ms['direct']:.4f} | stem_k108 {ms['stem_k108']:.4f} | cuDNN {lib_ms:.4f} | "
-        f"bound {b_ms:.4f} ({by})")
+    for name, t in (("one call a window", ms), (f"{B2B} back to back", b2b)):
+        log(f"  stem at (16, 640, 640, 3) bf16, in turns, {name}: stem_tc {t['stem_tc']:.4f} ms | "
+            f"direct {t['direct']:.4f} | stem_k108 {t['stem_k108']:.4f} | cuDNN {t['cuDNN']:.4f} | "
+            f"bound {b_ms:.4f} ({by}); target 2 x bound {2 * b_ms:.4f}: "
+            f"{'met' if t['stem_tc'] <= 2 * b_ms else 'missed'}")
     need(ms["stem_tc"] < ms["direct"] and ms["stem_tc"] < ms["stem_k108"],
          f"stem_tc is not faster than both the direct kernel and stem_k108: {ms}")
-    return dict(max_abs_err=err, ms=ms["stem_tc"], plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-                library_ms=lib_ms, direct_ms=ms["direct"], stem_k108_ms=ms["stem_k108"])
+    return dict(max_abs_err=err, ms=ms["stem_tc"], ms_back_to_back=b2b["stem_tc"],
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, library_ms=ms["cuDNN"],
+                turns={"one_call": ms, "back_to_back": b2b})
 
 
 def clustered_boxes(gen, B, K, dev, thr=0.45, extent=600.0, pairs_at=700.0):
@@ -291,14 +343,14 @@ def phase_nms(gen, iters):
                        descending=True, stable=True).indices
     sb = torch.gather(boxes, 1, order[..., None].expand_as(boxes)).contiguous()
     sv = torch.gather(valid, 1, order)
-    ms = cuda_ms(lambda: pallas_nms.nms_keep_sorted(sb, sv, thr, max_det), iters)
+    t = kernel_ms(lambda: pallas_nms.nms_keep_sorted(sb, sv, thr, max_det), iters)
     plain_ms = cuda_ms(lambda: pallas_nms.nms_keep_sorted_plain(sb, sv, thr, max_det),
                        max(3, iters // 4), warmup=1)
     # work this data needs: the IoU of every valid upper-triangle pair (~20 f32 ops)
     nv = sv.sum(1).double()
     flops = float((nv * (nv - 1) / 2).sum()) * 20
     b_ms, by = bound(nbytes(sb, sv, i1, k1), flops, F32_FLOPS)
-    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+    return dict(max_abs_err=0.0, **t, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
                 library_ms=None)
 
 
@@ -355,13 +407,13 @@ def phase_roi(gen, iters):
     torch.cuda.synchronize()
     # plain rounds its interpolation weights and row sums to bf16 as the JAX path does
     err = check_close("roi_align", got, want, atol=3e-2, rtol=2e-2)
-    ms = cuda_ms(lambda: pallas_roi_align.roi_align_bounded(*captured["args"]), iters)
+    t = kernel_ms(lambda: pallas_roi_align.roi_align_bounded(*captured["args"]), iters)
     plain_ms = cuda_ms(lambda: pallas_roi_align.roi_align_bounded_plain(*captured["args"]), iters)
     cells = touched_cells(canvas, meta, ys, xs, bnds, window[0])
     flops = K * M * M * n * n * 4 * 2 * C
     need = cells * C * canvas.element_size() + nbytes(meta, ys, xs, bnds, got)
     b_ms, by = bound(need, flops, F32_FLOPS)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+    return dict(max_abs_err=err, **t, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
                 library_ms=None)
 
 
@@ -401,37 +453,46 @@ def phase_mask_head(gen, iters):
                     atol=2e-2, rtol=0.0)
         need(bool((got_p[used:] == 0).all()), "mask_head: an inactive slot is not 0")
         need(torch.equal(got_p[:used], got[:used]), "mask_head: the prefix changed active slots")
-        ms = cuda_ms(lambda: pallas_mask_head.fused_mask_probs(head, pooled, labels), iters)
-        ms_p = cuda_ms(lambda: pallas_mask_head.fused_mask_probs(head, pooled, labels, act), iters)
         plain_ms = cuda_ms(lambda: pallas_mask_head.fused_mask_probs_plain(head, pooled, labels),
                            iters)
-        hb = head.to(torch.bfloat16)
+        bf = lambda t: t.to(torch.bfloat16)
+        convs = [(bf(c.weight), bf(c.bias)) for c in head.fcn]
+        preds = head.maskrcnn_preds
+        dw, db = bf(preds.conv5_mask.weight), bf(preds.conv5_mask.bias)
+        lw, lb = bf(preds.mask_fcn_logits.weight), bf(preds.mask_fcn_logits.bias)
 
         def library(xb):
             y = xb
-            for conv in hb.fcn:
-                y = F.relu(F.conv2d(y, conv.weight, conv.bias, padding=1))
-            y = F.relu(F.conv_transpose2d(y, hb.maskrcnn_preds.conv5_mask.weight,
-                                          hb.maskrcnn_preds.conv5_mask.bias, stride=2))
-            return torch.sigmoid(F.conv2d(y, hb.maskrcnn_preds.mask_fcn_logits.weight,
-                                          hb.maskrcnn_preds.mask_fcn_logits.bias))
+            for w, b in convs:
+                y = F.relu(F.conv2d(y, w, b, padding=1))
+            y = F.relu(F.conv_transpose2d(y, dw, db, stride=2))
+            return torch.sigmoid(F.conv2d(y, lw, lb))
 
         xb = pooled.permute(0, 3, 1, 2)
-        lib_ms = cuda_ms(lambda: library(xb), iters)
-        lib_ms_p = cuda_ms(lambda: library(xb[:used]), iters)
-        ms2 = cuda_ms(lambda: pallas_mask_head.fused_mask_probs(head, pooled, labels), iters)
+        # one reading per side, the kernel's and cuDNN's windows in turns
+        fns = {"kernel": lambda: pallas_mask_head.fused_mask_probs(head, pooled, labels),
+               "cuDNN": lambda: library(xb),
+               "kernel_360": lambda: pallas_mask_head.fused_mask_probs(head, pooled, labels, act),
+               "cuDNN_360": lambda: library(xb[:used])}
+        ms = cuda_ms_turns(fns, iters)
+        b2b = cuda_ms_turns(fns, iters, reps=B2B)
     wbytes = (4 * 9 * C * C + 4 * C + 4 * C * C + C) * 2
     b_ms, by = bound(nbytes(pooled, got) + wbytes + N * C * 2 + N * 4, mask_head_flops(N),
                      BF16_FLOPS)
     b_ms_p, _ = bound(nbytes(pooled[:used], got) + wbytes + used * (C * 2 + 4),
                       mask_head_flops(used), BF16_FLOPS)
-    log(f"  mask_head at {N}: kernel {ms:.4f} ms, again {ms2:.4f} | cuDNN chain {lib_ms:.4f} | "
-        f"bound {b_ms:.4f} ({by}); active {used}: kernel {ms_p:.4f} ms | cuDNN chain on {used} "
-        f"{lib_ms_p:.4f} | bound {b_ms_p:.4f}")
-    need(min(ms, ms2) < lib_ms, f"mask_head ({ms:.4f} ms) is not faster than cuDNN's chain "
-                                f"({lib_ms:.4f} ms)")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-                library_ms=lib_ms, active_360=dict(ms=ms_p, bound_ms=b_ms_p, library_ms=lib_ms_p))
+    for name, t in (("one call a window", ms), (f"{B2B} back to back", b2b)):
+        log(f"  mask_head in turns, {name}: at {N} kernel {t['kernel']:.4f} ms | cuDNN chain "
+            f"{t['cuDNN']:.4f} | bound {b_ms:.4f} ({by}), target 2 x bound {2 * b_ms:.4f} "
+            f"{'met' if t['kernel'] <= 2 * b_ms else 'missed'}; active {used}: kernel "
+            f"{t['kernel_360']:.4f} ms | cuDNN chain on {used} {t['cuDNN_360']:.4f} | bound "
+            f"{b_ms_p:.4f}")
+    need(ms["kernel"] < ms["cuDNN"], f"mask_head ({ms['kernel']:.4f} ms) is not faster than "
+                                     f"cuDNN's chain ({ms['cuDNN']:.4f} ms)")
+    return dict(max_abs_err=err, ms=ms["kernel"], ms_back_to_back=b2b["kernel"],
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, library_ms=ms["cuDNN"],
+                active_360=dict(ms=ms["kernel_360"], ms_back_to_back=b2b["kernel_360"],
+                                bound_ms=b_ms_p, library_ms=ms["cuDNN_360"]))
 
 
 def phase_roi_single(gen, iters):
@@ -459,12 +520,12 @@ def phase_roi_single(gen, iters):
     check_close("roi_align_single f32 (2, 37, 23, 5), 9 ROIs, M 7",
                 pallas_roi_align.roi_align_single(f5, b5, 7, 0.25, 2),
                 roi_align(f5, b5, 7, 0.25, 2), atol=1e-5, rtol=0.0)
-    ms = cuda_ms(lambda: forward(pallas_roi_align.roi_align_single), iters)
+    t = kernel_ms(lambda: forward(pallas_roi_align.roi_align_single), iters)
     plain_ms = cuda_ms(lambda: forward(roi_align), iters)
     # per output element: n x n samples of 4 taps, one multiply-add each
     flops = sum(o.numel() for o in got) * 4 * 4 * 2
     b_ms, by = bound(nbytes(*feats, *got) + 4 * tile.numel() * 4, flops, F32_FLOPS)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+    return dict(max_abs_err=err, **t, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
                 library_ms=None)
 
 
@@ -542,12 +603,16 @@ def stem_inputs(gen):
     return x, w, scale, bias
 
 
-def stem_library_ms(x, w, scale, bias, iters):
+def stem_library(x, w, scale, bias):
     """cuDNN bf16 conv with the scale folded into the weights + bias, then SiLU."""
     xl = x.to(torch.bfloat16).permute(0, 3, 1, 2)
     wl = (w.permute(3, 2, 0, 1) * scale[:, None, None, None]).to(torch.bfloat16)
     bl = bias.to(torch.bfloat16)
-    return cuda_ms(lambda: F.silu(F.conv2d(xl, wl, bl, 2, 2)), iters)
+    return lambda: F.silu(F.conv2d(xl, wl, bl, 2, 2))
+
+
+def stem_library_ms(x, w, scale, bias, iters):
+    return cuda_ms(stem_library(x, w, scale, bias), iters)
 
 
 def phase_stem_k108(gen, iters):
@@ -559,11 +624,11 @@ def phase_stem_k108(gen, iters):
     torch.cuda.synchronize()
     # the same bf16 operands and f32 accumulation in another order: one bf16 ulp
     err = check_close("stem_k108", got, want, atol=1e-3, rtol=2 ** -7)
-    ms = cuda_ms(lambda: stem_lab.stem_k108(x, w, scale, bias), iters)
+    t = kernel_ms(lambda: stem_lab.stem_k108(x, w, scale, bias), iters)
     plain_ms = cuda_ms(lambda: stem_lab.stem_k108_plain(x, w, scale, bias), iters)
     flops = 2.0 * got.numel() * stem_lab.KDIM
     b_ms, by = bound(nbytes(x, got, scale, bias) + stem_lab.KDIM * 64 * 2, flops, BF16_FLOPS)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+    return dict(max_abs_err=err, **t, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
                 library_ms=stem_library_ms(x, w, scale, bias, iters))
 
 
@@ -579,13 +644,13 @@ def phase_stem_dot108(gen, iters):
     err = check_close("stem_dot108", got, want, atol=1e-3, rtol=2 ** -7)
     cols = stem_lab.im2col108(stem_lab.s2d(x), 320, 320).contiguous()
     w108 = stem_lab.w_108(w)
-    ms = cuda_ms(lambda: stem_lab.dot108(cols, w108, scale, bias), iters)
+    t = kernel_ms(lambda: stem_lab.dot108(cols, w108, scale, bias), iters)
     plain_ms = cuda_ms(lambda: stem_lab.dot108_plain(cols, w108, scale, bias), iters)
     wrapper_ms = cuda_ms(lambda: stem_lab.stem_dot108(x, w, scale, bias), iters)
     log(f"  stem_dot108 with its torch im2col (the wrapper, x -> y): {wrapper_ms:.4f} ms")
     flops = 2.0 * got.numel() * stem_lab.KDIM
     b_ms, by = bound(nbytes(cols, got, scale, bias, w108), flops, BF16_FLOPS)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+    return dict(max_abs_err=err, **t, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
                 library_ms=stem_library_ms(x, w, scale, bias, iters))
 
 
@@ -604,15 +669,15 @@ def check_stitch_nms(gen, iters):
                            descending=True, stable=True).indices
         sb = torch.gather(boxes, 1, order[..., None].expand_as(boxes)).contiguous()
         sv = torch.gather(valid, 1, order)
-        ms = cuda_ms(lambda: pallas_nms.nms_keep_sorted(sb, sv, 0.45, K), iters)
+        t = kernel_ms(lambda: pallas_nms.nms_keep_sorted(sb, sv, 0.45, K), iters)
         plain_ms = cuda_ms(lambda: pallas_nms.nms_keep_sorted_plain(sb, sv, 0.45, K), 3, warmup=1)
         nv = sv.sum(1).double()
         b_ms, by = bound(nbytes(sb, sv, i1, k1), float((nv * (nv - 1) / 2).sum()) * 20, F32_FLOPS)
         log(f"  nms stitch (1, {K}) -> {K} at IoU 0.45: bit-identical {same}, kept "
-            f"{int(k1.sum())}; kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | bound {b_ms:.4f} ms "
+            f"{int(k1.sum())}; kernel {t['ms']:.4f} ms ({t['ms_back_to_back']:.4f} back to back) | plain {plain_ms:.4f} ms | bound {b_ms:.4f} ms "
             f"({by})")
         need(same, f"nms: kernel disagrees with its plain version at the stitch shape (1, {K})")
-        out[f"1x{K}"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by)
+        out[f"1x{K}"] = dict(**t, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by)
     return out
 
 
@@ -1270,7 +1335,8 @@ def main() -> int:
         results[kname] = fn(gen, 20)
         r = results[kname]
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        log(f"  {kname}: kernel {r['ms']:.4f} ms | plain {r['plain_ms']:.4f} ms | "
+        log(f"  {kname}: kernel {r['ms']:.4f} ms ({r['ms_back_to_back']:.4f} back to back) | "
+            f"plain {r['plain_ms']:.4f} ms | "
             f"library {lib} ms | bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     log("    kernels 2-4 at the hnet-nucls shapes")
     check_hnet_shapes(gen)

@@ -31,14 +31,14 @@
 //     width whose rows are not 16-byte multiples (W % 4 != 0) takes 4-byte
 //     copies.  Zero padding (2 columns left, the right edge, rows outside the
 //     image) is written once per slot as plain zeros.
-//   * The epilogue fuses scale, bias and SiLU (through the hardware tanh: an
-//     error far below the bf16 rounding that follows); each warp's 16 x N
+//   * The epilogue fuses scale, bias and SiLU (hardware exp2 and reciprocal:
+//     an error far below the bf16 rounding that follows); each warp's 16 x N
 //     tile goes through a padded stage buffer and leaves as whole 128-byte lines of
 //     streaming 16-byte stores (16 px x N channels are contiguous in NHWC).
 //   * Why mma.sync and not wgmma: the product is a tenth of the byte bound.
-//     Measured on an H100 (tools/kernel_ablation.py), the kernel is bound by
-//     instruction issue, not by HBM: dropping its stores, its SiLU or its
-//     mma each saves more than moving the bytes would.
+//     Measured on an H100 with variants of this source, the kernel is bound
+//     by instruction issue, not by HBM: dropping its stores, its SiLU or its
+//     mma each saved more than moving the bytes would.
 
 #include "common.cuh"
 
@@ -73,14 +73,19 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// silu(v) = v * sigmoid(v) = h + h * tanh(h), h = v / 2: one MUFU op (the
-// hardware tanh, relative error < 2^-10.9) where exp + reciprocal take two;
-// the epilogue is bound by that unit.
+// silu(v) = v / (1 + 2^(-v log2 e)) through the hardware exp2 and reciprocal
+// (ex2.approx, rcp.approx: a few f32 ulps over the whole range, far below
+// the bf16 rounding that follows).  The one-op form h + h * tanh.approx(h),
+// h = v / 2, is cheaper but cancels for v < 0: its 2^-11 relative error on
+// tanh becomes |h| * 2^-11 absolute, tens of bf16 ulps of the result near
+// v = -6 and a result of 0 or the wrong sign further out.  Below v ~ -87 the
+// reciprocal flushes to 0 and the result is -0, where the f32 SiLU is under
+// 1e-36 in magnitude.
 __device__ __forceinline__ float silu(float v) {
-  const float h = 0.5f * v;
-  float t;
-  asm("tanh.approx.f32 %0, %1;" : "=f"(t) : "f"(h));
-  return fmaf(h, t, h);
+  float e, r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(-1.4426950408889634f * v));
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(1.f + e));
+  return v * r;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float2 v) {

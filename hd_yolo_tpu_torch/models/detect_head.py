@@ -238,9 +238,8 @@ class Detect(nn.Module):
             b_idx, self.spec.strides, M, window=int(self.mask_window or 16))
         lab_k = mask_labels.reshape(B * R)[top_i].clamp(min=0)
         # top_s is sorted descending, so sel_ok is a prefix: the head computes
-        # only its slots (the count stays on the device) and zeroes the rest
+        # only its slots (the count stays on the device) and writes 0 to the rest
         sel = fused_mask_probs(self.seg_h, pooled, lab_k, active=sel_ok.sum())
-        sel = sel * sel_ok[:, None, None]
         S = self.mask_output_size
         masks = torch.zeros((B, R, S, S), dtype=sel.dtype, device=sel.device)
         masks[b_idx, r_idx] = sel

@@ -9,8 +9,9 @@ Phases (any failure raises and the script exits non-zero):
   1. the card: ``nvidia-smi`` name and power limit, ``torch.cuda`` name;
   2. build: every kernel under ``hd_yolo_tpu_torch/kernels/`` compiled from
      the checkout by ``nvcc`` for sm_90a, one process per source, in parallel;
-     ``nvcc -Xptxas -v``'s registers, shared memory and spills for the two
-     kernels redesigned for Hopper (``mask_head``, ``stem_tc``);
+     ``nvcc -Xptxas -v``'s registers, shared memory and spills for the four
+     kernels redesigned for Hopper (``mask_head``, ``stem_tc``, ``nms``,
+     ``roi_align``);
   3. kernels: each kernel against its plain PyTorch version on the same
      inputs, at the flagship path's shapes, with the stated tolerance (NMS
      bit-identical); median times (CUDA events, one call a window) of the
@@ -22,13 +23,22 @@ Phases (any failure raises and the script exits non-zero):
      turns with the direct kernel at bf16, ``stem_k108`` and cuDNN and must
      beat the first two; the mask head with all 768 slots active and with a
      360-slot prefix (inactive slots exactly 0, two launches bit-identical)
-     is timed in turns with cuDNN's chain and must beat it;
+     is timed in turns with cuDNN's chain and must beat it; the canvas
+     ROI-align reads the four level maps in place (checked) at 768 ROIs and
+     a 360 prefix (rows past it exactly 0, two launches bit-identical, equal
+     to the canvas-first form bit for bit), with its device time from the
+     profiler, its wrapper's host time a call (200 enqueues, no sync) and
+     the whole ``multiscale_roi_align_packed`` (coordinates + kernel) timed
+     in turns with PR 1–4's form that stacked the levels into a canvas
+     first; NMS likewise with its device and host times;
   4. flagship: ``Detector("yolov5l6-mask", "hyp-nuclei", device="cuda")`` at
      full width in bf16 with seeded weights (objectness bias raised so NMS
      and the 768-ROI mask budget do real work): one batch of 16 x 640 px
      tiles with every launch count reset just before and read just after
-     (``stem_tc`` 1, the direct stem 0; the mask head's active prefix
-     printed), then tiles/s (median of >= 10 runs), then
+     (``stem_tc`` 1, the direct stem 0; the active prefix printed, one
+     device count handed to both the pooling and the mask head,
+     ``level_canvas`` never called, the level maps contiguous), then
+     tiles/s (median of >= 10 runs), then
      ``Detector.__call__`` on three images of different sizes;
   5. reference: ``yolov5s-test`` on a small batch through the kernels
      (CUDA, bf16) against the plain PyTorch path on the CPU (bf16) — the CPU
@@ -37,7 +47,8 @@ Phases (any failure raises and the script exits non-zero):
      (Swin-T + FPN + Mask R-CNN, panoptic and cl headers) at full width with
      seeded weights on 4 x 640 px tiles: one forward with every launch count
      reset just before and read just after (the single-level ROI-align 4,
-     the canvas ROI-align 2, NMS 2, mask head 1, stem 0), then tiles/s
+     the canvas ROI-align 2, NMS 2, mask head 1, stem 0; ``level_canvas``
+     never called), then tiles/s
      (median of >= 10 forwards) and a profiled forward;
   7. hnet reference: a small hnet (Swin embed 32, depths 1/1/1/1, window 4,
      FPN 256) on 2 x 128 px through the kernels (CUDA, bf16) against the
@@ -53,7 +64,8 @@ Phases (any failure raises and the script exits non-zero):
      overlap 64 and batch 16 (49 tiles, 4 batches), the objectness
      calibrated to ~20 detections per tile: the launch counts of one slide
      (``stem_tc`` 4 and the direct stem 0, NMS 5 = 4 per-tile + 1 stitch,
-     ROI-align 4, mask head 4, each with its active prefix printed), the
+     ROI-align 4, mask head 4, each with its active prefix printed and
+     shared by pooling and head, no canvas built), the
      median wall time over >= 5 slides and tiles/s, the band population
      against ``max_band`` (and the saturation warning exactly when it is
      reached), the mask-carrying rows against ``mask_rows``, every box inside
@@ -65,11 +77,12 @@ Phases (any failure raises and the script exits non-zero):
 
 Phase 3 also holds the single-level ROI-align kernel against its plain
 version at the four hnet-nucls level shapes (and a small f32 case with 5
-channels), kernels 2–4 at the shapes hnet-nucls gives them (both NMS calls,
-the canvas ROI-align at the box head's and the mask head's ROIs, the mask
-head at 400 ROIs with five mask classes), the NMS kernel at the slide
-stitch's shapes ((1, 1024) band, (1, 4096) full, IoU 0.45, bit-identical,
-timed), and the K=108 stem kernels 6 and 7 at (16, 640, 640, 3).
+channels), kernels 2–4 at the shapes hnet-nucls gives them (both NMS calls
+and the canvas ROI-align at the box head's and the mask head's ROIs, each
+timed; the mask head at 400 ROIs with five mask classes), the NMS kernel at
+the slide stitch's shapes ((1, 1024) band, (1, 4096) full, IoU 0.45,
+bit-identical, timed), and the K=108 stem kernels 6 and 7 at (16, 640,
+640, 3).
 
 The last lines are the per-kernel JSON record, the ``nvidia-smi`` line, and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -101,9 +114,11 @@ from hd_yolo_tpu_torch.ops.boxes import box_iou, remove_small_boxes_mask, xywh2x
 from hd_yolo_tpu_torch.ops import pallas_mask_head, pallas_nms, pallas_roi_align, pallas_stem  # noqa: E402
 from hd_yolo_tpu_torch.ops.nms import batched_nms_padded, class_offset_boxes, nms_padded  # noqa: E402
 from hd_yolo_tpu_torch.ops.paste import paste_masks_in_image  # noqa: E402
+from hd_yolo_tpu_torch.ops import roi_align as roi_ops  # noqa: E402
 from hd_yolo_tpu_torch.ops.roi_align import (_multiscale_roi_align_canvas,  # noqa: E402
-                                             multiscale_roi_align_canvas,
-                                             multiscale_roi_align_packed, roi_align)
+                                             level_canvas, multiscale_roi_align_canvas,
+                                             multiscale_roi_align_packed, roi_align,
+                                             sample_coords)
 from hd_yolo_tpu_torch.tools import stem_lab  # noqa: E402
 from hd_yolo_tpu_torch.wsi import tiling  # noqa: E402
 
@@ -124,8 +139,8 @@ TPU_KERNEL = {
 }
 FLAGSHIP_KERNELS = ("stem_tc", "nms", "roi_align", "mask_head")
 LAB_KERNELS = ("stem", "stem_k108", "stem_dot108", "stem_tc")
-# the two kernels redesigned for Hopper: their ptxas report is printed at build
-REDESIGNED = ("mask_head", "stem_tc")
+# the kernels redesigned for Hopper: their ptxas report is printed at build
+REDESIGNED = ("mask_head", "stem_tc", "nms", "roi_align")
 
 
 def slide_launches(n_batches: int) -> dict:
@@ -183,6 +198,37 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3, reps: int = 1) -> float:
 def kernel_ms(fn, iters: int) -> dict:
     """A kernel's two readings: one call a window and ``B2B`` back to back."""
     return dict(ms=cuda_ms(fn, iters), ms_back_to_back=cuda_ms(fn, iters, reps=B2B))
+
+
+def host_us(fn, n: int = 200) -> float:
+    """Host microseconds per call of ``fn``: the host clock around ``n``
+    enqueues after a warm-up, no synchronisation inside the window."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = (time.perf_counter() - t0) / n
+    torch.cuda.synchronize()
+    return t * 1e6
+
+
+def device_ms(fn, n: int = 10) -> float:
+    """Device milliseconds per call of ``fn``: the profiler's summed time of
+    everything ``fn`` runs on the card, over ``n`` calls after a warm-up.
+    Unlike ``ms`` and ``ms_back_to_back`` it holds no host time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / n / 1e3
 
 
 def bound(nbytes: float, flops: float, peak_flops: float):
@@ -343,15 +389,21 @@ def phase_nms(gen, iters):
                        descending=True, stable=True).indices
     sb = torch.gather(boxes, 1, order[..., None].expand_as(boxes)).contiguous()
     sv = torch.gather(valid, 1, order)
+    need(sv.dtype == torch.bool, "the sorted valid mask is not bool")
     t = kernel_ms(lambda: pallas_nms.nms_keep_sorted(sb, sv, thr, max_det), iters)
     plain_ms = cuda_ms(lambda: pallas_nms.nms_keep_sorted_plain(sb, sv, thr, max_det),
                        max(3, iters // 4), warmup=1)
+    host = host_us(lambda: pallas_nms.nms_keep_sorted(sb, sv, thr, max_det))
+    dev_ms = device_ms(lambda: pallas_nms.nms_keep_sorted(sb, sv, thr, max_det))
     # work this data needs: the IoU of every valid upper-triangle pair (~20 f32 ops)
     nv = sv.sum(1).double()
     flops = float((nv * (nv - 1) / 2).sum()) * 20
     b_ms, by = bound(nbytes(sb, sv, i1, k1), flops, F32_FLOPS)
+    log(f"  nms (16, 1024) -> 300: kernel {t['ms']:.4f} ms, {t['ms_back_to_back']:.4f} back to "
+        f"back (target 0.08: {'met' if t['ms_back_to_back'] <= 0.08 else 'missed'}); device "
+        f"time {dev_ms:.4f} ms (profiler); wrapper host time {host:.1f} us a call")
     return dict(max_abs_err=0.0, **t, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-                library_ms=None)
+                library_ms=None, device_ms=dev_ms, host_us_per_call=host)
 
 
 def flagship_rois(gen, K, dev):
@@ -364,8 +416,13 @@ def flagship_rois(gen, K, dev):
     return torch.cat([boxes, boxes + wh], -1), levels, b_idx
 
 
-def touched_cells(canvas, meta, ys, xs, bounds, win):
-    """Distinct canvas cells the ROIs read (the bytes their data needs)."""
+def touched_cells(levels, meta, ys, xs, bounds, window, first=None):
+    """Distinct level cells the ROIs (the ``first`` ones, if given) read:
+    the bytes their data needs.  Cells are named in canvas coordinates
+    (canvas row oy + iy is one level's row), which is one name per cell."""
+    k = meta.shape[0] if first is None else first
+    meta, ys, xs, bounds = meta[:k], ys[:k], xs[:k], bounds[:k]
+
     def taps(c, lo, hi, size):
         cc = torch.minimum(torch.maximum(c, lo[:, None]), hi[:, None] - 1)
         low = cc.floor()
@@ -373,9 +430,9 @@ def touched_cells(canvas, meta, ys, xs, bounds, win):
         ok = (c > lo[:, None] - 1) & (c < hi[:, None])
         ok = ok[..., None].expand(-1, -1, 2).reshape(c.shape[0], -1) & (idx >= 0) & (idx < size)
         return idx.long(), ok
-    iy, oky = taps(ys, bounds[:, 0], bounds[:, 1], win)
-    ix, okx = taps(xs, bounds[:, 2], bounds[:, 3], win)
-    B, Ht, W0, _ = canvas.shape
+    iy, oky = taps(ys, bounds[:, 0], bounds[:, 1], window[0])
+    ix, okx = taps(xs, bounds[:, 2], bounds[:, 3], window[1])
+    Ht, W0 = sum(f.shape[1] for f in levels), levels[0].shape[2]
     rows = meta[:, 0:1].long() * Ht + meta[:, 1:2].long() + iy
     cols = meta[:, 2:3].long() + ix
     cell = rows[:, :, None] * W0 + cols[:, None, :]
@@ -383,13 +440,20 @@ def touched_cells(canvas, meta, ys, xs, bounds, win):
     return int(torch.unique(cell[ok]).numel())
 
 
-def phase_roi(gen, iters):
-    dev = "cuda"
-    C, K = 256, 768
-    feats = [torch.randn((16, 640 // s, 640 // s, C), generator=gen, device=dev).to(torch.bfloat16)
-             for s in (8, 16, 32, 64)]
-    strides = (8.0, 16.0, 32.0, 64.0)
-    boxes, levels, b_idx = flagship_rois(gen, K, dev)
+def roi_bound(args, out, first=None):
+    """The pooling's bound: the touched cells once, the coordinates, the
+    whole output once; n x n samples of 4 taps, one multiply-add each."""
+    levels, meta, ys, xs, bnds, window, M, n = args[:8]
+    k = meta.shape[0] if first is None else first
+    C = levels[0].shape[-1]
+    cells = touched_cells(levels, meta, ys, xs, bnds, window, first)
+    need_bytes = cells * C * levels[0].element_size() + nbytes(meta, ys, xs, bnds, out)
+    return bound(need_bytes, k * M * M * n * n * 4 * 2 * C, F32_FLOPS)
+
+
+def capture_bounded(fn):
+    """Run ``fn()`` and return (its result, the arguments of its one
+    ``roi_align_bounded`` call)."""
     captured = {}
     orig = pallas_roi_align.roi_align_bounded
 
@@ -399,22 +463,92 @@ def phase_roi(gen, iters):
 
     pallas_roi_align.roi_align_bounded = spy
     try:
-        got = multiscale_roi_align_packed(feats, boxes, levels, b_idx, strides, 14, window=16)
+        out = fn()
     finally:
         pallas_roi_align.roi_align_bounded = orig
-    canvas, meta, ys, xs, bnds, window, M, n = captured["args"]
-    want = pallas_roi_align.roi_align_bounded_plain(*captured["args"])
+    return out, captured["args"]
+
+
+def packed_via_canvas(feats, boxes, levels, b_idx, strides, M, window):
+    """The packed pooling as PR 1–4 ran it: the levels padded and stacked into
+    one canvas (``level_canvas``), then the kernel over that canvas as a
+    single level.  The "before" of the whole-pooling timing."""
+    canvas, meta = level_canvas(feats, strides)
+    B, Ht, W0, _ = canvas.shape
+    win = min(window, Ht, W0)
+    ys, xs, moff, mh, mw = sample_coords(boxes, levels, meta, M * 2, False)
+    oy = torch.floor(ys[:, 0]).clamp(0, Ht - win).to(torch.int32)
+    ox = torch.floor(xs[:, 0]).clamp(0, W0 - win).to(torch.int32)
+    oyf, oxf = oy.to(torch.float32), ox.to(torch.float32)
+    bounds = torch.stack([moff - oyf, moff + mh - oyf, -oxf, mw - oxf], -1)
+    b = b_idx.to(torch.int32).clamp(0, B - 1)
+    meta1 = torch.stack([b, oy, ox, torch.zeros_like(oy)], -1)
+    return pallas_roi_align.roi_align_bounded([canvas], meta1, ys - oyf[:, None],
+                                              xs - oxf[:, None], bounds, (win, win), M, 2)
+
+
+def phase_roi(gen, iters):
+    """The packed pooling at the flagship's shape (768 ROIs, 14x14, n 2, 256
+    bf16 channels, window 16, levels read in place): all active and with a
+    360-of-768 prefix (rows past it exactly 0), two launches bit-identical;
+    the kernel's two readings, its host time per call, and the whole
+    ``multiscale_roi_align_packed`` (coordinates + kernel) timed in turns
+    with PR 1–4's form that built the canvas first."""
+    dev = "cuda"
+    C, K, used = 256, 768, 360
+    feats = [torch.randn((16, 640 // s, 640 // s, C), generator=gen, device=dev).to(torch.bfloat16)
+             for s in (8, 16, 32, 64)]
+    strides = (8.0, 16.0, 32.0, 64.0)
+    boxes, levels, b_idx = flagship_rois(gen, K, dev)
+    got, args = capture_bounded(
+        lambda: multiscale_roi_align_packed(feats, boxes, levels, b_idx, strides, 14, window=16))
+    need([f.data_ptr() for f in args[0]] == [f.data_ptr() for f in feats],
+         "the pooling did not get the level maps in place")
+    rab, plain = pallas_roi_align.roi_align_bounded, pallas_roi_align.roi_align_bounded_plain
+    want = plain(*args)
     torch.cuda.synchronize()
-    # plain rounds its interpolation weights and row sums to bf16 as the JAX path does
+    # the same rounding points (matrices and row intermediate in bf16), f32 sums in another order
     err = check_close("roi_align", got, want, atol=3e-2, rtol=2e-2)
-    t = kernel_ms(lambda: pallas_roi_align.roi_align_bounded(*captured["args"]), iters)
-    plain_ms = cuda_ms(lambda: pallas_roi_align.roi_align_bounded_plain(*captured["args"]), iters)
-    cells = touched_cells(canvas, meta, ys, xs, bnds, window[0])
-    flops = K * M * M * n * n * 4 * 2 * C
-    need = cells * C * canvas.element_size() + nbytes(meta, ys, xs, bnds, got)
-    b_ms, by = bound(need, flops, F32_FLOPS)
-    return dict(max_abs_err=err, **t, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-                library_ms=None)
+    need(torch.equal(got, rab(*args)), "roi_align: two launches differ")
+    args_p = args[:8] + (torch.tensor(used, device=dev),)
+    got_p = rab(*args_p)
+    check_close(f"roi_align, active {used} of {K}", got_p, plain(*args_p), atol=3e-2, rtol=2e-2)
+    need(bool((got_p[used:] == 0).all()), "roi_align: a row past the active prefix is not 0")
+    need(torch.equal(got_p[:used], got[:used]), "roi_align: the prefix changed active rows")
+    need(torch.equal(packed_via_canvas(feats, boxes, levels, b_idx, strides, 14, 16), got),
+         "roi_align: the level maps and the stacked canvas give different rows")
+    fns = {"kernel": lambda: rab(*args), f"kernel_{used}": lambda: rab(*args_p)}
+    ms = cuda_ms_turns(fns, iters)
+    b2b = cuda_ms_turns(fns, iters, reps=B2B)
+    plain_ms = cuda_ms(lambda: plain(*args), iters)
+    host = host_us(lambda: rab(*args))
+    dev = {"all": device_ms(lambda: rab(*args)), "prefix": device_ms(lambda: rab(*args_p))}
+    whole = {"levels in place": lambda: multiscale_roi_align_packed(feats, boxes, levels, b_idx,
+                                                                    strides, 14, window=16),
+             "canvas first": lambda: packed_via_canvas(feats, boxes, levels, b_idx, strides, 14,
+                                                       16)}
+    w_ms = cuda_ms_turns(whole, iters)
+    w_b2b = cuda_ms_turns(whole, iters, reps=B2B)
+    b_ms, by = roi_bound(args, got)
+    b_ms_p, _ = roi_bound(args_p, got_p, first=used)
+    for name, t in (("one call a window", ms), (f"{B2B} back to back", b2b)):
+        log(f"  roi_align {name}: all {K} {t['kernel']:.4f} ms (target 0.10 back to back) | "
+            f"active {used} {t[f'kernel_{used}']:.4f} ms (target 0.06) | bound {b_ms:.4f} "
+            f"({by}), {b_ms_p:.4f} at {used}")
+    log(f"  roi_align targets back to back: all {'met' if b2b['kernel'] <= 0.10 else 'missed'}, "
+        f"prefix {'met' if b2b[f'kernel_{used}'] <= 0.06 else 'missed'}; device time "
+        f"(profiler) all {dev['all']:.4f} ms, active {used} {dev['prefix']:.4f} ms; wrapper host "
+        f"time {host:.1f} us a call")
+    for name, t in (("one call a window", w_ms), (f"{B2B} back to back", w_b2b)):
+        log(f"  multiscale_roi_align_packed whole (coordinates + kernel), in turns, {name}: "
+            f"levels in place {t['levels in place']:.4f} ms | canvas first (PR 1-4) "
+            f"{t['canvas first']:.4f} ms")
+    return dict(max_abs_err=err, ms=ms["kernel"], ms_back_to_back=b2b["kernel"],
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, library_ms=None,
+                device_ms=dev["all"], host_us_per_call=host,
+                active_360=dict(ms=ms[f"kernel_{used}"], ms_back_to_back=b2b[f"kernel_{used}"],
+                                device_ms=dev["prefix"], bound_ms=b_ms_p),
+                whole_pooling={"one_call": w_ms, "back_to_back": w_b2b})
 
 
 def mask_head_flops(n: int, C: int = 256) -> float:
@@ -529,9 +663,10 @@ def phase_roi_single(gen, iters):
                 library_ms=None)
 
 
-def check_hnet_shapes(gen):
-    """Kernels 2–4 at the shapes hnet-nucls gives them, correctness only,
-    with the tolerances of their flagship checks:
+def check_hnet_shapes(gen, iters):
+    """Kernels 2–4 at the shapes hnet-nucls gives them, with the tolerances
+    of their flagship checks, and the times of NMS and the canvas ROI-align
+    there (both readings):
       * NMS bit-identical: the RPN's (4, 1024) boxes → 512 at IoU 0.7, and
         the class-aware (4, 512) → 100 at IoU 0.5 through
         ``batched_nms_padded`` (labels 0–4, each image offset by its own span);
@@ -546,8 +681,10 @@ def check_hnet_shapes(gen):
     i1, k1 = pallas_nms.nms_padded_pallas(boxes, scores, valid, 0.7, 512)
     i2, k2 = nms_padded(boxes, scores, valid, 0.7, 512)
     same = torch.equal(i1.to(torch.int64), i2.to(torch.int64)) and torch.equal(k1, k2)
+    times = {"nms_4x1024": kernel_ms(
+        lambda: pallas_nms.nms_padded_pallas(boxes, scores, valid, 0.7, 512), iters)}
     log(f"  nms (4, 1024) -> 512 at IoU 0.7: bit-identical {same}, kept/image "
-        f"{k1.sum(1).tolist()}")
+        f"{k1.sum(1).tolist()}; with its sort {times['nms_4x1024']}")
     boxes, scores, valid = clustered_boxes(gen, 4, 512, dev, thr=0.5, extent=640.0,
                                            pairs_at=400.0)
     boxes = boxes.clamp(0.0, 640.0)
@@ -557,8 +694,10 @@ def check_hnet_shapes(gen):
     i1, k1 = batched_nms_padded(boxes, scores, labels, valid, 0.5, 100)
     i2, k2 = nms_padded(class_offset_boxes(boxes, labels, valid), scores, valid, 0.5, 100)
     same_c = torch.equal(i1.to(torch.int64), i2.to(torch.int64)) and torch.equal(k1, k2)
+    times["nms_class_aware_4x512"] = kernel_ms(
+        lambda: batched_nms_padded(boxes, scores, labels, valid, 0.5, 100), iters)
     log(f"  class-aware nms (4, 512) -> 100 at IoU 0.5: bit-identical {same_c}, kept/image "
-        f"{k1.sum(1).tolist()}")
+        f"{k1.sum(1).tolist()}; with its offsets and sort {times['nms_class_aware_4x512']}")
     if not (same and same_c):
         raise AssertionError("nms: kernel disagrees with its plain version at the hnet shapes")
 
@@ -572,11 +711,18 @@ def check_hnet_shapes(gen):
         area = torch.sqrt((wh[..., 0] * wh[..., 1]).clamp(min=1e-6))
         levels = (torch.floor(4.0 + torch.log2(area / 224.0) + 1e-6) - 2).clamp(0, 3)
         levels = levels.to(torch.int32)
-        got = multiscale_roi_align_canvas(feats, rois, levels, strides, M)
+        got, args = capture_bounded(
+            lambda: multiscale_roi_align_canvas(feats, rois, levels, strides, M))
         want = _multiscale_roi_align_canvas(feats, rois, levels, strides, M)
         check_close(f"roi_align canvas (4, 300, 160, 256), {4 * K} ROIs at {M}x{M}, levels "
                     f"{torch.bincount(levels.flatten().long(), minlength=4).tolist()}",
                     got, want, atol=3e-2, rtol=2e-2)
+        t = kernel_ms(lambda: pallas_roi_align.roi_align_bounded(*args), iters)
+        t["device_ms"] = device_ms(lambda: pallas_roi_align.roi_align_bounded(*args))
+        b_ms, by = roi_bound(args, got.reshape(4 * K, M, M, -1))
+        times[f"roi_align_canvas_{4 * K}x{M}"] = dict(**t, bound_ms=b_ms, bound_by=by)
+        log(f"    kernel {t['ms']:.4f} ms, {t['ms_back_to_back']:.4f} back to back, device "
+            f"{t['device_ms']:.4f} | bound {b_ms:.4f} ({by})")
 
     head = MaskHead(5, 256, 256)                      # hnet: 4 classes + background
     with torch.no_grad():
@@ -591,6 +737,7 @@ def check_hnet_shapes(gen):
                     pallas_mask_head.fused_mask_probs(head, pooled, labels),
                     pallas_mask_head.fused_mask_probs_plain(head, pooled, labels),
                     atol=2e-2, rtol=0.0)
+    return times
 
 
 
@@ -670,6 +817,11 @@ def check_stitch_nms(gen, iters):
         sb = torch.gather(boxes, 1, order[..., None].expand_as(boxes)).contiguous()
         sv = torch.gather(valid, 1, order)
         t = kernel_ms(lambda: pallas_nms.nms_keep_sorted(sb, sv, 0.45, K), iters)
+        t["device_ms"] = device_ms(lambda: pallas_nms.nms_keep_sorted(sb, sv, 0.45, K))
+        target = 0.06 if K == 1024 else 0.30
+        log(f"  nms stitch (1, {K}) back to back {t['ms_back_to_back']:.4f} ms: target {target} "
+            f"{'met' if t['ms_back_to_back'] <= target else 'missed'}; device time "
+            f"{t['device_ms']:.4f} ms (profiler)")
         plain_ms = cuda_ms(lambda: pallas_nms.nms_keep_sorted_plain(sb, sv, 0.45, K), 3, warmup=1)
         nv = sv.sum(1).double()
         b_ms, by = bound(nbytes(sb, sv, i1, k1), float((nv * (nv - 1) / 2).sum()) * 20, F32_FLOPS)
@@ -708,24 +860,59 @@ def calibrate_objectness(det: Detector, x, frac: float):
 
 
 class MaskPrefix:
-    """Records the ``active`` count each packed mask branch hands the mask
-    head (``with MaskPrefix() as p: ...``; ``p.counts`` after)."""
+    """Records, on the packed mask branch, the ``active`` count the mask head
+    and the pooling each get (one device tensor, handed to both), whether
+    the pooling's level maps arrive contiguous, and the calls of
+    ``level_canvas`` (none off the plain einsum form): ``with MaskPrefix() as
+    p: ...``; ``p.counts``, ``p.check()`` after."""
 
     def __enter__(self):
-        self.counts, self._orig = [], detect_head.fused_mask_probs
+        self.counts, self.head_active, self.pool_active = [], [], []
+        self.contiguous, self.canvas_calls = [], 0
+        self._orig = (detect_head.fused_mask_probs, detect_head.multiscale_roi_align_packed,
+                      pallas_roi_align.roi_align_bounded, roi_ops.level_canvas)
+        head, pool, bounded, canvas = self._orig
 
-        def spy(head, pooled, labels, active=None):
+        def spy_head(h, pooled, labels, active=None):
             self.counts.append((None if active is None else active.clone(), pooled.shape[0]))
-            return self._orig(head, pooled, labels, active)
+            self.head_active.append(active)
+            return head(h, pooled, labels, active)
 
-        detect_head.fused_mask_probs = spy
+        def spy_pool(*a, **k):
+            self.pool_active.append(k.get("active"))
+            return pool(*a, **k)
+
+        def spy_bounded(levels, *a):
+            self.contiguous.append(all(f.is_contiguous() for f in levels))
+            return bounded(levels, *a)
+
+        def spy_canvas(*a):
+            self.canvas_calls += 1
+            return canvas(*a)
+
+        detect_head.fused_mask_probs, detect_head.multiscale_roi_align_packed = spy_head, spy_pool
+        pallas_roi_align.roi_align_bounded, roi_ops.level_canvas = spy_bounded, spy_canvas
         return self
 
     def __exit__(self, *exc):
-        detect_head.fused_mask_probs = self._orig
+        (detect_head.fused_mask_probs, detect_head.multiscale_roi_align_packed,
+         pallas_roi_align.roi_align_bounded, roi_ops.level_canvas) = self._orig
 
     def text(self) -> str:
         return ", ".join(f"{'all' if a is None else int(a)} of {n}" for a, n in self.counts)
+
+    def check(self, packed: bool = True) -> str:
+        """Hold the probe's findings; ``packed`` paths also hand one active
+        count to pooling and head, and their level maps arrive contiguous."""
+        need(self.canvas_calls == 0, f"level_canvas ran {self.canvas_calls} times on the path")
+        if packed:
+            need(len(self.pool_active) == len(self.head_active) >= 1
+                 and all(p is h and p is not None
+                         for p, h in zip(self.pool_active, self.head_active)),
+                 "the pooling and the mask head did not get the same active count")
+            need(all(self.contiguous), "a level map reached the pooling non-contiguous")
+        return (f"level_canvas calls {self.canvas_calls}, pooling launches with contiguous "
+                f"level maps {sum(self.contiguous)} of {len(self.contiguous)}")
 
 
 def profile_step(step):
@@ -764,8 +951,8 @@ def phase_flagship(iters: int):
         out = det.tiles(x)["detSC"]
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
-    log(f"  launches on the main path (one batch): {launches}; mask-head slots computed "
-        f"(the active prefix): {prefix.text()}")
+    log(f"  launches on the main path (one batch): {launches}; mask-head and pooling slots "
+        f"computed (the active prefix): {prefix.text()}; {prefix.check()}")
     for k in FLAGSHIP_KERNELS:
         if launches[k] < 1:
             raise AssertionError(f"kernel {k} was not launched on the main path")
@@ -908,13 +1095,14 @@ def phase_hnet(iters: int):
     propose = det.propose
     det.propose = lambda *a: captured.setdefault("proposals", propose(*a))
     try:
-        kernels.reset_launches()
-        losses, out = model(x)
-        torch.cuda.synchronize()
-        launches = dict(kernels.LAUNCHES)
+        with MaskPrefix() as probe:
+            kernels.reset_launches()
+            losses, out = model(x)
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
     finally:
         del det.propose
-    log(f"  launches in one forward: {launches}")
+    log(f"  launches in one forward: {launches}; {probe.check(packed=False)}")
     for k, n in HNET_LAUNCHES.items():
         if launches[k] != n:
             raise AssertionError(f"kernel {k}: {launches[k]} launches in one hnet forward, "
@@ -1181,8 +1369,8 @@ def phase_slide(iters: int):
             launches = dict(kernels.LAUNCHES)
     finally:
         tiling.slide_inference = orig_si
-    log(f"  launches in one slide of {n_tiles} tiles: {launches}; mask-head slots computed per "
-        f"batch (the active prefix): {prefix.text()}")
+    log(f"  launches in one slide of {n_tiles} tiles: {launches}; mask-head and pooling slots "
+        f"computed per batch (the active prefix): {prefix.text()}; {prefix.check()}")
     need(len(prefix.counts) == launches["mask_head"]
          and all(a is not None for a, _ in prefix.counts),
          "the slide's mask head did not get its active prefix")
@@ -1339,7 +1527,7 @@ def main() -> int:
             f"plain {r['plain_ms']:.4f} ms | "
             f"library {lib} ms | bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     log("    kernels 2-4 at the hnet-nucls shapes")
-    check_hnet_shapes(gen)
+    hnet_times = check_hnet_shapes(gen, 20)
     log("    the NMS kernel at the slide stitch's shapes")
     stitch = check_stitch_nms(gen, 20)
 
@@ -1363,6 +1551,9 @@ def main() -> int:
     main_path = {k: "flagship" for k in FLAGSHIP_KERNELS}
     main_path.update(roi_align_single="hnet", stem_k108="lab", stem_dot108="lab", stem="lab")
     results["nms"]["stitch"] = stitch
+    results["nms"]["hnet"] = {k: v for k, v in hnet_times.items() if k.startswith("nms")}
+    results["roi_align"]["hnet"] = {k: v for k, v in hnet_times.items()
+                                    if k.startswith("roi_align")}
     record = {"kernels": [
         {"name": k, "route": "cuda", "source": f"hd_yolo_tpu_torch/kernels/{k}.cu",
          "replaces": TPU_KERNEL[k], "launches": paths[main_path[k]][k],

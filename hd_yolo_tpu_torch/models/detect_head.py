@@ -233,13 +233,15 @@ class Detect(nn.Module):
         sel_ok = top_s > 0.0
         b_idx = torch.div(top_i, R, rounding_mode="floor")
         r_idx = top_i % R
+        # top_s is sorted descending, so sel_ok is a prefix: the pooling and
+        # the head compute only its slots (the count stays on the device) and
+        # write 0 to the rest
+        active = sel_ok.sum()
         pooled = multiscale_roi_align_packed(
             seg_feats, boxes_r.reshape(B * R, 4)[top_i], levels_r.reshape(B * R)[top_i],
-            b_idx, self.spec.strides, M, window=int(self.mask_window or 16))
+            b_idx, self.spec.strides, M, window=int(self.mask_window or 16), active=active)
         lab_k = mask_labels.reshape(B * R)[top_i].clamp(min=0)
-        # top_s is sorted descending, so sel_ok is a prefix: the head computes
-        # only its slots (the count stays on the device) and writes 0 to the rest
-        sel = fused_mask_probs(self.seg_h, pooled, lab_k, active=sel_ok.sum())
+        sel = fused_mask_probs(self.seg_h, pooled, lab_k, active=active)
         S = self.mask_output_size
         masks = torch.zeros((B, R, S, S), dtype=sel.dtype, device=sel.device)
         masks[b_idx, r_idx] = sel

@@ -1,10 +1,11 @@
 """NMS on the card: wrapper of the bitmask kernel ``kernels/nms.cu``
 (the Hopper port of ``hd_yolo_tpu/ops/pallas_nms.py``).
 
-``nms_keep_sorted`` takes score-sorted boxes and returns the compacted
-``(positions, keep)``: on a CUDA tensor it launches the kernel, on a CPU
-tensor it runs the plain version (``ops/nms.py`` ``greedy_keep`` +
-``compact``).  Both are exact greedy NMS and agree bit for bit.
+``nms_keep_sorted`` takes score-sorted boxes and a bool valid mask and
+returns the compacted ``(positions int32, keep bool)``: on a CUDA tensor it
+launches the kernel, on a CPU tensor it runs the plain version
+(``ops/nms.py`` ``greedy_keep`` + ``compact``).  Both are exact greedy NMS
+and agree bit for bit.
 """
 
 from __future__ import annotations
@@ -26,28 +27,39 @@ def nms_keep_sorted_plain(sboxes: Tensor, svalid: Tensor, iou_threshold: float,
 
 def nms_keep_sorted(sboxes: Tensor, svalid: Tensor, iou_threshold: float,
                     max_det: int) -> Tuple[Tensor, Tensor]:
-    """Score-sorted boxes (B, K, 4) f32 + valid (B, K) → (positions (B, max_det)
-    int32 into the sorted order, keep (B, max_det) bool)."""
+    """Score-sorted boxes (B, K, 4) f32 + valid (B, K) bool → (positions (B, max_det)
+    int32 into the sorted order, keep (B, max_det) bool).
+
+    On the card the kernel reads ``svalid``'s storage and writes ``keep``'s
+    directly (torch ``bool`` is one byte, 0 or 1): no dtype conversion runs."""
     if sboxes.device.type == "cpu":
         return nms_keep_sorted_plain(sboxes, svalid, iou_threshold, max_det)
-    if sboxes.dim() != 3 or sboxes.shape[-1] != 4 or sboxes.dtype != torch.float32:
+    shape = sboxes.shape
+    if len(shape) != 3 or shape[2] != 4 or sboxes.dtype != torch.float32:
         raise ValueError(f"nms kernel takes (B, K, 4) float32 boxes, got {tuple(sboxes.shape)} "
                          f"{sboxes.dtype}")
-    B, K, _ = sboxes.shape
-    sboxes = sboxes.contiguous()
-    valid_u8 = svalid.to(torch.uint8).contiguous()
-    kernels.require_cuda(sboxes, valid_u8)
-    nwords = (K + 63) // 64
-    mask = torch.empty((B, K, nwords), dtype=torch.int64, device=sboxes.device)
+    B, K = shape[0], shape[1]
+    if svalid.dtype != torch.bool or svalid.shape != (B, K):
+        raise ValueError(f"nms kernel takes a ({B}, {K}) bool valid mask, got "
+                         f"{tuple(svalid.shape)} {svalid.dtype}")
+    if not sboxes.is_contiguous() or sboxes.data_ptr() % 16:   # read as float4s
+        sboxes = sboxes.contiguous().clone()
+    if not svalid.is_contiguous():
+        svalid = svalid.contiguous()
+    kernels.require_cuda(sboxes, svalid)
+    if B == 0 or K == 0:
+        return (torch.zeros((B, max_det), dtype=torch.int32, device=sboxes.device),
+                torch.zeros((B, max_det), dtype=torch.bool, device=sboxes.device))
     idx = torch.empty((B, max_det), dtype=torch.int32, device=sboxes.device)
-    keep = torch.empty((B, max_det), dtype=torch.uint8, device=sboxes.device)
+    keep = torch.empty((B, max_det), dtype=torch.bool, device=sboxes.device)
+    mask = torch.empty((B, (K + 63) // 64 + 1, K), dtype=torch.int64, device=sboxes.device)
     dev, stream = kernels.device_and_stream(sboxes)
     code = kernels.fn("nms_keep")(
-        sboxes.data_ptr(), valid_u8.data_ptr(), mask.data_ptr(), idx.data_ptr(), keep.data_ptr(),
+        sboxes.data_ptr(), svalid.data_ptr(), mask.data_ptr(), idx.data_ptr(), keep.data_ptr(),
         B, K, max_det, float(iou_threshold), dev, stream)
     kernels.check(code, "nms_keep")
     kernels.LAUNCHES["nms"] += 1
-    return idx, keep.bool()
+    return idx, keep
 
 
 def nms_padded_pallas(boxes: Tensor, scores: Tensor, valid: Tensor, iou_threshold: float,

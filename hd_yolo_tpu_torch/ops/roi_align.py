@@ -11,18 +11,22 @@ with the JAX package's matmul form — the plain version of
 ``ops/pallas_roi_align.roi_align_single``, which launches the CUDA kernel
 for a CUDA map and runs ``roi_align`` for a CPU map.
 
-Multiscale: all pyramid levels are stacked along rows into one
+Multiscale: the JAX package stacks all pyramid levels along rows into one
 channels-last canvas (B, ΣH_l, W0, C); each ROI samples its own level's
 sub-rectangle through per-ROI bounds (``_bounded_interp_matrix``), so
 nothing reads across a level boundary.  The geometry (sample coordinates,
-bounds, window origins) is computed here in float32 with the JAX package's
-op order; the pooling itself is ``ops/pallas_roi_align.roi_align_bounded``
-— the CUDA kernel for a CUDA canvas, its plain version for a CPU canvas.
+bounds, window origins) is computed here in those canvas coordinates, in
+float32 with the JAX package's op order; the pooling itself is
+``ops/pallas_roi_align.roi_align_bounded``, which reads each ROI's level map
+in place (canvas row r of level l is its row r - moff_l) — the CUDA kernel
+for CUDA maps, its plain version for CPU maps.  Only the plain einsum form
+``_multiscale_roi_align_canvas`` builds the canvas (``level_canvas``).
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from itertools import accumulate
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -113,18 +117,27 @@ def _bounded_interp_matrix(coords: Tensor, lo: Tensor, hi: Tensor, size: int, M:
     return w.reshape(*w.shape[:-2], M, n, size).mean(-2)
 
 
+def level_offsets(features: Sequence[Tensor]) -> list:
+    """Row offset of each per-level NHWC map in the level-stacked canvas."""
+    return [0] + list(accumulate(f.shape[1] for f in features))[:-1]
+
+
+def level_meta(features: Sequence[Tensor], strides: Sequence[float]) -> Tensor:
+    """(L, 4) f32 rows (row offset in the level-stacked canvas, height,
+    width, stride) of the per-level NHWC maps."""
+    metas = [(off, f.shape[1], f.shape[2], float(s))
+             for f, s, off in zip(features, strides, level_offsets(features))]
+    return torch.tensor(metas, dtype=torch.float32, device=features[0].device)
+
+
 def level_canvas(features: Sequence[Tensor], strides: Sequence[float]) -> Tuple[Tensor, Tensor]:
     """Per-level NHWC maps → (canvas (B, ΣH_l, W0, C), meta (L, 4) f32 rows
-    (row offset, height, width, stride))."""
+    (row offset, height, width, stride)): the levels stacked along rows, each
+    padded to the first level's width.  Only the plain einsum form builds it;
+    the pooling reads the levels in place."""
     W0 = features[0].shape[2]
-    stacked, metas, off = [], [], 0
-    for f, s in zip(features, strides):
-        h, w = f.shape[1:3]
-        stacked.append(F.pad(f, (0, 0, 0, W0 - w)))
-        metas.append((off, h, w, float(s)))
-        off += h
-    meta = torch.tensor(metas, dtype=torch.float32, device=features[0].device)
-    return torch.cat(stacked, 1), meta
+    canvas = torch.cat([F.pad(f, (0, 0, 0, W0 - f.shape[2])) for f in features], 1)
+    return canvas, level_meta(features, strides)
 
 
 def sample_coords(boxes: Tensor, levels: Tensor, meta: Tensor, S: int, aligned: bool):
@@ -169,50 +182,56 @@ def _multiscale_roi_align_canvas(features: Sequence[Tensor], boxes: Tensor, leve
 def multiscale_roi_align_packed(features: Sequence[Tensor], boxes: Tensor, levels: Tensor,
                                 batch_idx: Tensor, strides: Sequence[float], output_size: int,
                                 sampling_ratio: int = 2, aligned: bool = False,
-                                window: int = 16) -> Tensor:
+                                window: int = 16, active: Optional[Tensor] = None) -> Tensor:
     """Occupancy-packed multi-level ROI-align → (K, M, M, C).
 
     One flat ROI list across the batch (``batch_idx`` names each ROI's
     image).  Each ROI pools from a ``window x window`` patch of its image's
-    canvas at the floor of its first sample (clamped to the canvas): exact
-    for every ROI whose sampled span fits the window (span ≤ window−2
-    feature px at its level); larger ROIs get border-truncated sampling,
-    exactly as the JAX packed path.
+    level-stacked canvas at the floor of its first sample (clamped to the
+    canvas): exact for every ROI whose sampled span fits the window (span ≤
+    window−2 feature px at its level); larger ROIs get border-truncated
+    sampling, exactly as the JAX packed path.  The canvas is never built:
+    the pooling reads each ROI's level map in place.  ``active`` (a 0-d
+    integer tensor) pools only the leading ROIs; the rest come out 0.
     """
     from .pallas_roi_align import roi_align_bounded
 
     M, n = output_size, sampling_ratio
     S = M * n
-    canvas, meta = level_canvas(features, strides)
-    B, Ht, W0, _ = canvas.shape
+    meta = level_meta(features, strides)
+    B, W0 = features[0].shape[0], features[0].shape[2]
+    Ht = sum(f.shape[1] for f in features)
     win = min(window, Ht, W0)
-    ys, xs, moff, mh, mw = sample_coords(boxes, levels, meta, S, aligned)
+    lv = levels.to(torch.int32).clamp(0, len(features) - 1)
+    ys, xs, moff, mh, mw = sample_coords(boxes, lv, meta, S, aligned)
     oy = torch.floor(ys[:, 0]).clamp(0, Ht - win).to(torch.int32)
     ox = torch.floor(xs[:, 0]).clamp(0, W0 - win).to(torch.int32)
     oyf, oxf = oy.to(torch.float32), ox.to(torch.float32)
     bounds = torch.stack([moff - oyf, moff + mh - oyf, -oxf, mw - oxf], -1)
     b_idx = batch_idx.to(torch.int32).clamp(0, B - 1)
-    roi_meta = torch.stack([b_idx, oy, ox, torch.zeros_like(oy)], -1)
-    return roi_align_bounded(canvas, roi_meta, ys - oyf[:, None], xs - oxf[:, None], bounds,
-                             (win, win), M, n)
+    roi_meta = torch.stack([b_idx, oy, ox, lv], -1)
+    return roi_align_bounded(features, roi_meta, ys - oyf[:, None], xs - oxf[:, None], bounds,
+                             (win, win), M, n, active)
 
 
 def multiscale_roi_align_canvas(features: Sequence[Tensor], boxes: Tensor, levels: Tensor,
                                 strides: Sequence[float], output_size: int,
                                 sampling_ratio: int = 2, aligned: bool = False) -> Tensor:
     """Exact canvas semantics through the bounded ROI-align (kernel on CUDA):
-    (B, K) ROIs, each against its image's whole canvas → (B, K, M, M, C)."""
+    (B, K) ROIs, each against its image's whole level-stacked canvas, read
+    from the level maps in place → (B, K, M, M, C)."""
     from .pallas_roi_align import roi_align_bounded
 
     M, n = output_size, sampling_ratio
-    canvas, meta = level_canvas(features, strides)
-    B, Ht, W0, C = canvas.shape
+    meta = level_meta(features, strides)
+    B, W0, C = features[0].shape[0], features[0].shape[2], features[0].shape[3]
+    Ht = sum(f.shape[1] for f in features)
     K = boxes.shape[1]
-    ys, xs, moff, mh, mw = sample_coords(boxes.reshape(B * K, 4), levels.reshape(B * K),
-                                         meta, M * n, aligned)
+    lv = levels.reshape(B * K).to(torch.int32).clamp(0, len(features) - 1)
+    ys, xs, moff, mh, mw = sample_coords(boxes.reshape(B * K, 4), lv, meta, M * n, aligned)
     bounds = torch.stack([moff, moff + mh, torch.zeros_like(mw), mw], -1)
     b_idx = torch.arange(B, dtype=torch.int32, device=boxes.device).repeat_interleave(K)
     zero = torch.zeros_like(b_idx)
-    roi_meta = torch.stack([b_idx, zero, zero, zero], -1)
-    out = roi_align_bounded(canvas, roi_meta, ys, xs, bounds, (Ht, W0), M, n)
+    roi_meta = torch.stack([b_idx, zero, zero, lv], -1)
+    out = roi_align_bounded(features, roi_meta, ys, xs, bounds, (Ht, W0), M, n)
     return out.reshape(B, K, M, M, C)

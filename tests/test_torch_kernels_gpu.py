@@ -18,7 +18,9 @@ from hd_yolo_tpu_torch import kernels
 from hd_yolo_tpu_torch.models.detect_head import MaskHead
 from hd_yolo_tpu_torch.ops import pallas_mask_head, pallas_nms, pallas_roi_align, pallas_stem
 from hd_yolo_tpu_torch.ops.nms import nms_padded
-from hd_yolo_tpu_torch.ops.roi_align import multiscale_roi_align_canvas, roi_align
+from hd_yolo_tpu_torch.ops.roi_align import (_multiscale_roi_align_canvas,
+                                             multiscale_roi_align_canvas,
+                                             multiscale_roi_align_packed, roi_align)
 from hd_yolo_tpu_torch.tools import stem_lab
 
 pytestmark = pytest.mark.gpu
@@ -62,6 +64,123 @@ def test_nms_kernel_bit_identical(cuda, K, thr):
     i1, k1 = pallas_nms.nms_padded_pallas(boxes, scores, valid, thr, 300)
     i2, k2 = nms_padded(boxes, scores, valid, thr, 300)
     assert torch.equal(i1.long(), i2.long()) and torch.equal(k1, k2)
+
+
+def _clustered(gen, B, K, thr, extent=600.0):
+    """Clustered boxes with pairs at IoU exactly ``thr`` (f32) and tied scores."""
+    centers = torch.rand((B, -(-K // 8), 2), generator=gen, device="cuda") * extent
+    c = centers.repeat_interleave(8, 1)[:, :K] + torch.randn((B, K, 2), generator=gen,
+                                                             device="cuda") * 6
+    wh = torch.rand((B, K, 2), generator=gen, device="cuda") * 40 + 8
+    boxes = torch.cat([c - wh / 2, c + wh / 2], -1)
+    for i in range(0, min(K, 64) - 1, 2):
+        x, y = extent + 100.0 + 20.0 * (i // 2 % 8), extent + 100.0 + 20.0 * (i // 16)
+        boxes[:, i] = torch.tensor([x, y, x + 10.0, y + 10.0], device="cuda")
+        boxes[:, i + 1] = torch.tensor([x, y, x + 10.0, y + 10.0 * thr], device="cuda")
+    scores = torch.rand((B, K), generator=gen, device="cuda")
+    scores[:, K // 10: K // 5] = 0.5
+    valid = torch.rand((B, K), generator=gen, device="cuda") > 0.1
+    return boxes, scores, valid
+
+
+@pytest.mark.parametrize("B,K,max_det,thr", [(16, 1024, 300, 0.45), (1, 1024, 1024, 0.45),
+                                             (1, 4096, 4096, 0.45), (4, 1024, 512, 0.7),
+                                             (2, 1000, 300, 0.45), (1, 4097, 4097, 0.45),
+                                             (3, 700, 20, 0.45), (2, 64, 64, 0.5)])
+def test_nms_kernel_bit_identical_at_path_shapes(cuda, B, K, max_det, thr):
+    """The main path's (16, 1024) → 300, the stitch's (1, 1024) and (1, 4096),
+    hnet's RPN (4, 1024) → 512, K not a multiple of 64, and max_det below the
+    kept count (700 → 20); one launch, int32 positions and bool keep."""
+    boxes, scores, valid = _clustered(cuda, B, K, thr)
+    n0 = kernels.LAUNCHES["nms"]
+    i1, k1 = pallas_nms.nms_padded_pallas(boxes, scores, valid, thr, max_det)
+    assert kernels.LAUNCHES["nms"] == n0 + 1
+    i2, k2 = nms_padded(boxes, scores, valid, thr, max_det)
+    assert i1.dtype == torch.int32 and k1.dtype == torch.bool
+    assert torch.equal(i1.long(), i2.long()) and torch.equal(k1, k2)
+    if max_det == 20:
+        assert bool(k1.all())                         # more kept than max_det
+
+
+def test_nms_kernel_all_invalid_and_class_aware(cuda):
+    """No valid box keeps nothing; hnet's class-aware (4, 512) → 100."""
+    from hd_yolo_tpu_torch.ops.nms import batched_nms_padded, class_offset_boxes
+
+    boxes, scores, valid = _clustered(cuda, 2, 300, 0.45)
+    i1, k1 = pallas_nms.nms_padded_pallas(boxes, scores, torch.zeros_like(valid), 0.45, 50)
+    assert not bool(k1.any()) and not bool(i1.any())
+    boxes, scores, valid = _clustered(cuda, 4, 512, 0.5, extent=640.0)
+    labels = torch.randint(0, 5, (4, 512), generator=cuda, device="cuda")
+    labels[:, 1:64:2] = labels[:, 0:64:2]
+    i1, k1 = batched_nms_padded(boxes, scores, labels, valid, 0.5, 100)
+    i2, k2 = nms_padded(class_offset_boxes(boxes, labels, valid), scores, valid, 0.5, 100)
+    assert torch.equal(i1.long(), i2.long()) and torch.equal(k1, k2)
+
+
+def _flagship_pool_args(gen, K=768):
+    """The main path's pooling at full size: 16 images, P3–P6 of a 640 px
+    tile at 256 bf16 channels, K ROIs at 14x14, window 16."""
+    feats = [torch.randn((16, 640 // s, 640 // s, 256), generator=gen, device="cuda")
+             .to(torch.bfloat16) for s in (8, 16, 32, 64)]
+    xy = torch.rand((K, 2), generator=gen, device="cuda") * 630
+    wh = torch.rand((K, 2), generator=gen, device="cuda") * 60 + 4
+    wh[torch.rand(K, generator=gen, device="cuda") < 0.1] *= 6
+    levels = torch.randint(0, 4, (K,), generator=gen, device="cuda")
+    b_idx = torch.randint(0, 16, (K,), generator=gen, device="cuda")
+    return feats, torch.cat([xy, xy + wh], -1), levels, b_idx
+
+
+@pytest.mark.parametrize("active", [None, 0, 1, 360, 768])
+def test_roi_align_kernel_flagship_active_prefix(cuda, active):
+    """Within 3e-2 + 2e-2·|plain| of the plain version on the active rows
+    (the same rounding points; f32 sums in another order), exactly 0 past
+    them, two launches bit-identical, one launch each."""
+    feats, boxes, levels, b_idx = _flagship_pool_args(cuda)
+    act = None if active is None else torch.tensor(active, device="cuda")
+    calls = []
+    orig = pallas_roi_align.roi_align_bounded
+
+    def spy(*a):
+        calls.append(a)
+        return orig(*a)
+
+    pallas_roi_align.roi_align_bounded = spy
+    try:
+        n0 = kernels.LAUNCHES["roi_align"]
+        got = multiscale_roi_align_packed(feats, boxes, levels, b_idx, (8.0, 16.0, 32.0, 64.0),
+                                          14, window=16, active=act)
+    finally:
+        pallas_roi_align.roi_align_bounded = orig
+    again = pallas_roi_align.roi_align_bounded(*calls[0])
+    assert kernels.LAUNCHES["roi_align"] == n0 + 2
+    want = pallas_roi_align.roi_align_bounded_plain(*calls[0])
+    k = 768 if active is None else active
+    assert torch.equal(got, again)
+    assert bool((got[k:] == 0).all())
+    assert ((got.float() - want.float()).abs() <= 3e-2 + 2e-2 * want.float().abs()).all()
+
+
+@pytest.mark.parametrize("K,M,dtype", [(512, 7, torch.bfloat16), (100, 14, torch.bfloat16),
+                                       (100, 14, torch.float32)])
+def test_roi_align_kernel_hnet_canvas_shapes(cuda, K, M, dtype):
+    """hnet's canvas form: 4 images, levels 160/80/40/20 at 256 channels (a
+    (4, 300, 160, 256) canvas's worth), 4 x 512 ROIs at 7x7 and 4 x 100 at
+    14x14 on torchvision's levels; windows as large as the canvas, so wide
+    ROIs run the kernel's bands.  bf16 at 3e-2 + 2e-2·|plain|, f32 at 1e-4
+    (f32 sums in another order over up to 56 taps)."""
+    feats = [torch.randn((4, s, s, 256), generator=cuda, device="cuda").to(dtype)
+             for s in (160, 80, 40, 20)]
+    strides = (4.0, 8.0, 16.0, 32.0)
+    xy = torch.rand((4, K, 2), generator=cuda, device="cuda") * 660 - 10
+    wh = torch.exp(torch.rand((4, K, 2), generator=cuda, device="cuda") * math.log(160.0)) * 4
+    rois = torch.cat([xy, xy + wh], -1)
+    area = torch.sqrt((wh[..., 0] * wh[..., 1]).clamp(min=1e-6))
+    levels = (torch.floor(4.0 + torch.log2(area / 224.0) + 1e-6) - 2).clamp(0, 3).to(torch.int32)
+    got = multiscale_roi_align_canvas(feats, rois, levels, strides, M)
+    want = _multiscale_roi_align_canvas(feats, rois, levels, strides, M)
+    assert got.dtype == dtype and got.shape == want.shape
+    atol, rtol = (3e-2, 2e-2) if dtype == torch.bfloat16 else (1e-4, 0.0)
+    assert ((got.float() - want.float()).abs() <= atol + rtol * want.float().abs()).all()
 
 
 @pytest.mark.parametrize("B,H,W,N", [(16, 640, 640, 64), (1, 256, 256, 32), (2, 600, 904, 64),
@@ -206,12 +325,28 @@ def test_kernels_raise_on_what_they_do_not_take(cuda):
         pallas_roi_align.roi_align_single(torch.zeros((1, 4, 4, 8), dtype=torch.float16,
                                                       device="cuda"),
                                           torch.zeros((1, 2, 4), device="cuda"), 7)
+    for levels in ([torch.zeros((1, 4, 4, 3), device="cuda")],             # C % 4 != 0
+                   [torch.zeros((1, 4, 4, 12), dtype=torch.bfloat16, device="cuda")],
+                   [torch.zeros((1, 4, 4, 8), device="cuda"),                # mixed dtypes
+                    torch.zeros((1, 2, 2, 8), dtype=torch.bfloat16, device="cuda")]):
+        with pytest.raises(ValueError):
+            pallas_roi_align.roi_align_bounded(levels, torch.zeros((1, 4), dtype=torch.int32,
+                                                                   device="cuda"),
+                                               torch.zeros((1, 4), device="cuda"),
+                                               torch.zeros((1, 4), device="cuda"),
+                                               torch.zeros((1, 4), device="cuda"), (4, 4), 2, 2)
+    with pytest.raises(ValueError):                   # a level on the CPU
+        pallas_roi_align.roi_align_bounded(
+            [torch.zeros((1, 4, 4, 8), device="cuda"), torch.zeros((1, 2, 2, 8))],
+            torch.zeros((1, 4), dtype=torch.int32, device="cuda"),
+            torch.zeros((1, 4), device="cuda"), torch.zeros((1, 4), device="cuda"),
+            torch.zeros((1, 4), device="cuda"), (4, 4), 2, 2)
+    with pytest.raises(ValueError):                   # NMS takes a bool valid mask
+        pallas_nms.nms_keep_sorted(torch.zeros((1, 8, 4), device="cuda"),
+                                   torch.ones((1, 8), dtype=torch.uint8, device="cuda"), 0.5, 4)
     with pytest.raises(ValueError):
-        pallas_roi_align.roi_align_bounded(torch.zeros((1, 4, 4, 3), device="cuda"),
-                                           torch.zeros((1, 4), device="cuda"),
-                                           torch.zeros((1, 4), device="cuda"),
-                                           torch.zeros((1, 4), device="cuda"),
-                                           torch.zeros((1, 4), device="cuda"), (4, 4), 2, 2)
+        pallas_nms.nms_keep_sorted(torch.zeros((1, 8, 4), dtype=torch.float64, device="cuda"),
+                                   torch.ones((1, 8), dtype=torch.bool, device="cuda"), 0.5, 4)
     with pytest.raises(ValueError):
         pallas_stem.stem_conv(torch.zeros((1, 8, 8, 3), device="cuda"),
                               torch.zeros((6, 6, 3, 96), device="cuda"), torch.ones(96, device="cuda"),

@@ -6,6 +6,7 @@ must be exactly equal."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from hd_yolo_tpu.ops import batched_nms_padded as jax_batched_nms_padded
@@ -209,3 +210,144 @@ def test_presorted_fast_path_identical(rng):
     np.testing.assert_array_equal(k0, k1)
     np.testing.assert_array_equal(pos[0].numpy(), i0)
     np.testing.assert_array_equal(keep[0].numpy(), k0)
+
+
+# ------------------------------------------- the kernel's word-at-a-time sweep
+def word_sweep(iou, svalid, thr):
+    """Numpy model of ``kernels/nms.cu`` on the (K, K) IoU matrix: the
+    conflict bits packed into 64-bit words of the upper triangle only
+    (column word >= row word), plus, from the diagonal blocks, each box's
+    conflicters inside its own word (read from the lower half, as the kernel
+    tests iou(row, column) there: IoU is symmetric).  Then one step per
+    word: the greedy keep inside word w resolved in parallel rounds from
+    ~removed[w] and the conflicters, and the kept rows' words ORed into
+    removed[u] for every later word u.  Returns the keep mask (K,)."""
+    K = iou.shape[0]
+    nw = (K + 63) // 64
+    ok = np.zeros(nw * 64, bool)
+    ok[:K] = svalid
+    hit = np.zeros((nw * 64, nw * 64), bool)
+    hit[:K, :K] = iou > thr
+    hit &= ok[:, None] & ok[None, :]
+    np.fill_diagonal(hit, False)
+    bitv = np.uint64(1) << np.arange(64, dtype=np.uint64)
+    pack = lambda bits: np.bitwise_or.reduce(np.where(bits, bitv, np.uint64(0)))
+    words, by = {}, {}                                # (column word, row) -> u64
+    for rb in range(nw):
+        for cb in range(rb, nw):                      # the lower triangle is never built
+            for r in range(rb * 64, rb * 64 + 64):
+                blk = hit[r, cb * 64:(cb + 1) * 64].copy()
+                if cb == rb:
+                    by[r] = pack(blk & (np.arange(64) < r - rb * 64))
+                    blk &= np.arange(64) > r - rb * 64
+                words[cb, r] = pack(blk)
+    removed = [pack(~ok[w * 64:(w + 1) * 64]) for w in range(nw)]
+    keepw = []
+    for w in range(nw):
+        rows = range(w * 64, w * 64 + 64)
+        und, kept = ~removed[w], np.uint64(0)
+        while und:
+            live = [bool((int(und) >> (r - w * 64)) & 1) for r in rows]
+            fresh = pack(np.array([lv and not (by[r] & (kept | und)) for lv, r in zip(live, rows)]))
+            gone = pack(np.array([lv and bool(by[r] & fresh) for lv, r in zip(live, rows)]))
+            kept |= fresh
+            und &= ~(fresh | gone)
+        keepw.append(kept)
+        for u in range(w + 1, nw):
+            for r in rows:
+                if (int(kept) >> (r - w * 64)) & 1:
+                    removed[u] |= words[u, r]
+    keep = np.array([(int(keepw[i // 64]) >> (i % 64)) & 1 for i in range(nw * 64)], bool)
+    return keep[:K]
+
+
+def popcount_compact(keep, max_det):
+    """The kernel's compaction: rank of a kept bit = kept bits before it."""
+    idx = np.zeros(max_det, np.int32)
+    rank = np.cumsum(keep) - 1
+    for i in np.flatnonzero(keep):
+        if rank[i] < max_det:
+            idx[rank[i]] = i
+    return idx, np.arange(max_det) < min(int(keep.sum()), max_det)
+
+
+def _sweep_case(rng, case):
+    thr = 0.45
+    if case == "all_invalid":
+        K = 70
+        b = random_boxes(rng, K)
+        return b, np.zeros(K, bool), thr, 20
+    if case == "ties_and_exact_pairs":
+        K = 130                                       # not a multiple of 64
+        b = random_boxes(rng, K, scale=60.0)
+        for i in range(0, 40, 2):                     # pairs at IoU exactly 0.45 (f32)
+            x, y = 100.0 + 20 * i, 100.0
+            b[i] = [x, y, x + 10, y + 10]
+            b[i + 1] = [x, y, x + 10, y + 4.5]
+        b[60:70] = b[60]                              # identical boxes
+        return b, rng.uniform(0, 1, K) > 0.1, thr, 50
+    K = {"one": 1, "k63": 63, "k64": 64, "k65": 65, "k300": 300}[case]
+    centers = rng.uniform(0, 200, (max(K // 6, 1), 2))
+    c = centers[rng.integers(0, len(centers), K)] + rng.normal(0, 4, (K, 2))
+    wh = rng.uniform(6, 30, (K, 2))
+    b = np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
+    return b, rng.uniform(0, 1, K) > 0.15, thr, 300 if case == "k300" else 8
+
+
+@pytest.mark.parametrize("case", ["one", "k63", "k64", "k65", "k300", "all_invalid",
+                                  "ties_and_exact_pairs"])
+def test_word_sweep_model_equals_greedy_keep(rng, case):
+    """The kernel's algorithm, modelled in numpy on the plain version's own
+    IoU matrix, keeps exactly ``greedy_keep``'s boxes, and its popcount
+    compaction gives ``compact``'s slots (``max_det`` below the kept count
+    in most cases)."""
+    from hd_yolo_tpu_torch.ops.boxes import box_iou
+    from hd_yolo_tpu_torch.ops.nms import compact, greedy_keep
+
+    b, v, thr, max_det = _sweep_case(rng, case)
+    K = len(b)
+    tb, tv = torch.from_numpy(b), torch.from_numpy(v)
+    iou = box_iou(tb, tb).numpy()
+    np.testing.assert_array_equal(iou, iou.T)         # symmetric bit for bit
+    got = word_sweep(iou, v, thr)
+    want = greedy_keep(tb, tv, thr).numpy()
+    np.testing.assert_array_equal(got, want)
+    idx, keep = popcount_compact(got, max_det)
+    ci, ck = compact(torch.from_numpy(want), None, max_det)
+    np.testing.assert_array_equal(idx, ci.numpy())
+    np.testing.assert_array_equal(keep, ck.numpy())
+    if case in ("k65", "k300", "ties_and_exact_pairs"):
+        assert 0 < int(ck.sum()) and (int(want.sum()) > max_det or case == "k300")
+    if case == "ties_and_exact_pairs":
+        assert got[0] and got[1]                      # IoU == thr is not a conflict
+
+
+def test_nms_keep_sorted_dtypes_on_the_cpu(rng):
+    """The CPU path's contract, as the kernel's: int32 positions, bool keep,
+    each (B, max_det)."""
+    b = np.stack([random_boxes(rng, 90) for _ in range(3)])
+    v = rng.uniform(0, 1, (3, 90)) > 0.2
+    pos, keep = nms_keep_sorted(torch.from_numpy(b), torch.from_numpy(v), 0.45, 40)
+    assert pos.dtype == torch.int32 and keep.dtype == torch.bool
+    assert tuple(pos.shape) == tuple(keep.shape) == (3, 40)
+    assert bool((pos[~keep] == 0).all())
+
+
+@pytest.mark.parametrize("case", ["f64_boxes", "box_shape", "u8_valid", "valid_shape",
+                                  "not_cuda"])
+def test_nms_keep_sorted_raises_on_what_the_kernel_does_not_take(case):
+    """Off the CPU (meta tensors here: no data, only the checks run) the
+    wrapper takes f32 (B, K, 4) boxes and a (B, K) bool mask on one card."""
+    d = "meta"
+    boxes = torch.empty((2, 70, 4), device=d)
+    valid = torch.empty((2, 70), dtype=torch.bool, device=d)
+    if case == "f64_boxes":
+        boxes = boxes.double()
+    elif case == "box_shape":
+        boxes = torch.empty((2, 70, 5), device=d)
+    elif case == "u8_valid":
+        valid = torch.empty((2, 70), dtype=torch.uint8, device=d)
+    elif case == "valid_shape":
+        valid = torch.empty((2, 71), dtype=torch.bool, device=d)
+    with pytest.raises(ValueError):
+        nms_keep_sorted(boxes, valid, 0.45, 10)

@@ -122,3 +122,46 @@ def test_slice_partial_mask_prefix_matches_jax(rng, tmp_path):
     _compare(got, want)
     eligible = int(np.asarray(want["mask_valid"]).sum())
     assert 0 < eligible < kw["mask_budget"]
+
+
+def test_packed_branch_pools_the_active_prefix_from_the_level_maps(setup, rng, monkeypatch):
+    """The packed mask branch hands the pooling and the mask head one device
+    count (``sel_ok.sum()``) as ``active``; pooled rows past it are exactly 0,
+    the seg maps reach the pooling as contiguous NHWC levels, and no canvas
+    is built (``level_canvas`` is off the path)."""
+    from hd_yolo_tpu_torch.models import detect_head
+    from hd_yolo_tpu_torch.ops import pallas_roi_align, roi_align as roi_ops
+
+    det = setup[2]
+    head = det.model.headers["det"]
+    monkeypatch.setattr(head, "max_masks", 300)       # a budget above the eligible count:
+    monkeypatch.setattr(head, "mask_budget", 600)     # a partial prefix
+    monkeypatch.setattr(roi_ops, "level_canvas", lambda *a: pytest.fail("canvas built"))
+    seen = {}
+    pool, probs, bounded = (detect_head.multiscale_roi_align_packed,
+                            detect_head.fused_mask_probs, pallas_roi_align.roi_align_bounded)
+
+    def spy_pool(*a, **k):
+        seen["pool_active"], seen["pooled"] = k["active"], pool(*a, **k)
+        return seen["pooled"]
+
+    def spy_bounded(levels, *a):
+        seen["levels"] = levels
+        return bounded(levels, *a)
+
+    def spy_probs(h, pooled, labels, active=None):
+        seen["head_active"] = active
+        return probs(h, pooled, labels, active)
+
+    monkeypatch.setattr(detect_head, "multiscale_roi_align_packed", spy_pool)
+    monkeypatch.setattr(detect_head, "fused_mask_probs", spy_probs)
+    monkeypatch.setattr(pallas_roi_align, "roi_align_bounded", spy_bounded)
+    x = rng.uniform(0, 1, X_SHAPE).astype(np.float32)
+    got = det.tiles(x)["det"]
+    act = seen["pool_active"]
+    assert act is seen["head_active"] and act.dim() == 0
+    n = int(act)
+    assert 0 < n < seen["pooled"].shape[0] and n == int(got["mask_valid"].sum())
+    assert bool((seen["pooled"][n:] == 0).all()) and float(seen["pooled"][:n].abs().max()) > 0
+    assert all(f.is_contiguous() and f.dim() == 4 for f in seen["levels"])
+    assert len({f.shape[-1] for f in seen["levels"]}) == 1

@@ -655,10 +655,15 @@ def phase_roi_single(gen, iters):
                 pallas_roi_align.roi_align_single(f5, b5, 7, 0.25, 2),
                 roi_align(f5, b5, 7, 0.25, 2), atol=1e-5, rtol=0.0)
     t = kernel_ms(lambda: forward(pallas_roi_align.roi_align_single), iters)
+    t["device_ms"] = device_ms(lambda: forward(pallas_roi_align.roi_align_single))
+    t["host_us"] = host_us(lambda: forward(pallas_roi_align.roi_align_single))
     plain_ms = cuda_ms(lambda: forward(roi_align), iters)
     # per output element: n x n samples of 4 taps, one multiply-add each
     flops = sum(o.numel() for o in got) * 4 * 4 * 2
     b_ms, by = bound(nbytes(*feats, *got) + 4 * tile.numel() * 4, flops, F32_FLOPS)
+    log(f"  roi_align_single, the four hnet levels: {t['ms']:.4f} ms one call a window, "
+        f"{t['ms_back_to_back']:.4f} back to back, device time {t['device_ms']:.4f} ms "
+        f"(profiler), wrapper host time {t['host_us']:.1f} us a forward | bound {b_ms:.4f} ({by})")
     return dict(max_abs_err=err, **t, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
                 library_ms=None)
 
@@ -1491,7 +1496,16 @@ def phase_slide_reference():
     need(total >= 10 and matched >= 0.98 * total, msg)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/H100 port.")
+    ap.add_argument("--only", default="",
+                    help="comma-separated phase-3 kernel names: build, run only their phases "
+                         "and stop (no result lines); without it, every phase")
+    only = {k for k in ap.parse_args(argv).only.split(",") if k}
+    if only - set(TPU_KERNEL):
+        ap.error(f"unknown kernels {sorted(only - set(TPU_KERNEL))}; choose from {list(TPU_KERNEL)}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
         return 2
@@ -1520,12 +1534,17 @@ def main() -> int:
                       ("roi_align", phase_roi), ("mask_head", phase_mask_head),
                       ("roi_align_single", phase_roi_single), ("stem_k108", phase_stem_k108),
                       ("stem_dot108", phase_stem_dot108)):
+        if only and kname not in only:
+            continue
         results[kname] = fn(gen, 20)
         r = results[kname]
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"  {kname}: kernel {r['ms']:.4f} ms ({r['ms_back_to_back']:.4f} back to back) | "
             f"plain {r['plain_ms']:.4f} ms | "
             f"library {lib} ms | bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    if only:
+        log(f"  --only {','.join(sorted(only))}: the other phases and the result lines skipped")
+        return 0
     log("    kernels 2-4 at the hnet-nucls shapes")
     hnet_times = check_hnet_shapes(gen, 20)
     log("    the NMS kernel at the slide stitch's shapes")

@@ -74,17 +74,20 @@ class Detector:
     reference's) or a pickled flax ``{'params', 'batch_stats'}`` tree; without
     it the model gets seeded random weights (``seed``).  ``dtype`` is the
     compute dtype (bf16 by default); parameters stay f32 masters.
-    ``mask_budget`` is the cross-batch mask-ROI budget of the packed mask
-    branch (768, as the flagship runs; the per-image branch without a budget
-    is not ported yet).  ``model_kwargs`` go to ``Model`` (``pre_nms_topk``,
-    ``max_masks``, ``mask_window``).
+    ``mask_budget`` None (the default, as the JAX ``Model``) runs the
+    per-image mask branch: a mask for each of the top ``max_masks`` (100)
+    detections of every image.  An integer selects the occupancy-packed
+    branch with that cross-batch ROI budget (``mask_budget=768`` is how the
+    flagship benchmark runs it); detections past the budget get no mask.
+    ``model_kwargs`` go to ``Model`` (``pre_nms_topk``, ``max_masks``,
+    ``mask_window``).
     """
 
     def __init__(self, cfg: Union[str, dict] = "yolov5l6-mask", hyp: Union[str, dict] = "hyp-nuclei",
                  weights: Optional[str] = None, input_size: int = 640,
                  dtype: torch.dtype = torch.bfloat16, labels_text: Optional[Dict[int, str]] = None,
                  seed: int = 0, device: Union[str, torch.device] = "cuda",
-                 mask_budget: int = 768, **model_kwargs):
+                 mask_budget: Optional[int] = None, **model_kwargs):
         self.device = resolve_device(device)
         self.model = Model.from_cfg(cfg, hyp, dtype=dtype, mask_budget=mask_budget,
                                     **model_kwargs)

@@ -8,7 +8,7 @@ from typing import List, Sequence
 
 import torch
 
-from ..ops.pallas_roi_align import roi_align_single
+from ..ops.pallas_roi_align import roi_align_levels
 
 Tensor = torch.Tensor
 
@@ -18,7 +18,7 @@ def extract_roi_feature_maps(features: Sequence[Tensor], rois: Tensor, strides: 
     """features: per level (B, H_l, W_l, C); rois (B, R, 4) xyxy image px →
     per level (B, R, S_l, S_l, C) with S_l = max(round(roi_size·amp) >> l, 1):
     each ROI pooled from every level at a resolution that halves with the
-    level, one single-level ROI-align per level."""
+    level: one launch of the single-level ROI-align for every level."""
     base = int(round(roi_size * amplification))
-    return [roi_align_single(f, rois, max(base >> lvl, 1), spatial_scale=1.0 / float(s))
-            for lvl, (f, s) in enumerate(zip(features, strides))]
+    return roi_align_levels(features, rois, [max(base >> lvl, 1) for lvl in range(len(features))],
+                            [1.0 / float(s) for s in strides])

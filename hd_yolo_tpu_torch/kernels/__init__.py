@@ -60,8 +60,9 @@ _SIGNATURES = {
     "nms_keep": ("nms", [_P] * 5 + [_I, _I, _I, _F, _I, _P]),
     "roi_align_bounded": ("roi_align", [_P, _I] + [_P] * 6 + [_I] * 8 + [_P]),
     "mask_head": ("mask_head", [_P] * 9 + [_I, _I, _P]),
-    "roi_align_single": ("roi_align_single", [_P] * 3 + [_I] * 7 + [_F] + [_I] * 3 + [_P]),
-    "stem_k108": ("stem_k108", [_P] * 5 + [_I] * 7 + [_P]),
+    "roi_align_levels": ("roi_align_single", [ctypes.c_char_p, _I, _P] + [_I] * 7 + [_P]),
+    "roi_align_levels_limits": ("roi_align_single", [_I]),
+    "stem_k108": ("stem_k108", [_P] * 5 + [_I] * 6 + [_P]),
     "stem_dot108": ("stem_dot108", [_P] * 5 + [ctypes.c_longlong, _I, _P]),
     "stem_tc": ("stem_tc", [_P] * 5 + [_I] * 7 + [_P]),
     "mask_head_smem_bytes": ("mask_head", []),

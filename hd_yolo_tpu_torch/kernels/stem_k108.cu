@@ -7,121 +7,72 @@
 // `pallas_k108`), which reads three row-shifted copies of the s2d tensor,
 // concatenates the 9 taps along lanes and takes one K=108 MXU dot with the
 // BN affine and SiLU fused.  Same function and rounding points: x rounded
-// to bf16 (the s2d cast), bf16 weights, f32 accumulation, acc * scale + bias
-// and SiLU in f32, one bf16 write.
+// to bf16 (the s2d cast), bf16 weights, f32 accumulation over the same 7
+// mma.sync k-steps in the same K order, acc * scale + bias and SiLU in f32,
+// one bf16 write.
 //
 // Bound on an H100: memory.  At (16, 640, 640, 3) it reads the f32 image
 // (78.6 MB) and writes the (16, 320, 320, 64) bf16 map (209.7 MB) while doing
 // 22.6 GFLOP of bf16 products (0.023 ms at 989 TFLOP/s, against 0.086 ms of
-// bytes).  Design: the kernel reads x itself (no s2d tensor in device
-// memory).  One block per (image, band of `bh` output rows) stages the bh + 2
-// s2d rows it needs, 12 channels each, rounded to bf16, in shared memory
-// (zero outside the image): the TPU's row-shifted copies become row offsets
-// into that band.  Each warp takes 16-pixel m-tiles of the band; a lane
-// builds its im2col A fragments straight from the band, one 32-bit load per
-// bf16 pair (a pair never straddles a tap, 12 being even), K zero-padded to
-// 112 = 7 mma.sync m16n8k16 steps against the resident w_108 fragments
-// (14 KB).  The epilogue fuses scale, bias and SiLU and writes each m-tile's
-// 16 x 64 bf16 outputs (2 KB, contiguous) with 16-byte stores.
+// bytes).  Design: the raw-row ring of stem_ring.cuh, shared with stem_tc.cu.
+// In the s2d order k = tap·12 + dy·6 + dx·3 + c (tap = 3ky' + kx') reads x
+// row 2oy-2+2ky'+dy at columns 2ox-2+2kx'+dx, so for a fixed (tap, dy) its 6
+// K values are 6 contiguous floats of one raw image row, and (6 being even)
+// every bf16 pair of an A fragment is one 8-byte shared load.  The kernel
+// keeps no s2d tensor and builds no band: raw f32 rows stream into a ring
+// of slots by 16-byte cp.async, two output rows ahead, in persistent
+// blocks, and w_108's fragments stay resident (staged by the kernel from
+// the f32 (6, 6, 3, 64) weight, rounded to bf16 as w_108 is: no conversion
+// launch a call).  (The first version staged a bf16 s2d band per 4 output
+// rows with element-wise div/mod, 4-byte reads and scattered 2-byte shared
+// stores, the tensor cores idle meanwhile.)
 
-#include "stem108.cuh"
+#include "stem_ring.cuh"
 
 namespace {
 
-using namespace hdy::k108;
+// The K pair (first k) lane t holds as its A/B fragment half h in k-step ks:
+// the step's 16 K values as mma.sync's k 2t + 8h would take them, except
+// that in 4 steps the pairs are dealt so that each half's 4 pairs lie in as
+// few input rows as the step allows (its half-warps' reads then hit fewer
+// shared-memory banks twice: 22 wavefronts a tile's A build instead of 27).
+// Each step still sums the same 16 products.
+__constant__ unsigned char kPerm[7][2][4] = {
+    {{0, 2, 4, 12}, {6, 8, 10, 14}},      {{16, 24, 26, 28}, {18, 20, 22, 30}},
+    {{32, 34, 36, 38}, {40, 42, 44, 46}}, {{48, 50, 52, 60}, {54, 56, 58, 62}},
+    {{64, 66, 68, 70}, {72, 74, 76, 78}}, {{80, 82, 88, 94}, {84, 86, 90, 92}},
+    {{96, 98, 100, 102}, {104, 106, 108, 110}}};
 
-constexpr int CIN = 3, S = 2, P = 2, KS = 3;
-constexpr int CS = S * S * CIN;  // 12 s2d channels
-
-__global__ void __launch_bounds__(NTHREADS, 2)
-k108_kernel(const float* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-            const float* __restrict__ scale, const float* __restrict__ bias,
-            __nv_bfloat16* __restrict__ y, int H, int W, int Hout, int Wout, int bh) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  uint32_t* bfrag = reinterpret_cast<uint32_t*>(smem);
-  uint32_t* stage = reinterpret_cast<uint32_t*>(smem + BFRAG_BYTES);
-  float* sc = reinterpret_cast<float*>(smem + BFRAG_BYTES + NWARPS * STAGE_BYTES);
-  float* bi = sc + N;
-  __nv_bfloat16* band = reinterpret_cast<__nv_bfloat16*>(smem + FIXED_SMEM);
-
-  const int WS = Wout + KS - 1;  // s2d columns
-  const int b = blockIdx.y, oy0 = blockIdx.x * bh;
-  load_weights(w, scale, bias, bfrag, sc, bi);
-
-  // The band: s2d rows oy0 .. oy0 + bh + 1, i.e. x rows 2*oy0 - P + jr for
-  // jr < 2 * (bh + 2), x columns -P .. 2*WS - 1 - P; s2d channel
-  // (dy * 2 + dx) * 3 + c of (row, col) holds x[2*row + dy - P][2*col + dx - P][c].
-  const int rowlen = S * WS * CIN;
-  const int total = S * (bh + KS - 1) * rowlen;
-  const float* xb = x + static_cast<size_t>(b) * H * W * CIN;
-  for (int i = threadIdx.x; i < total; i += NTHREADS) {
-    const int jr = i / rowlen, e = i - jr * rowlen;
-    const int yy = S * oy0 - P + jr;
-    const int xx = e / CIN - P, c = e - (e / CIN) * CIN;
-    float v = 0.f;
-    if (yy >= 0 && yy < H && xx >= 0 && xx < W) v = xb[(static_cast<size_t>(yy) * W + xx) * CIN + c];
-    const int br = jr >> 1, dy = jr & 1, col = (xx + P) >> 1, dx = (xx + P) & 1;
-    band[(br * WS + col) * CS + (dy * S + dx) * CIN + c] = __float2bfloat16_rn(v);
+// K order s2d tap-major: k = 12·(3ky' + kx') + 6·dy + 3·dx + c reads row
+// 2oy-2 + 2ky' + dy, float 6ox-6 + 6kx' + (k mod 6)
+struct S2dOrder {
+  static __device__ __forceinline__ int row(int k) {
+    const int g = k / 6, tap = g >> 1;
+    return 2 * (tap / 3) + (g & 1);
   }
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  // word offset (bf16 pair) of this lane's A columns k = 16*ks + 2t + 8h
-  // from the pixel's tap (0, 0); -1 for the zero padding k >= 108
-  int koff[KSTEPS][2];
-#pragma unroll
-  for (int ks = 0; ks < KSTEPS; ++ks)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int k = ks * 16 + 2 * t + 8 * h;
-      const int tap = k / CS, ch = k - tap * CS;
-      koff[ks][h] = k < KDIM ? (((tap / KS) * WS + tap % KS) * CS + ch) >> 1 : -1;
-    }
-  const uint32_t* bw = reinterpret_cast<const uint32_t*>(band);
-  const int mpr = (Wout + 15) / 16;  // m-tiles per output row
-  const int nrow = min(bh, Hout - oy0);
-  for (int mt = warp; mt < nrow * mpr; mt += NWARPS) {
-    const int oyl = mt / mpr, ox0 = (mt - oyl * mpr) * 16;
-    // rows past the image's last column read its last pixel; they are not written
-    const int p0 = (oyl * WS + min(ox0 + g, Wout - 1)) * (CS / 2);
-    const int p1 = (oyl * WS + min(ox0 + g + 8, Wout - 1)) * (CS / 2);
-    uint32_t a[KSTEPS][4];
-#pragma unroll
-    for (int ks = 0; ks < KSTEPS; ++ks) {
-      const int k0 = koff[ks][0], k1 = koff[ks][1];
-      a[ks][0] = k0 >= 0 ? bw[p0 + k0] : 0u;
-      a[ks][1] = k0 >= 0 ? bw[p1 + k0] : 0u;
-      a[ks][2] = k1 >= 0 ? bw[p0 + k1] : 0u;
-      a[ks][3] = k1 >= 0 ? bw[p1 + k1] : 0u;
-    }
-    float acc[NT][4];
-    tile_product(acc, a, bfrag, lane);
-    store_tile(acc, sc, bi, stage + warp * (STAGE_BYTES / 4), lane,
-               y + ((static_cast<size_t>(b) * Hout + oy0 + oyl) * Wout + ox0) * N,
-               min(16, Wout - ox0));
+  static __device__ __forceinline__ int col(int k) { return 6 * ((k / 12) % 3) + k % 6; }
+  static __device__ __forceinline__ int k_of(int ks, int t, int h) { return kPerm[ks][h][t]; }
+  // w_108's row k is the (6, 6, 3) weight's (ky, kx, c) = (row(k), 2kx' + dx, c)
+  static __device__ __forceinline__ int wrow(int k) {
+    const int kx = 2 * ((k / 12) % 3) + (k % 6) / 3;
+    return (row(k) * 6 + kx) * 3 + k % 3;
   }
-}
+};
 
 }  // namespace
 
-// x (B, H, W, 3) f32 NHWC; w108 (108, 64) bf16 tap-major; scale/bias (64,)
-// f32; y (B, Hout, Wout, 64) bf16 with Hout/Wout those of the 6x6/s2/p2
-// conv.  bh: output rows per block.
-HDY_EXPORT int stem_k108(const void* x, const void* w108, const void* scale, const void* bias,
-                         void* y, int B, int H, int W, int Hout, int Wout, int bh, int device,
+// x (B, H, W, 3) f32 NHWC; w (6, 6, 3, 64) f32, staged as w_108's rows
+// rounded to bf16; scale/bias (64,) f32; y (B, Hout, Wout, 64) bf16 with
+// Hout/Wout those of the 6x6/s2/p2 conv.
+HDY_EXPORT int stem_k108(const void* x, const void* w, const void* scale, const void* bias,
+                         void* y, int B, int H, int W, int Hout, int Wout, int device,
                          void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (bh < 1 || Hout < 1 || Wout < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = FIXED_SMEM + static_cast<size_t>(bh + KS - 1) * (Wout + KS - 1) * CS * 2;
-  e = cudaFuncSetAttribute(k108_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((Hout + bh - 1) / bh, B);
-  k108_kernel<<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const __nv_bfloat16*>(w108),
+  if (B < 1 || Hout < 1 || Wout < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return hdy::ring::launch<64, S2dOrder>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
       static_cast<const float*>(scale), static_cast<const float*>(bias),
-      static_cast<__nv_bfloat16*>(y), H, W, Hout, Wout, bh);
-  return hdy::launch_status();
+      static_cast<__nv_bfloat16*>(y), B, H, W, Hout, Wout, device,
+      static_cast<cudaStream_t>(stream));
 }

@@ -1,7 +1,7 @@
 """Detect header, inference: per-level 1x1 det convs, sigmoid decode, per-image
-NMS, hierarchical label scores, and the occupancy-packed mask branch
-(port of ``hd_yolo_tpu/models/detect_head.py``; training losses are not
-ported yet).
+NMS, hierarchical label scores, and both mask branches: per image (no
+``mask_budget``, the default) and occupancy-packed (port of
+``hd_yolo_tpu/models/detect_head.py``; training losses are not ported yet).
 
 Reference key layout: ``m.l`` (det convs), ``seg.k`` (the mask-branch 3x3
 ConvBnAct of level ``nl-1-k``: the reference builds its list top-down),
@@ -20,7 +20,7 @@ from torch import nn
 
 from ..ops.nms import nms_per_image
 from ..ops.pallas_mask_head import fused_mask_probs
-from ..ops.roi_align import multiscale_roi_align_packed
+from ..ops.roi_align import multiscale_roi_align_canvas, multiscale_roi_align_packed
 from .builder import HeaderSpec
 from .layers import ConvBnAct, cached, conv
 
@@ -208,16 +208,36 @@ class Detect(nn.Module):
         if self.spec.multi_label:
             out["multi_labels"] = scores > p["conf_thres"]
         if compute_masks:
-            if not self.mask_budget:
-                raise NotImplementedError("only the occupancy-packed mask branch "
-                                          "(mask_budget set) is ported")
             R = min(self.max_masks, int(p["max_det"]))
             mask_idx = torch.tensor(self.mask_indices_list, device=labels.device)
             mask_labels = mask_idx[labels[:, :R].clamp(0, self.nc)]     # −100 → 0
-            out.update(self._packed_masks(seg_feats, valid, det["boxes"][:, :R],
-                                          out["levels"][:, :R], mask_labels,
-                                          final_scores[:, :R], self.mask_output_size // 2))
+            args = (seg_feats, valid, det["boxes"][:, :R], out["levels"][:, :R], mask_labels)
+            if self.mask_budget:
+                out.update(self._packed_masks(*args, final_scores[:, :R],
+                                              self.mask_output_size // 2))
+            else:
+                out.update(self._per_image_masks(*args, self.mask_output_size // 2))
         return out
+
+    def _per_image_masks(self, seg_feats, valid, boxes_r, levels_r, mask_labels, M):
+        """Per-image mask branch: each image's top R detections pooled (the
+        exact canvas form without ``mask_window``, the gathered-window form
+        with it), the mask head on all B·R ROIs, zeroed where the slot is
+        invalid or its label has no mask channel."""
+        B, R = levels_r.shape
+        if self.mask_window is None:
+            pooled = multiscale_roi_align_canvas(seg_feats, boxes_r, levels_r, self.spec.strides,
+                                                 M).reshape(B * R, M, M, -1)
+        else:
+            b_idx = torch.arange(B, device=boxes_r.device).repeat_interleave(R)
+            pooled = multiscale_roi_align_packed(
+                seg_feats, boxes_r.reshape(B * R, 4), levels_r.reshape(B * R), b_idx,
+                self.spec.strides, M, window=int(self.mask_window))
+        sel = fused_mask_probs(self.seg_h, pooled, mask_labels.reshape(B * R).clamp(min=0))
+        S = self.mask_output_size
+        mask_valid = valid[:, :R] & (mask_labels >= 0)
+        masks = sel.reshape(B, R, S, S) * mask_valid[..., None, None]
+        return {"masks": masks, "mask_valid": mask_valid}
 
     def _packed_masks(self, seg_feats, valid, boxes_r, levels_r, mask_labels, scores_r, M):
         """Occupancy-packed mask branch: gather the top-K mask-eligible

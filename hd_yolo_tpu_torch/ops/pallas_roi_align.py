@@ -2,6 +2,16 @@
 port of ``hd_yolo_tpu/ops/pallas_roi_align.py``'s canvas kernel) and
 ``kernels/roi_align_single.cu`` (the port of its single-level ``_kernel``).
 
+``roi_align_levels`` pools one set of (B, K) boxes from several maps, each
+at its own output size and scale, in one launch (hnet's ROI pyramid);
+``roi_align_single`` is its one-map entry.  On CPU maps both run the plain
+version, one ``ops/roi_align.roi_align`` per map.  The kernel rounds where
+the plain version does (matrices and row intermediate in the compute dtype)
+and sums a bin's entries in index order: where every bin has at most two
+distinct rows and columns (hnet's pyramid) that is bit for bit the plain
+version at bf16; elsewhere f32 sums of three or more terms may run in
+another order.
+
 ``roi_align_bounded`` pools a flat ROI list from the pyramid's level maps
 where they lie, with no stacked canvas.  Each ROI names its image, its level
 and a window origin ``(oy, ox)`` in level-stacked (canvas) coordinates, in
@@ -22,14 +32,19 @@ version, which builds the same interpolation matrices as the JAX package
 the same index arithmetic and contracts them in two einsums, with the JAX
 package's bf16 rounding points (matrices and the row intermediate in the
 compute dtype, f32 accumulation).  The kernel rounds at the same points and
-sums in f32 in another order, so for bf16 it agrees with the plain version
-to bf16 rounding of the row intermediate, not bit for bit.
+merges a bin's taps per index in sample order as the plain matrices do: at
+bf16 it equals the plain version bit for bit at every shape the main path,
+hnet and the checks give it (a bin's f32 sums there never depend on order).
+In f32 the sums of more than two taps may run in another order than the
+plain version's matrix products, so f32 agrees to ~1e-5.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+import math
+import struct
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -136,37 +151,154 @@ def roi_align_bounded(levels: Sequence[Tensor], meta: Tensor, ys: Tensor, xs: Te
     return out
 
 
+def roi_align_levels_plain(features: Sequence[Tensor], rois: Tensor, sizes: Sequence[int],
+                          scales: Sequence[float], sampling_ratio: int = 2,
+                          aligned: bool = False) -> List[Tensor]:
+    """The plain version of ``roi_align_levels``: one ``roi_align`` per map."""
+    return [roi_align(f, rois, int(M), float(s), sampling_ratio, aligned)
+            for f, M, s in zip(features, sizes, scales)]
+
+
+_LIMITS: dict = {}
+
+
+def _limits() -> dict:
+    """The kernel's pooling limits (levels, samples per axis, y entries of a
+    band, staged bytes), read from its library once."""
+    if not _LIMITS:
+        f = kernels.fn("roi_align_levels_limits")
+        _LIMITS.update(zip(("levels", "samples", "band_entries", "stage_bytes"),
+                           (f(i) for i in range(4))))
+    return _LIMITS
+
+
+def _band_and_slab(H: int, W: int, C: int, M: int, n: int, cell: int, esz: int, vec: int):
+    """Output rows per work item and channels per slab for one map: the
+    band's worst-case rows at the map's width must fit the staging buffer one
+    ``vec``-channel cell wide; the slab is the widest that fits the band's
+    usual rows (band + 1 when bins are a pixel apart) at the whole width,
+    cut into equal ``vec`` multiples."""
+    lim = _limits()
+    bh = min(M, 8)
+    while bh > 1 and (min(H, bh * 2 * n) * W * cell > lim["stage_bytes"]
+                      or bh * 2 * n > lim["band_entries"]):
+        bh -= 1
+    if min(H, bh * 2 * n) * W * cell > lim["stage_bytes"] or bh * 2 * n > lim["band_entries"]:
+        raise ValueError(f"roi_align_levels kernel: a ({H}, {W}) map at sampling {n} does not fit "
+                         f"its {lim['stage_bytes']}-byte staging buffer")
+    cs_max = max(vec, lim["stage_bytes"] // (min(H, bh + 1) * W * esz) // vec * vec)
+    per_slab = -(-C // -(-C // cs_max))
+    return bh, -(-per_slab // vec) * vec
+
+
+_PLANS: dict = {}
+
+
+def _plan(features: Sequence[Tensor], rois: Tensor, sizes: Sequence[int],
+          scales: Sequence[float], n: int) -> tuple:
+    """The launch plan of one call's shapes, checked and cached: per map its
+    output shape and the level-table row without pointers, for the vector
+    path and the scalar one."""
+    key = (tuple((f.dtype, f.shape) for f in features), rois.shape, tuple(sizes), tuple(scales), n)
+    plan = _PLANS.get(key)
+    if plan is not None:
+        return plan
+    f0 = features[0]
+    dtype, B = f0.dtype, f0.shape[0]
+    if (dtype not in (torch.float32, torch.bfloat16)
+            or any(f.dim() != 4 or f.dtype != dtype or f.shape[0] != B for f in features)):
+        raise ValueError(f"roi_align_levels kernel takes (B, H, W, C) f32/bf16 maps of one dtype "
+                         f"and batch, got {[(f.dtype, tuple(f.shape)) for f in features]}")
+    if not len(features) == len(sizes) == len(scales):
+        raise ValueError(f"roi_align_levels takes one size and scale per map, got "
+                         f"{len(features)} maps, {len(sizes)} sizes, {len(scales)} scales")
+    if rois.dim() != 3 or rois.shape[0] != B or rois.shape[2] != 4:
+        raise ValueError(f"roi_align_levels kernel takes ({B}, K, 4) boxes, got {tuple(rois.shape)}")
+    lim = _limits()
+    if not 1 <= len(features) <= lim["levels"]:
+        raise ValueError(f"roi_align_levels kernel takes 1 to {lim['levels']} maps, "
+                         f"got {len(features)}")
+    for f, M in zip(features, sizes):
+        if min(f.shape[1:]) < 1 or max(f.shape[1:3]) > 32767 or n < 1 or not \
+                1 <= int(M) * n <= lim["samples"]:
+            raise ValueError(f"roi_align_levels kernel takes maps of 1 to 32767 rows and columns "
+                             f"and 1 to {lim['samples']} samples per axis, got "
+                             f"{tuple(f.shape)} at output {M}, sampling {n}")
+    esz = f0.element_size()
+    vec = 16 // esz
+    K = rois.shape[1]
+    shapes, rows = [], {True: [], False: []}
+    for f, M, sc in zip(features, sizes, scales):
+        H, W, C = f.shape[1:]
+        shapes.append((B, K, int(M), int(M), C))
+        bits = struct.unpack("<I", struct.pack("<f", float(sc)))[0]
+        for use_vec in (True, False):
+            if use_vec and C % vec:
+                continue
+            bh, cs = _band_and_slab(H, W, C, int(M), n, 16 if use_vec else esz, esz,
+                                    vec if use_vec else 1)
+            rows[use_vec].append((H, W, C, int(M), bh, cs, bits, 0))
+    vec_ok = len(rows[True]) == len(features)
+    # the outputs as views of one buffer, each at a 16-byte multiple
+    offsets, total = [], 0
+    for sh in shapes:
+        offsets.append(total)
+        total += -(-math.prod(sh) // vec) * vec
+    views = [(sh, torch.empty(sh, device="meta").stride(), o) for sh, o in zip(shapes, offsets)]
+    plan = (views, total, rows[True] if vec_ok else None, rows[False])
+    _PLANS[key] = plan
+    return plan
+
+
+def roi_align_levels(features: Sequence[Tensor], rois: Tensor, sizes: Sequence[int],
+                     scales: Sequence[float], sampling_ratio: int = 2,
+                     aligned: bool = False) -> List[Tensor]:
+    """The (B, K, 4) xyxy ROIs pooled from each of several (B, H_l, W_l, C_l)
+    f32|bf16 maps (one dtype) at its own output size ``sizes[l]`` and scale
+    ``scales[l]`` → per map (B, K, M_l, M_l, C_l): one launch of the kernel
+    for CUDA maps, the plain version (one ``roi_align`` each) for CPU maps."""
+    f0 = features[0]
+    if f0.device.type == "cpu":
+        return roi_align_levels_plain(features, rois, sizes, scales, sampling_ratio, aligned)
+    n = int(sampling_ratio)
+    views, total, vec_rows, scalar_rows = _plan(features, rois, sizes, scales, n)
+    features = [f if f.is_contiguous() else f.contiguous() for f in features]
+    if rois.dtype != torch.float32 or not rois.is_contiguous() or rois.data_ptr() % 16:
+        rois = rois.float().contiguous().clone()      # the kernel reads each box as a float4
+    dev = f0.get_device()
+    if dev < 0 or not f0.is_cuda or rois.get_device() != dev or any(
+            f.get_device() != dev for f in features):
+        raise ValueError("roi_align_levels kernel inputs must share one CUDA device")
+    # one allocation for every map's output (host time: one allocator call)
+    buf = torch.empty(total, dtype=f0.dtype, device=f0.device)
+    outs = [buf.as_strided(sh, st, o) for sh, st, o in views]
+    base, esz = buf.data_ptr(), buf.element_size()
+    fptrs = [f.data_ptr() for f in features]
+    use_vec = vec_rows is not None and base % 16 == 0 and all(p % 16 == 0 for p in fptrs)
+    table = struct.pack(f"<{10 * len(fptrs)}q", *[
+        v for p, (_, _, o), r in zip(fptrs, views, vec_rows if use_vec else scalar_rows)
+        for v in (p, base + o * esz, *r)])
+    _, stream = kernels.device_and_stream(f0)
+    B, K = views[0][0][:2]
+    code = kernels.fn("roi_align_levels")(
+        table, len(fptrs), rois.data_ptr(), B, K, n, 1 if aligned else 0,
+        1 if f0.dtype == torch.bfloat16 else 0, 1 if use_vec else 0, dev, stream)
+    kernels.check(code, "roi_align_levels")
+    kernels.LAUNCHES["roi_align_single"] += 1
+    return outs
+
+
 def roi_align_single(features: Tensor, boxes: Tensor, output_size: int,
                      spatial_scale: float = 1.0, sampling_ratio: int = 2,
                      aligned: bool = False) -> Tensor:
     """features (B, H, W, C) f32|bf16, any C; boxes (B, K, 4) xyxy in image
-    coordinates → (B, K, M, M, C) in the features' dtype.  The kernel works
-    in f32 until its single write, so for bf16 it agrees with the plain
-    version (``ops/roi_align.roi_align``) to bf16 rounding."""
+    coordinates → (B, K, M, M, C) in the features' dtype: the single-map
+    entry of ``roi_align_levels`` (the kernel with a one-row level table on
+    CUDA, ``ops/roi_align.roi_align`` on the CPU)."""
     if features.device.type == "cpu":
         return roi_align(features, boxes, output_size, spatial_scale, sampling_ratio, aligned)
-    if features.dim() != 4 or features.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"roi_align_single kernel takes (B, H, W, C) f32/bf16 features, got "
-                         f"{features.dtype} {tuple(features.shape)}")
-    B, H, W, C = features.shape
-    if boxes.dim() != 3 or boxes.shape[0] != B or boxes.shape[2] != 4:
-        raise ValueError(f"roi_align_single kernel takes ({B}, K, 4) boxes, got {tuple(boxes.shape)}")
-    M, n = int(output_size), int(sampling_ratio)
-    if min(H, W, C, M, n) < 1:
-        raise ValueError(f"roi_align_single kernel takes positive sizes, got features "
-                         f"{tuple(features.shape)}, output {M}, sampling {n}")
-    K = boxes.shape[1]
-    features = features.contiguous()
-    boxes = boxes.float().contiguous()
-    if boxes.data_ptr() % 16:                         # the kernel reads each box as a float4
-        boxes = boxes.clone()
-    kernels.require_cuda(features, boxes)
-    out = torch.empty((B, K, M, M, C), dtype=features.dtype, device=features.device)
-    dev, stream = kernels.device_and_stream(features)
-    code = kernels.fn("roi_align_single")(
-        features.data_ptr(), boxes.data_ptr(), out.data_ptr(), B, H, W, C, K, M, n,
-        float(spatial_scale), 1 if aligned else 0,
-        1 if features.dtype == torch.bfloat16 else 0, dev, stream)
-    kernels.check(code, "roi_align_single")
-    kernels.LAUNCHES["roi_align_single"] += 1
-    return out
+    if features.dim() != 4:
+        raise ValueError(f"roi_align_single kernel takes (B, H, W, C) features, got "
+                         f"{tuple(features.shape)}")
+    return roi_align_levels([features], boxes, [output_size], [spatial_scale], sampling_ratio,
+                            aligned)[0]

@@ -15,8 +15,9 @@ with bf16 operands and f32 accumulation:
   im2col         s2d + 9-tap concat (K = 108) → one matmul
   stem_cu        ``ops/pallas_stem.stem_conv(form="direct")``: the direct
                  stem kernel (f32 CUDA cores, ``kernels/stem.cu``)
-  stem_k108      ``stem_k108``: space-to-depth in shared memory + one K=108
-                 tensor-core product per pixel tile (``kernels/stem_k108.cu``)
+  stem_k108      ``stem_k108``: the K=108 tensor-core product in the s2d
+                 tap-major K order, raw f32 image rows streamed through a
+                 shared-memory ring (``kernels/stem_k108.cu``)
   stem_dot108    ``stem_dot108``: torch builds the K=108 im2col, the kernel
                  does the product + BN + SiLU (``kernels/stem_dot108.cu``)
   stem_tc        ``ops/pallas_stem.stem_conv(form="tc")``: the trunk's bf16
@@ -114,23 +115,23 @@ def _check(x: Tensor, w: Tensor) -> None:
                          f"got x {tuple(x.shape)} {x.dtype}, w {tuple(w.shape)}")
 
 
-def stem_k108(x: Tensor, w: Tensor, scale: Tensor, bias: Tensor, bh: int = 4) -> Tensor:
-    """silu(conv6x6/s2/p2(x) * scale + bias) as one K=108 product per pixel:
-    kernel 6 on a CUDA tensor (``bh`` output rows per block), the plain
+def stem_k108(x: Tensor, w: Tensor, scale: Tensor, bias: Tensor) -> Tensor:
+    """silu(conv6x6/s2/p2(x) * scale + bias) as one K=108 product per pixel
+    in the s2d tap-major K order: kernel 6 on a CUDA tensor, the plain
     version on a CPU tensor."""
     if x.device.type == "cpu":
         return stem_k108_plain(x, w, scale, bias)
     _check(x, w)
     B, H, W, _ = x.shape
     x = x.contiguous()
-    w108 = w_108(w).contiguous()
+    w = w.float().contiguous()        # the kernel stages w_108's rows from it, in bf16
     scale, bias = scale.float().contiguous(), bias.float().contiguous()
-    kernels.require_cuda(x, w108, scale, bias)
+    kernels.require_cuda(x, w, scale, bias)
     y = torch.empty((B, out_size(H), out_size(W), N), dtype=torch.bfloat16, device=x.device)
     dev, stream = kernels.device_and_stream(x)
-    code = kernels.fn("stem_k108")(x.data_ptr(), w108.data_ptr(), scale.data_ptr(),
+    code = kernels.fn("stem_k108")(x.data_ptr(), w.data_ptr(), scale.data_ptr(),
                                    bias.data_ptr(), y.data_ptr(), B, H, W, y.shape[1],
-                                   y.shape[2], bh, dev, stream)
+                                   y.shape[2], dev, stream)
     kernels.check(code, "stem_k108")
     kernels.LAUNCHES["stem_k108"] += 1
     return y

@@ -132,9 +132,9 @@ def _flagship_pool_args(gen, K=768):
 
 @pytest.mark.parametrize("active", [None, 0, 1, 360, 768])
 def test_roi_align_kernel_flagship_active_prefix(cuda, active):
-    """Within 3e-2 + 2e-2·|plain| of the plain version on the active rows
-    (the same rounding points; f32 sums in another order), exactly 0 past
-    them, two launches bit-identical, one launch each."""
+    """Bit for bit the plain version on the active rows (the same rounding
+    points and merge order), exactly 0 past them, two launches
+    bit-identical, one launch each."""
     feats, boxes, levels, b_idx = _flagship_pool_args(cuda)
     act = None if active is None else torch.tensor(active, device="cuda")
     calls = []
@@ -157,7 +157,7 @@ def test_roi_align_kernel_flagship_active_prefix(cuda, active):
     k = 768 if active is None else active
     assert torch.equal(got, again)
     assert bool((got[k:] == 0).all())
-    assert ((got.float() - want.float()).abs() <= 3e-2 + 2e-2 * want.float().abs()).all()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("K,M,dtype", [(512, 7, torch.bfloat16), (100, 14, torch.bfloat16),
@@ -166,8 +166,8 @@ def test_roi_align_kernel_hnet_canvas_shapes(cuda, K, M, dtype):
     """hnet's canvas form: 4 images, levels 160/80/40/20 at 256 channels (a
     (4, 300, 160, 256) canvas's worth), 4 x 512 ROIs at 7x7 and 4 x 100 at
     14x14 on torchvision's levels; windows as large as the canvas, so wide
-    ROIs run the kernel's bands.  bf16 at 3e-2 + 2e-2·|plain|, f32 at 1e-4
-    (f32 sums in another order over up to 56 taps)."""
+    ROIs run the kernel's bands.  bf16 bit for bit, f32 at 1e-4 (f32 sums
+    in another order over up to 56 taps)."""
     feats = [torch.randn((4, s, s, 256), generator=cuda, device="cuda").to(dtype)
              for s in (160, 80, 40, 20)]
     strides = (4.0, 8.0, 16.0, 32.0)
@@ -179,8 +179,10 @@ def test_roi_align_kernel_hnet_canvas_shapes(cuda, K, M, dtype):
     got = multiscale_roi_align_canvas(feats, rois, levels, strides, M)
     want = _multiscale_roi_align_canvas(feats, rois, levels, strides, M)
     assert got.dtype == dtype and got.shape == want.shape
-    atol, rtol = (3e-2, 2e-2) if dtype == torch.bfloat16 else (1e-4, 0.0)
-    assert ((got.float() - want.float()).abs() <= atol + rtol * want.float().abs()).all()
+    if dtype == torch.bfloat16:
+        assert torch.equal(got, want)
+    else:
+        assert ((got.float() - want.float()).abs() <= 1e-4).all()
 
 
 @pytest.mark.parametrize("B,H,W,N", [(16, 640, 640, 64), (1, 256, 256, 32), (2, 600, 904, 64),
@@ -238,11 +240,12 @@ def test_roi_align_kernel_f32_canvas_matches_plain(cuda):
 
 @pytest.mark.parametrize("C,dtype,M,n", [(5, torch.float32, 7, 2), (16, torch.float32, 40, 2),
                                          (256, torch.bfloat16, 20, 2), (24, torch.bfloat16, 14, 1),
-                                         (6, torch.bfloat16, 28, 2)])
+                                         (6, torch.bfloat16, 28, 2), (8, torch.bfloat16, 7, 5)])
 def test_roi_align_single_kernel_matches_plain(cuda, C, dtype, M, n):
     """Boxes partly off the map and one of zero area; (40, 2) is 80 samples
-    per axis.  f32 atol 1e-5; bf16 to bf16 rounding (the plain version rounds
-    its matrices and row sums to bf16, the kernel stays f32)."""
+    per axis; C 5 and 6 take the scalar path.  f32 atol 1e-5; bf16 to bf16
+    rounding (the same rounding points; a bin of three or more taps sums in
+    f32 in another order than the plain matrix products)."""
     B, K, H, W, scale = 2, 9, 37, 23, 0.25
     f = torch.randn((B, H, W, C), generator=cuda, device="cuda").to(dtype)
     xy = torch.rand((B, K, 2), generator=cuda, device="cuda") * 110 - 10
@@ -257,6 +260,62 @@ def test_roi_align_single_kernel_matches_plain(cuda, C, dtype, M, n):
         torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
     else:
         torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=3e-2)
+
+
+HNET_PYRAMID = ((160, 4.0), (80, 8.0), (40, 16.0), (20, 32.0))
+
+
+@pytest.mark.parametrize("C,dtype", [(256, torch.bfloat16), (24, torch.bfloat16),
+                                     (6, torch.bfloat16), (12, torch.float32),
+                                     (5, torch.float32)])
+def test_roi_align_levels_kernel_hnet_pyramid(cuda, C, dtype):
+    """hnet's ROI pyramid: the 640 px tile ROI of each of 4 images pooled from
+    the four levels at M = the level's size, in ONE launch: bit for bit the
+    four plain ``roi_align`` calls at bf16 (every bin has two rows and two
+    columns), f32 within 1e-5; C 6 and 5 take the scalar path."""
+    feats = [torch.randn((4, s, s, C), generator=cuda, device="cuda").to(dtype)
+             for s, _ in HNET_PYRAMID]
+    rois = torch.tensor([0.0, 0.0, 640.0, 640.0], device="cuda").expand(4, 1, 4).contiguous()
+    sizes, scales = [s for s, _ in HNET_PYRAMID], [1.0 / st for _, st in HNET_PYRAMID]
+    n0 = kernels.LAUNCHES["roi_align_single"]
+    got = pallas_roi_align.roi_align_levels(feats, rois, sizes, scales, 2)
+    assert kernels.LAUNCHES["roi_align_single"] == n0 + 1
+    want = pallas_roi_align.roi_align_levels_plain(feats, rois, sizes, scales, 2)
+    for g, w, s in zip(got, want, sizes):
+        assert g.dtype == dtype and g.shape == (4, 1, s, s, C)
+        if dtype == torch.bfloat16:
+            assert torch.equal(g, w)
+        else:
+            torch.testing.assert_close(g, w, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_roi_align_levels_kernel_ragged_levels(cuda, dtype):
+    """Three maps of other sizes and channel counts in one launch, boxes
+    partly off the maps, some far larger than M·n samples (coarse bins:
+    narrower channel slabs than the level's), one of zero area, at
+    sampling 2 and 3, against the plain version on the CPU (the reference
+    semantics: on the card torch divides by a Python number as a multiply
+    by its reciprocal, which moves f32 sample coordinates of ~600 px by an
+    ulp).  bf16 to bf16 rounding, f32 atol 1e-5."""
+    shapes = [(3, 64, 600, 16), (3, 37, 23, 40), (3, 9, 150, 8)]
+    for n in (2, 3):
+        feats = [torch.randn(s, generator=cuda, device="cuda").to(dtype) for s in shapes]
+        xy = torch.rand((3, 6, 2), generator=cuda, device="cuda") * 500 - 60
+        wh = torch.rand((3, 6, 2), generator=cuda, device="cuda") * 500
+        rois = torch.cat([xy, xy + wh], -1)
+        rois[:, 0, 2:] = rois[:, 0, :2]
+        rois[:, 1] = torch.tensor([0.0, 0.0, 600.0, 64.0], device="cuda")
+        sizes, scales = [7, 14, 5], [1.0, 0.25, 0.5]
+        got = pallas_roi_align.roi_align_levels(feats, rois, sizes, scales, n)
+        want = pallas_roi_align.roi_align_levels_plain([f.cpu() for f in feats], rois.cpu(),
+                                                       sizes, scales, n)
+        for g, w in zip(got, want):
+            assert g.dtype == dtype and g.shape == w.shape
+            if dtype == torch.bfloat16:
+                torch.testing.assert_close(g.float().cpu(), w.float(), rtol=2e-2, atol=3e-2)
+            else:
+                torch.testing.assert_close(g.cpu(), w, rtol=0, atol=1e-5)
 
 
 def _mask_head(nc, seed):
@@ -291,19 +350,21 @@ def test_mask_head_kernel_matches_plain(cuda, N, nc, active):
     torch.testing.assert_close(got, want, rtol=0, atol=2e-2)
 
 
-@pytest.mark.parametrize("B,H,W,bh", [(2, 64, 64, 4), (1, 50, 94, 3), (3, 36, 20, 8)])
-def test_stem_k108_kernels_match_plain(cuda, B, H, W, bh):
-    """Kernels 6 and 7 against their shared plain version; widths that are
-    not multiples of the 16-pixel tile, a last band of fewer rows than bh,
-    and an im2col whose row count is odd (kernel 7's 8-byte tail copy).
-    One bf16 ulp of the output: |d| <= 1e-3 + 2^-7·|plain|."""
+@pytest.mark.parametrize("B,H,W", [(2, 64, 64), (1, 50, 94), (3, 36, 20), (16, 640, 640),
+                                   (2, 61, 50), (1, 9, 6), (2, 255, 130)])
+def test_stem_k108_kernels_match_plain(cuda, B, H, W):
+    """Kernels 6 and 7 against their shared plain version; the lab's shape,
+    widths that are not multiples of the 16-pixel tile, odd heights,
+    W % 4 != 0 (kernel 6's 4-byte row copies), and an im2col whose row count
+    is odd (kernel 7's 8-byte tail copy).  One bf16 ulp of the output:
+    |d| <= 1e-3 + 2^-7·|plain|."""
     x = torch.rand((B, H, W, 3), generator=cuda, device="cuda")
     w = torch.randn((6, 6, 3, 64), generator=cuda, device="cuda") * 0.1
     scale = torch.rand(64, generator=cuda, device="cuda") + 0.5
     bias = torch.randn(64, generator=cuda, device="cuda") * 0.1
     want = stem_lab.stem_k108_plain(x, w, scale, bias).float()
     n6, n7 = kernels.LAUNCHES["stem_k108"], kernels.LAUNCHES["stem_dot108"]
-    got6 = stem_lab.stem_k108(x, w, scale, bias, bh=bh)
+    got6 = stem_lab.stem_k108(x, w, scale, bias)
     got7 = stem_lab.stem_dot108(x, w, scale, bias)
     assert (kernels.LAUNCHES["stem_k108"], kernels.LAUNCHES["stem_dot108"]) == (n6 + 1, n7 + 1)
     for got in (got6, got7):

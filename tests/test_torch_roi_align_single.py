@@ -141,3 +141,81 @@ def test_multiscale_batched_matches_jax(rng, mode):
     got = fn([torch.from_numpy(f) for f in feats], torch.from_numpy(boxes),
              torch.from_numpy(levels), STRIDES, 7)
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+
+
+HNET_LEVELS = ((32, 4.0), (16, 8.0), (8, 16.0), (4, 32.0))
+
+
+@pytest.mark.parametrize("C,dtype", [(8, np.float32), (5, np.float32), (6, "bfloat16")])
+def test_roi_align_levels_plain_matches_four_jax_calls(rng, C, dtype):
+    """``roi_align_levels`` on CPU maps (its plain version) against one JAX
+    ``roi_align`` per level: a ragged C, each level at its own output size
+    and scale, boxes partly off the maps and one of zero area.  f32 atol
+    1e-5; bf16 as ``test_roi_align_bf16_matches_jax``."""
+    from hd_yolo_tpu_torch.ops.pallas_roi_align import roi_align_levels
+
+    B, K = 2, 5
+    feats = [rng.standard_normal((B, s, s, C)).astype(np.float32) for s, _ in HNET_LEVELS]
+    boxes = _boxes(rng, B, K, 128.0)
+    sizes, scales = [8, 4, 2, 1], [1.0 / st for _, st in HNET_LEVELS]
+    tf = [torch.from_numpy(f) for f in feats]
+    if dtype == "bfloat16":
+        tf = [t.to(torch.bfloat16) for t in tf]
+    n0 = kernels.LAUNCHES["roi_align_single"]
+    got = roi_align_levels(tf, torch.from_numpy(boxes), sizes, scales, 2)
+    assert kernels.LAUNCHES["roi_align_single"] == n0
+    for t, g, M, s in zip(tf, got, sizes, scales):
+        assert g.shape == (B, K, M, M, C) and g.dtype == t.dtype
+        want = np.asarray(jax.vmap(lambda ff, bb: jax_roi_align(
+            ff, bb, M, spatial_scale=s, sampling_ratio=2))(
+            jnp.asarray(t.float().numpy()).astype(jnp.bfloat16 if dtype == "bfloat16"
+                                                  else jnp.float32),
+            jnp.asarray(boxes))).astype(np.float32)
+        atol = 2.0 ** -7 * np.abs(want).max() if dtype == "bfloat16" else 1e-5
+        np.testing.assert_allclose(g.float().numpy(), want, rtol=0, atol=atol)
+
+
+def test_extract_roi_feature_maps_pools_every_level_in_one_call(rng, monkeypatch):
+    """hnet's ROI pyramid goes through ``roi_align_levels`` once for all its
+    levels (one kernel launch on the card), and equals per-level pooling."""
+    from hd_yolo_tpu_torch.hnet import feature_mosaic
+    from hd_yolo_tpu_torch.ops import pallas_roi_align
+
+    feats = [torch.from_numpy(rng.standard_normal((2, s, s, 8)).astype(np.float32))
+             for s, _ in HNET_LEVELS]
+    rois = torch.tensor([[[0.0, 0.0, 128.0, 128.0]], [[10.0, -5.0, 90.0, 60.0]]])
+    calls = []
+    orig = pallas_roi_align.roi_align_levels
+
+    def spy(*a, **k):
+        calls.append(a)
+        return orig(*a, **k)
+
+    monkeypatch.setattr(feature_mosaic, "roi_align_levels", spy)
+    got = feature_mosaic.extract_roi_feature_maps(feats, rois, [s for _, s in HNET_LEVELS],
+                                                   roi_size=32)
+    assert len(calls) == 1 and len(calls[0][0]) == 4
+    for lvl, (f, (_, st)) in enumerate(zip(feats, HNET_LEVELS)):
+        torch.testing.assert_close(got[lvl], roi_align_single(f, rois, 32 >> lvl, 1.0 / st),
+                                   rtol=0, atol=0)
+
+
+def test_roi_align_levels_rejects_what_the_kernel_does_not_take():
+    """Off the CPU the wrapper launches the kernel or raises; the checks that
+    come before the launch, reached with ``device="meta"`` maps."""
+    from hd_yolo_tpu_torch.ops.pallas_roi_align import roi_align_levels
+
+    meta = dict(device="meta")
+    boxes = torch.zeros((1, 2, 4), **meta)
+    with pytest.raises(ValueError):                   # f16
+        roi_align_levels([torch.zeros((1, 4, 4, 8), dtype=torch.float16, **meta)], boxes, [2],
+                         [1.0])
+    with pytest.raises(ValueError):                   # mixed dtypes
+        roi_align_levels([torch.zeros((1, 4, 4, 8), **meta),
+                          torch.zeros((1, 2, 2, 8), dtype=torch.bfloat16, **meta)], boxes,
+                         [2, 1], [1.0, 0.5])
+    with pytest.raises(ValueError):                   # one size per map
+        roi_align_levels([torch.zeros((1, 4, 4, 8), **meta)], boxes, [2, 1], [1.0])
+    with pytest.raises(ValueError):                   # boxes of another batch
+        roi_align_levels([torch.zeros((1, 4, 4, 8), **meta)], torch.zeros((2, 2, 4), **meta),
+                         [2], [1.0])

@@ -117,3 +117,59 @@ def test_wrappers_reject_other_shapes_on_cuda_tensors():
         stem_lab._check(torch.zeros(1, 8, 8, 4), torch.zeros(6, 6, 3, 64))
     with pytest.raises(ValueError):
         stem_lab._check(torch.zeros(1, 8, 8, 3), torch.zeros(3, 3, 3, 64))
+
+
+def _k108_row(k):
+    """``stem_k108.cu``'s input row of K index k (S2dOrder::row), relative to
+    2oy - 2: k = 12·(3ky' + kx') + 6·dy + 3·dx + c reads row 2ky' + dy."""
+    g = k // 6
+    return 2 * ((g >> 1) // 3) + (g & 1)
+
+
+def _k108_col(k):
+    """``stem_k108.cu``'s float offset of K index k in a raw image row
+    (S2dOrder::col), relative to 6ox - 6: 6kx' + (k mod 6)."""
+    return 6 * ((k // 12) % 3) + k % 6
+
+
+def _k108_wrow(k):
+    """``stem_k108.cu``'s row of the (6, 6, 3, 64) weight seen as (108, 64)
+    in (ky, kx, c) order that K index k multiplies (S2dOrder::wrow)."""
+    kx = 2 * ((k // 12) % 3) + (k % 6) // 3
+    return (_k108_row(k) * 6 + kx) * 3 + k % 3
+
+
+@pytest.mark.parametrize("H,W", [(16, 16), (13, 22), (9, 6)])
+def test_stem_k108_raw_row_reads_match_s2d_operands(H, W):
+    """A numpy model of ``stem_k108``'s raw-row A operand: for every output
+    pixel and every k < 108, the element it reads from the raw f32 rows
+    (row 2oy-2 + row(k), float 6ox-6 + col(k) of the row's 3W floats, zero
+    outside the image) is, rounded to bf16, the s2d/im2col value that
+    ``w_108``'s row k multiplies, and the weight row it stages for k
+    (``wrow``, rounded to bf16) is ``w_108``'s row k; each bf16 pair (k,
+    k+1), k even, is two adjacent floats of one row (one 8-byte shared
+    load)."""
+    rng = np.random.default_rng(3)
+    x = rng.uniform(-1, 1, (1, H, W, 3)).astype(np.float32)
+    Ho, Wo = stem_lab.out_size(H), stem_lab.out_size(W)
+    cols = stem_lab.im2col108(stem_lab.s2d(torch.from_numpy(x)), Ho, Wo)[0].float().numpy()
+    flat = x[0].reshape(H, 3 * W)
+    for k in range(0, 108, 2):
+        assert _k108_row(k + 1) == _k108_row(k) and _k108_col(k + 1) == _k108_col(k) + 1
+    for oy in range(Ho):
+        for ox in range(Wo):
+            for k in range(108):
+                r, f = 2 * oy - 2 + _k108_row(k), 6 * ox - 6 + _k108_col(k)
+                v = flat[r, f] if 0 <= r < H and 0 <= f < 3 * W else 0.0
+                v = torch.tensor(v).to(torch.bfloat16).float().item()
+                assert v == cols[oy, ox, k], (oy, ox, k)
+    w = (rng.standard_normal((6, 6, 3, 64)) * 0.1).astype(np.float32)
+    w108 = stem_lab.w_108(torch.from_numpy(w))
+    staged = torch.from_numpy(w.reshape(108, 64)[[_k108_wrow(k) for k in range(108)]])
+    assert torch.equal(staged.to(torch.bfloat16), w108)
+    # and the product of those operands with w_108 is the plain stem
+    sc, bi = np.ones(64, np.float32), np.zeros(64, np.float32)
+    acc = torch.from_numpy(cols).double() @ stem_lab.w_108(torch.from_numpy(w)).double()
+    got = torch.nn.functional.silu(acc.float()).to(torch.bfloat16).float()
+    want = stem_lab.stem_k108_plain(*map(torch.from_numpy, (x, w, sc, bi)))[0].float()
+    assert ((got - want).abs() <= 1e-3 + 2 ** -7 * want.abs()).all()

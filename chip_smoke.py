@@ -692,12 +692,8 @@ def phase_roi_single(gen, iters):
     torch.cuda.synchronize()
     # the plain version's rounding points and merge order; every bin sums
     # two exact bf16 products a step, so the sums cannot differ
-    err = 0.0
-    for f, g, w in zip(feats, got, want):
-        err = max(err, float((g.float() - w.float()).abs().max()))
-        log(f"  roi_align_single {tuple(f.shape)}: bit-identical {torch.equal(g, w)} "
-            f"(tolerance: exact)")
-        need(torch.equal(g, w), f"roi_align_single {tuple(f.shape)}: kernel disagrees with plain")
+    err = max(check_equal(f"roi_align_single {tuple(f.shape)}", g, w)
+              for f, g, w in zip(feats, got, want))
     need(all(torch.equal(a, b) for a, b in zip(four_launches(), got)),
          "roi_align_single: the one-map entry and the one-launch pyramid differ")
     f5 = torch.randn((2, 37, 23, 5), generator=gen, device=dev)

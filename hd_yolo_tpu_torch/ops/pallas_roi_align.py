@@ -297,8 +297,5 @@ def roi_align_single(features: Tensor, boxes: Tensor, output_size: int,
     CUDA, ``ops/roi_align.roi_align`` on the CPU)."""
     if features.device.type == "cpu":
         return roi_align(features, boxes, output_size, spatial_scale, sampling_ratio, aligned)
-    if features.dim() != 4:
-        raise ValueError(f"roi_align_single kernel takes (B, H, W, C) features, got "
-                         f"{tuple(features.shape)}")
     return roi_align_levels([features], boxes, [output_size], [spatial_scale], sampling_ratio,
                             aligned)[0]

@@ -89,7 +89,24 @@ Phases (any failure raises and the script exits non-zero):
      paste of the top masks into a crop;
  10. slide reference: ``yolov5s-test`` on a 600 x 900 slide in f32, the card
      against the plain path on the CPU: >= 98% of the CPU's stitched
-     detections found again (same label, IoU >= 0.9).
+     detections found again (same label, IoU >= 0.9);
+ 11. val: ``engines/val.run`` on the flagship at ``Detector()``'s defaults
+     (class biases raised and objectness calibrated to ~40 detections a
+     tile) over 4 batches of 8 x 640 host uint8 tiles whose targets are the
+     card's own first-pass detections (boxes, labels, 28x28 masks): box and
+     mask mAP@0.5 >= 0.99, ms per image (data, inference, metrics), one
+     launch of each flagship kernel a batch;
+ 12. evaluate and export: ``inference_on_loader`` at batch 16 (images/s),
+     ``engines/evaluate.export`` of the same model at (16, 640, 640, 3)
+     loaded back in this process: one call of each of the four kernels' custom
+     ops in the graph, one launch each a run, outputs bit for bit the eager
+     forward's, the program timed in turns with ``Detector.tiles`` and both
+     profiled, and each custom op's host time a call beside the bare
+     ``ctypes`` launch;
+ 13. serving: ``serving._respond`` on a 640 tile and a 1500 x 1500 slide
+     (records equal a direct ``Detector`` call's), latency a request, and an
+     HTTP round trip through ``ThreadingHTTPServer`` on 127.0.0.1 where
+     ``cv2`` imports (whether it does is printed).
 
 Phase 3 also holds the single-level ROI-align kernel bit for bit against
 its plain version at the four hnet-nucls level shapes in one launch
@@ -122,8 +139,9 @@ import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from hd_yolo_tpu_torch import kernels, load_cfg  # noqa: E402
+from hd_yolo_tpu_torch import kernels, load_cfg, serving  # noqa: E402
 from hd_yolo_tpu_torch.detector import Detector  # noqa: E402
+from hd_yolo_tpu_torch.engines import evaluate, val  # noqa: E402
 from hd_yolo_tpu_torch.hnet import HNet  # noqa: E402
 from hd_yolo_tpu_torch.models import detect_head  # noqa: E402
 from hd_yolo_tpu_torch.models.detect_head import MaskHead  # noqa: E402
@@ -1683,6 +1701,291 @@ def phase_slide_reference():
     need(total >= 10 and matched >= 0.98 * total, msg)
 
 
+# ---------------------------------------------------------------- val, export, serving
+VAL_BATCHES, VAL_BATCH = 4, 8
+
+
+def flagship_defaults(seed_input: int, batch: int, per_tile: float):
+    """``Detector()`` at its defaults (per-image mask branch) with seeded
+    weights calibrated on a seeded uint8 batch: the class biases raised by 6
+    (random weights put the class logits near their prior, so the
+    hierarchical class score, class x objectness, stays under
+    ``conf_thres`` and nearly every label would be −100, which the meter
+    ignores), the objectness to ~``per_tile`` detections a tile, and the
+    mask logits so 95% of the mask pixels clear 0.5."""
+    det = Detector("yolov5l6-mask", "hyp-nuclei", device="cuda", seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(seed_input)
+    x = torch.randint(0, 256, (batch, 640, 640, 3), generator=gen, device="cuda",
+                      dtype=torch.uint8)
+    with torch.no_grad():
+        for h in det.model.headers.values():
+            for conv in h.m:
+                conv.bias.view(h.na, h.no)[:, 5:] += 6.0
+    frac, n = calibrate_detections(det, x, per_tile)
+    # random weights put the mask logits around 0: a small box's pasted mask
+    # can round to nothing at 0.5, and an empty mask matches nothing (IoU 0);
+    # shift the logits so 95% of the mask pixels clear 0.5
+    out = det.tiles(x)["detSC"]
+    p = out["masks"][out["mask_valid"]].float().clamp(1e-6, 1 - 1e-6)
+    q = float(torch.quantile(torch.logit(p).flatten()[:2 ** 24], 0.05))
+    for h in det.model.headers.values():
+        h.seg_h.maskrcnn_preds.mask_fcn_logits.bias.sub_(q)
+    log(f"  objectness calibrated: {frac:.2e} of anchors clear conf_thres, {n:.1f} valid "
+        f"detections a tile on the first batch; mask logits shifted by {-q:.3f}")
+    return det, gen, x
+
+
+def val_targets(out, size: int = 640):
+    """The card's detections of one batch as padded val targets: boxes
+    normalized to [0, 1], labels, ``valid``, and the 28x28 masks of the
+    first 100 slots (zeros past them: an image with more detections than
+    mask slots gets no masks from the model, and ``val.run`` scores it by
+    box IoU, as the JAX loop does)."""
+    masks = torch.zeros(out["boxes"].shape[:2] + out["masks"].shape[2:], device=out["masks"].device)
+    masks[:, :out["masks"].shape[1]] = out["masks"]
+    return {"boxes": (out["boxes"].float() / size).cpu().numpy(),
+            "labels": out["labels"].cpu().numpy().astype(np.int64),
+            "masks": masks.cpu().numpy(), "valid": out["valid"].cpu().numpy()}
+
+
+@torch.no_grad()
+def phase_val():
+    """``engines/val.run`` on the flagship at its defaults: 4 batches of 8 x
+    640 seeded noise tiles (host uint8, as a loader ships them) whose targets
+    are the card's own first-pass detections; box and mask mAP@0.5 >= 0.99
+    (101-point AP of a perfect curve is 0.995: its last grid point reads the
+    envelope's closing 0), launches a batch 1 of each kernel."""
+    det, gen, x0 = flagship_defaults(11, VAL_BATCH, 40.0)
+    data = []
+    for b in range(VAL_BATCHES):
+        x = x0 if b == 0 else torch.randint(0, 256, x0.shape, generator=gen, device="cuda",
+                                            dtype=torch.uint8)
+        data.append((x.cpu().numpy(), {"detSC": val_targets(det.tiles(x)["detSC"])}))
+    labels = np.concatenate([t["detSC"]["labels"][t["detSC"]["valid"]] for _, t in data])
+    classes = {int(c): int(n) for c, n in zip(*np.unique(labels, return_counts=True))}
+    over = sum(int((t["detSC"]["valid"].sum(1) > 100).sum()) for _, t in data)
+    log(f"  targets: {len(labels)} detections in {VAL_BATCHES * VAL_BATCH} tiles, labels {classes}; "
+        f"{over} tiles with more than 100 (no masks: scored by box IoU in the masks run)")
+    need(sum(n for c, n in classes.items() if c > 0) >= 100, "too few labelled targets")
+    val.run(det.model, iter(data[:1]), compute_masks=True, verbose=False)       # warm-up
+    torch.cuda.synchronize()
+    res, launches = {}, None
+    for iou_type in ("boxes", "masks"):
+        kernels.reset_launches()
+        fit, stats, times = val.run(det.model, iter(data), compute_masks=True, iou_type=iou_type,
+                                    input_size=640, verbose=False)
+        torch.cuda.synchronize()
+        if launches is None:
+            launches = dict(kernels.LAUNCHES)
+        s = stats["detSC"]
+        res[iou_type] = dict(map50=float(s["map50"]), map=float(s["map"]),
+                             fitness=float(fit), ms_per_image=dict(zip(
+                                 ("data", "inference", "metrics"), times)))
+        log(f"  val.run iou_type={iou_type}: mAP@0.5 {s['map50']:.4f} (need >= 0.99), "
+            f"mAP@.5:.95 {s['map']:.4f}, fitness {fit:.4f}; ms per image: data {times[0]:.2f}, "
+            f"inference {times[1]:.2f}, metrics {times[2]:.2f}")
+        need(s["map50"] >= 0.99, f"val {iou_type} mAP@0.5 {s['map50']} on its own detections")
+    per_batch = {k: launches[k] / VAL_BATCHES for k in FLAGSHIP_KERNELS + ("stem",)}
+    log(f"  launches a batch (iou_type boxes, {VAL_BATCHES} batches): {per_batch}")
+    for k, n in (("stem_tc", 1), ("stem", 0), ("nms", 1), ("roi_align", 1), ("mask_head", 1)):
+        need(per_batch[k] == n, f"val: kernel {k} launched {per_batch[k]} times a batch, not {n}")
+    return launches, res
+
+
+def op_host_times(det, x) -> dict:
+    """Host microseconds a call of each flagship kernel, at the shapes one
+    ``Detector.tiles`` batch gives it: the ``torch.library`` op (what the
+    wrappers call) and the bare ``ctypes`` launch function it wraps (what
+    they called before), in turns, 200 enqueues each, no sync inside."""
+    pairs = {"stem_tc": (pallas_stem, "stem_tc_op", pallas_stem._launch_tc),
+             "nms": (pallas_nms, "nms_keep_op", pallas_nms._launch),
+             "roi_align": (pallas_roi_align, "roi_align_bounded_op",
+                           pallas_roi_align._launch_bounded),
+             "mask_head": (pallas_mask_head, "mask_head_op", pallas_mask_head._launch)}
+    args, orig = {}, {}
+    for k, (mod, name, _) in pairs.items():
+        orig[k] = getattr(mod, name)
+
+        def spy(*a, _k=k):
+            args[_k] = a
+            return orig[_k](*a)
+
+        setattr(mod, name, spy)
+    try:
+        det.tiles(x)
+    finally:
+        for k, (mod, name, _) in pairs.items():
+            setattr(mod, name, orig[k])
+    torch.cuda.synchronize()
+    out = {}
+    for k, (_, _, launch) in pairs.items():
+        a, op = args[k], orig[k]
+        t = {"op": [], "ctypes": []}
+        for _ in range(3):
+            t["op"].append(host_us(lambda: op(*a)))
+            t["ctypes"].append(host_us(lambda: launch(*a)))
+        out[k] = {"op_us": statistics.median(t["op"]), "ctypes_us": statistics.median(t["ctypes"])}
+    return out
+
+
+@torch.no_grad()
+def phase_export():
+    """``evaluate.inference_on_loader`` at batch 16 (images/s); ``export``
+    of the same model at (16, 640, 640, 3), loaded in this process: the
+    graph calls each of the four kernels once, one run of the program
+    launches each once, its outputs equal the eager forward's bit for bit;
+    the program and ``Detector.tiles`` timed in turns and each profiled;
+    each custom op's host time a call beside the bare ``ctypes`` launch."""
+    import tempfile
+
+    det, gen, x = flagship_defaults(12, 16, 40.0)
+    fwd = lambda t, compute_masks=True: det.model(t, compute_masks=compute_masks)  # noqa: E731
+    host = [torch.randint(0, 256, x.shape, generator=gen, device="cuda", dtype=torch.uint8)
+            .cpu().numpy() for _ in range(4)]
+    loader = lambda: ((b, [(640, 640)] * 16) for b in host)  # noqa: E731
+    evaluate.inference_on_loader(fwd, loader(), device="cuda")                    # warm-up
+    kernels.reset_launches()
+    res = evaluate.inference_on_loader(fwd, loader(), device="cuda")
+    loader_launches = dict(kernels.LAUNCHES)
+    n_det = sum(len(r["detSC"]["boxes"]) for r in res["outputs"])
+    ips = 1.0 / res["time_per_image"]
+    log(f"  inference_on_loader, 4 batches of 16 (host uint8 in, host records out): "
+        f"{ips:.1f} images/s ({res['time_per_image'] * 1e3:.3f} ms an image), {n_det} "
+        f"detections; launches {loader_launches}")
+    need(len(res["outputs"]) == 64 and n_det > 0, "inference_on_loader returned no detections")
+
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        path = evaluate.export(det.model, tuple(x.shape), os.path.join(d, "flagship.pt2"))
+        t_export = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        program = evaluate.load_exported(path)
+        t_load = time.perf_counter() - t0
+    calls = evaluate.kernel_calls(program)
+    log(f"  export at {tuple(x.shape)}: {t_export:.1f} s (eager warm-up, trace, save), "
+        f"{size / 2**20:.1f} MiB; load {t_load:.1f} s; custom-op calls in the graph {calls}")
+    need(calls == {"stem_tc": 1, "nms_keep": 1, "roi_align_bounded": 1, "mask_head": 1},
+         f"the exported graph does not call each flagship kernel once: {calls}")
+    want = det.tiles(x)
+    program(x)                                                                     # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    got = program(x)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    log(f"  launches of one exported-program run: {launches}")
+    for k, n in (("stem_tc", 1), ("stem", 0), ("nms", 1), ("roi_align", 1), ("mask_head", 1)):
+        need(launches[k] == n, f"exported program: kernel {k} launched {launches[k]} times, not {n}")
+    diffs = {k: float((got["detSC"][k].float() - v.float()).abs().max())
+             for k, v in want["detSC"].items()}
+    same = all(torch.equal(got["detSC"][k], v) for k, v in want["detSC"].items())
+    log(f"  exported outputs vs eager: bit-identical {same}; max |d| {diffs}; "
+        f"{int(want['detSC']['valid'].sum())} detections, {int(want['detSC']['mask_valid'].sum())} masks")
+    need(same, "the exported program's outputs differ from the eager forward's")
+
+    times = {"exported": [], "eager": []}
+    for _ in range(2):
+        program(x)
+        det.tiles(x)
+    for _ in range(10):
+        for name, step in (("exported", lambda: program(x)), ("eager", lambda: det.tiles(x))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+    step = {k: statistics.median(v) * 1e3 for k, v in times.items()}
+    log(f"  batch-16 step in turns, median of 10: exported {step['exported']:.2f} ms "
+        f"(min {min(times['exported']) * 1e3:.2f}, max {max(times['exported']) * 1e3:.2f}), eager "
+        f"Detector.tiles {step['eager']:.2f} ms (min {min(times['eager']) * 1e3:.2f}, max "
+        f"{max(times['eager']) * 1e3:.2f})")
+    log("  profiled exported-program step:")
+    profile_step(lambda: program(x))
+    log("  profiled eager Detector.tiles step (same model and batch):")
+    profile_step(lambda: det.tiles(x))
+    hosts = op_host_times(det, x)
+    added = sum(v["op_us"] - v["ctypes_us"] for v in hosts.values())
+    for k, v in hosts.items():
+        log(f"  host time a call, {k}: custom op {v['op_us']:.1f} us, bare ctypes launch "
+            f"{v['ctypes_us']:.1f} us (+{v['op_us'] - v['ctypes_us']:.1f})")
+    log(f"  the registration adds {added:.1f} us of host time a flagship step "
+        f"({added / 1e3 / step['eager'] * 100:.2f}% of the eager step)")
+    info = dict(images_per_s=ips, export_s=t_export, load_s=t_load, file_mib=size / 2**20,
+                exported_ms=step["exported"], eager_ms=step["eager"], host_us=hosts)
+    return launches, loader_launches, info
+
+
+@torch.no_grad()
+def phase_serving():
+    """``serving._respond`` on a 640 tile and a 1500 x 1500 slide: records
+    equal a direct ``Detector`` call's; an HTTP round trip through
+    ``ThreadingHTTPServer`` on 127.0.0.1 where ``cv2`` imports; latency a
+    request."""
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    det, _, _ = flagship_defaults(13, 1, 40.0)
+    serving._detector = det
+    rng = np.random.default_rng(13)
+    tile = rng.integers(0, 256, (640, 640, 3), dtype=np.uint8)
+    slide = rng.integers(0, 256, (1500, 1500, 3), dtype=np.uint8)
+    serving._respond(tile, False, None)                                           # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    code, rows = serving._respond(tile, False, None)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    need(code == 200 and rows == det(tile).to_records() and len(rows) > 0,
+         "serving: the tile's records differ from a direct Detector call's")
+    code_s, rows_s = serving._respond(slide, True, None)
+    need(code_s == 200 and rows_s == det.slide(slide, mask_uint8=True).to_records()
+         and len(rows_s) > 0, "serving: the slide's records differ from a direct Detector.slide's")
+    log(f"  _respond: tile {len(rows)} records, slide {len(rows_s)} records, both equal a direct "
+        f"call's; launches of one tile request {launches}")
+    lat = {"tile": [], "slide": []}
+    for _ in range(5):
+        for name, (img, is_slide) in (("tile", (tile, False)), ("slide", (slide, True))):
+            t0 = time.perf_counter()
+            serving._respond(img, is_slide, None)
+            lat[name].append(time.perf_counter() - t0)
+    info = {f"{k}_ms": statistics.median(v) * 1e3 for k, v in lat.items()}
+    log(f"  _respond latency, median of 5: tile {info['tile_ms']:.2f} ms, 1500x1500 slide "
+        f"{info['slide_ms']:.2f} ms")
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    log(f"  cv2 importable: {cv2 is not None}")
+    if cv2 is not None:
+        server = ThreadingHTTPServer(("127.0.0.1", 0), serving.Handler)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            url = f"http://127.0.0.1:{server.server_address[1]}"
+            with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+                need(json.load(r) == {"status": "ok"}, "serving: /healthz")
+            body = cv2.imencode(".png", cv2.cvtColor(tile, cv2.COLOR_RGB2BGR))[1].tobytes()
+            http_lat = []
+            for _ in range(6):
+                req = urllib.request.Request(url + "/v1/object-detection/hd_yolo", data=body,
+                                             headers={"Content-Type": "image/png"})
+                t0 = time.perf_counter()
+                with urllib.request.urlopen(req, timeout=120) as r:
+                    payload = json.load(r)
+                http_lat.append(time.perf_counter() - t0)
+            need(payload == json.loads(json.dumps(rows)), "serving: HTTP records differ")
+            info["http_tile_ms"] = statistics.median(http_lat[1:]) * 1e3
+            log(f"  HTTP round trip (PNG tile, {len(payload)} records, equal to _respond's): "
+                f"median {info['http_tile_ms']:.2f} ms over 5 requests after a warm-up")
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+    return launches, info
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1753,9 +2056,18 @@ def main(argv=None) -> int:
     slide_launches = phase_slide(5)
     log("[10] slide reference check on a small slide")
     phase_slide_reference()
+    log("[11] val: engines/val.run on the flagship at its defaults, 4 batches of 8 x 640, bf16")
+    val_launches, val_res = phase_val()
+    log("[12] evaluate and export: inference_on_loader at batch 16, torch.export at "
+        "(16, 640, 640, 3)")
+    export_launches, loader_launches, export_info = phase_export()
+    log("[13] serving: the request path on the flagship at its defaults")
+    serving_launches, serving_info = phase_serving()
+    log("  " + json.dumps({"val": val_res, "export": export_info, "serving": serving_info}))
 
     paths = {"flagship": launches, "defaults": default_launches, "hnet": hnet_launches,
-             "lab": lab_launches, "slide": slide_launches}
+             "lab": lab_launches, "slide": slide_launches, "val": val_launches,
+             "loader": loader_launches, "export": export_launches, "serving": serving_launches}
     main_path = {k: "flagship" for k in FLAGSHIP_KERNELS}
     main_path.update(roi_align_single="hnet", stem_k108="lab", stem_dot108="lab", stem="lab")
     results["nms"]["stitch"] = stitch

@@ -44,3 +44,19 @@ def letterbox_batch(images: Tensor, size: Tuple[int, int], fill: float = 114 / 2
     out = torch.full((B, th, tw, C), fill, dtype=torch.float32, device=images.device)
     out[:, top: top + nh, left: left + nw] = x.permute(0, 2, 3, 1)
     return out, gain, (pad_x, pad_y)
+
+
+def model_input(images, size: Optional[int], device) -> Tensor:
+    """A loader batch (B, H, W, C), uint8 or float, as the model's float32
+    input on ``device``: an integer batch divided by 255, then resized to
+    ``size`` x ``size`` (``None``: kept) bilinearly with half-pixel centers,
+    antialiased along an axis it shrinks — ``jax.image.resize(...,
+    'bilinear')``, as the JAX package's validation and evaluation resize."""
+    x = torch.as_tensor(images).to(device)
+    x = x.float() / 255.0 if not x.is_floating_point() else x.float()
+    B, H, W, C = x.shape
+    if size is None or (H, W) == (size, size):
+        return x
+    y = F.interpolate(x.permute(0, 3, 1, 2), size=(size, size), mode="bilinear",
+                      align_corners=False, antialias=size < H or size < W)
+    return y.permute(0, 2, 3, 1).contiguous()

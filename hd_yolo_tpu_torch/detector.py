@@ -1,11 +1,12 @@
 """User-facing inference API (port of ``hd_yolo_tpu/detector.py``): accept
 numpy/PIL/path inputs of any size, letterbox to the model frame, run the
-model on the card, rescale boxes back, export records or a DataFrame.
+model on the card, rescale boxes back, export records or a DataFrame, and
+draw them (``Detections.render``).
 
 ``Detector(..., device="cuda")`` is the default and raises when CUDA is
 missing; pass ``device="cpu"`` to run the plain PyTorch versions of the
 kernels on the CPU.  ``Detector.slide`` runs tiled whole-slide inference
-with the stitched global NMS.  ``Detections.render`` is not ported yet.
+with the stitched global NMS.
 """
 
 from __future__ import annotations
@@ -16,9 +17,9 @@ import numpy as np
 import torch
 
 from .data.preproc import letterbox_batch, normalize
+from .engines.checkpoint import load_inference
 from .models.yolo import Model
 from .ops.boxes import scale_coords
-from .utils.convert import load_weights
 
 
 class Detections:
@@ -57,6 +58,19 @@ class Detections:
 
         return pd.DataFrame(self.to_records(task))
 
+    def render(self, i: int = 0, task: Optional[str] = None) -> np.ndarray:
+        """Image ``i`` with its boxes, labels, scores and in-box masks drawn
+        (``engines/plots.overlay_detections``, OpenCV)."""
+        from .engines.plots import overlay_detections
+
+        rec = self.records[i]
+        t = task or next(iter(rec))
+        o = rec[t]
+        return overlay_detections(
+            self.images[i], o["boxes"], o["labels"], o["scores"], o.get("masks"),
+            labels_text=self.labels_text,
+        )
+
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
     """``device`` as a ``torch.device``; raises for CUDA when no card is there."""
@@ -70,8 +84,10 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
 class Detector:
     """Any-input inference wrapper around a model.
 
-    Weights: ``weights`` names a ``.pt`` state_dict (this package's or the
-    reference's) or a pickled flax ``{'params', 'batch_stats'}`` tree; without
+    Weights: ``weights`` names an inference checkpoint
+    (``engines/checkpoint.load_inference``: a ``.pt`` state_dict, this
+    package's or the reference's, or a pickled flax
+    ``{'params', 'batch_stats'}`` tree); without
     it the model gets seeded random weights (``seed``).  ``dtype`` is the
     compute dtype (bf16 by default); parameters stay f32 masters.
     ``mask_budget`` None (the default, as the JAX ``Model``) runs the
@@ -92,7 +108,7 @@ class Detector:
         self.model = Model.from_cfg(cfg, hyp, dtype=dtype, mask_budget=mask_budget,
                                     **model_kwargs)
         if weights:
-            load_weights(self.model, weights)
+            load_inference(weights, self.model)
         else:
             self.model.reset_parameters(torch.Generator().manual_seed(seed))
         self.model.eval().to(self.device)

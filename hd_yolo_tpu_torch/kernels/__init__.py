@@ -12,6 +12,11 @@ and returns ``cudaGetLastError()``; :func:`check` raises on a non-zero code.
 ``LAUNCHES`` counts, per kernel, the wrapper calls that launched it.  Nothing
 here imports torch's CUDA runtime or runs ``nvcc`` at import time: the CPU
 tests import every module.
+
+:func:`register_op` makes a launch function the CUDA kernel of a
+``torch.library`` op ``hd_yolo_tpu_torch::<name>`` with a fake
+implementation of its outputs, so ``torch.export`` keeps the launch as one
+call in its graph.
 """
 
 from __future__ import annotations
@@ -68,6 +73,21 @@ _SIGNATURES = {
     "mask_head_smem_bytes": ("mask_head", []),
     "stem_tc_smem_bytes": ("stem_tc", [_I, _I, _I]),
 }
+
+
+def register_op(name: str, schema: str, launch, fake):
+    """Define the functional op ``hd_yolo_tpu_torch::<name>(schema)``, with
+    ``launch`` as its CUDA kernel and ``fake`` giving its outputs' shapes
+    and dtypes; returns its ``OpOverload``.  (``torch.library.define`` /
+    ``impl`` rather than ``custom_op``: the latter's Python autograd and
+    dispatch layers cost ~4x the host time a call, on a host-bound path.)"""
+    import torch
+
+    qualname = f"hd_yolo_tpu_torch::{name}"
+    torch.library.define(qualname, schema)
+    torch.library.impl(qualname, "cuda", launch)
+    torch.library.register_fake(qualname, fake)
+    return getattr(torch.ops.hd_yolo_tpu_torch, name).default
 
 
 def reset_launches() -> None:

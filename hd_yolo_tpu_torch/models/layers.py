@@ -37,9 +37,19 @@ def cached(module: nn.Module, name: str, sources, make):
     """``make()``, computed once per state of the ``sources`` tensors: an
     in-place update (``load_state_dict``, ``copy_``) bumps a tensor's version
     and a move to another device changes its address, so either recomputes.
-    The result is kept on the module, outside its ``state_dict``."""
-    key = tuple((t.data_ptr(), t._version) for t in sources)
+    The result is kept on the module, outside its ``state_dict``.
+
+    Under ``torch.export`` the sources are fake tensors with no address: the
+    value of the last eager call is used as it is, and enters the graph as a
+    constant (``engines/evaluate.export`` runs one eager call first); with
+    none cached yet it is computed in the graph."""
     hit = module.__dict__.get("_cached_" + name)
+    if torch.compiler.is_compiling():
+        if hit is not None:
+            return hit[1]
+        with torch.no_grad():
+            return make()
+    key = tuple((t.data_ptr(), t._version) for t in sources)
     if hit is None or hit[0] != key:
         with torch.no_grad():
             hit = (key, make())

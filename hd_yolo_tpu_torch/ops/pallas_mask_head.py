@@ -11,6 +11,13 @@ function with the same rounding points: each GEMM on compute-dtype
 operands with f32 accumulation, the accumulator rounded to the compute
 dtype before the bias add, the selected-logit dot in f32.
 
+The kernel is the ``torch.library`` op ``hd_yolo_tpu_torch::mask_head``
+(the ``ctypes`` launch in its body, a fake implementation of its output
+shape), so ``torch.export`` keeps it as one call in the graph; eager calls
+on the card go through the same op.  Its packed weights are derived once
+per weight state (``models/layers.cached``); under export the packed
+tensors of the last eager call enter the graph as constants.
+
 Deconv weights: the reference layout ``conv5_mask.weight`` (I, O, 2, 2)
 gives ``out[2i+dy, 2j+dx] = x[i, j] · W[:, :, dy, dx]`` — the flax kernel
 already flipped back by ``utils/convert.py``.
@@ -137,6 +144,11 @@ def fused_mask_probs(head, pooled: Tensor, labels: Tensor, active: Optional[Tens
         active = active.to(torch.int64).reshape(())  # the packed branch's sum is int64 already
         tensors.append(active)
     kernels.require_cuda(*tensors)
+    return mask_head_op(pooled, stream, bf, bd, wl, bl, labels, active)
+
+
+def _launch(pooled, stream, bf, bd, wl, bl, labels, active) -> Tensor:
+    N, M = pooled.shape[:2]
     out = torch.empty((N, 2 * M, 2 * M), dtype=torch.float32, device=pooled.device)
     dev, stream_handle = kernels.device_and_stream(pooled)
     code = kernels.fn("mask_head")(
@@ -146,3 +158,13 @@ def fused_mask_probs(head, pooled: Tensor, labels: Tensor, active: Optional[Tens
     kernels.check(code, "mask_head")
     kernels.LAUNCHES["mask_head"] += 1
     return out
+
+
+def _fake(pooled, stream, bf, bd, wl, bl, labels, active):
+    N, M = pooled.shape[:2]
+    return pooled.new_empty((N, 2 * M, 2 * M), dtype=torch.float32)
+
+
+mask_head_op = kernels.register_op(
+    "mask_head", "(Tensor pooled, Tensor stream, Tensor bf, Tensor bd, Tensor wl, Tensor bl, "
+                 "Tensor labels, Tensor? active) -> Tensor", _launch, _fake)

@@ -5,7 +5,10 @@
 returns the compacted ``(positions int32, keep bool)``: on a CUDA tensor it
 launches the kernel, on a CPU tensor it runs the plain version
 (``ops/nms.py`` ``greedy_keep`` + ``compact``).  Both are exact greedy NMS
-and agree bit for bit.
+and agree bit for bit.  The kernel is the ``torch.library`` op
+``hd_yolo_tpu_torch::nms_keep`` (the ``ctypes`` launch in its body, a fake
+implementation of its output shapes), so ``torch.export`` keeps it as one
+call in the graph; eager calls on the card go through the same op.
 """
 
 from __future__ import annotations
@@ -42,11 +45,16 @@ def nms_keep_sorted(sboxes: Tensor, svalid: Tensor, iou_threshold: float,
     if svalid.dtype != torch.bool or svalid.shape != (B, K):
         raise ValueError(f"nms kernel takes a ({B}, {K}) bool valid mask, got "
                          f"{tuple(svalid.shape)} {svalid.dtype}")
-    if not sboxes.is_contiguous() or sboxes.data_ptr() % 16:   # read as float4s
-        sboxes = sboxes.contiguous().clone()
-    if not svalid.is_contiguous():
-        svalid = svalid.contiguous()
+    sboxes, svalid = sboxes.contiguous(), svalid.contiguous()
     kernels.require_cuda(sboxes, svalid)
+    return nms_keep_op(sboxes, svalid, float(iou_threshold), int(max_det))
+
+
+def _launch(sboxes: Tensor, svalid: Tensor, iou_threshold: float,
+            max_det: int) -> Tuple[Tensor, Tensor]:
+    B, K = sboxes.shape[:2]
+    if sboxes.data_ptr() % 16:                    # read as float4s
+        sboxes = sboxes.clone()
     if B == 0 or K == 0:
         return (torch.zeros((B, max_det), dtype=torch.int32, device=sboxes.device),
                 torch.zeros((B, max_det), dtype=torch.bool, device=sboxes.device))
@@ -60,6 +68,17 @@ def nms_keep_sorted(sboxes: Tensor, svalid: Tensor, iou_threshold: float,
     kernels.check(code, "nms_keep")
     kernels.LAUNCHES["nms"] += 1
     return idx, keep
+
+
+def _fake(sboxes, svalid, iou_threshold, max_det):
+    B = sboxes.shape[0]
+    return (sboxes.new_empty((B, max_det), dtype=torch.int32),
+            sboxes.new_empty((B, max_det), dtype=torch.bool))
+
+
+nms_keep_op = kernels.register_op(
+    "nms_keep", "(Tensor sboxes, Tensor svalid, float iou_threshold, int max_det) "
+                "-> (Tensor, Tensor)", _launch, _fake)
 
 
 def nms_padded_pallas(boxes: Tensor, scores: Tensor, valid: Tensor, iou_threshold: float,

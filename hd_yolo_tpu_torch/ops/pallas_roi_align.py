@@ -37,6 +37,13 @@ bf16 it equals the plain version bit for bit at every shape the main path,
 hnet and the checks give it (a bin's f32 sums there never depend on order).
 In f32 the sums of more than two taps may run in another order than the
 plain version's matrix products, so f32 agrees to ~1e-5.
+
+The bounded kernel is the ``torch.library`` op
+``hd_yolo_tpu_torch::roi_align_bounded`` (the ``ctypes`` launch in its body,
+a fake implementation of its output shape), so ``torch.export`` keeps it as
+one call in the graph of the yolo forward; eager calls on the card go
+through the same op.  ``roi_align_levels`` (hnet's pyramid, not on an
+exported path) stays a plain ``ctypes`` wrapper.
 """
 
 from __future__ import annotations
@@ -124,10 +131,7 @@ def roi_align_bounded(levels: Sequence[Tensor], meta: Tensor, ys: Tensor, xs: Te
         raise ValueError(f"roi_align kernel takes meta/bounds ({K}, 4) and ys/xs ({K}, {M * n}), "
                          f"got {tuple(meta.shape)} {tuple(bounds.shape)} {tuple(ys.shape)} "
                          f"{tuple(xs.shape)}")
-    # the main path's maps are contiguous and 512-byte aligned already; the
-    # kernel reads 16-byte vectors
-    levels = [f if f.is_contiguous() and f.data_ptr() % 16 == 0 else f.contiguous().clone()
-              for f in levels]
+    levels = [f.contiguous() for f in levels]
     meta, ys, xs, bounds = (_dense(meta, torch.int32), _dense(ys, torch.float32),
                             _dense(xs, torch.float32), _dense(bounds, torch.float32))
     tensors = [*levels, meta, ys, xs, bounds]
@@ -137,6 +141,17 @@ def roi_align_bounded(levels: Sequence[Tensor], meta: Tensor, ys: Tensor, xs: Te
             active = active.reshape(())
         tensors.append(active)
     kernels.require_cuda(*tensors)
+    return roi_align_bounded_op(levels, meta, ys, xs, bounds, int(window[0]), int(window[1]),
+                                int(M), int(n), active)
+
+
+def _launch_bounded(levels, meta, ys, xs, bounds, win_h: int, win_w: int, M: int, n: int,
+                    active: Optional[Tensor]) -> Tensor:
+    f0 = levels[0]
+    K, C, dtype = meta.shape[0], f0.shape[-1], f0.dtype
+    # the main path's maps are 512-byte aligned already; the kernel reads
+    # 16-byte vectors
+    levels = [f if f.data_ptr() % 16 == 0 else f.clone() for f in levels]
     table = (ctypes.c_longlong * (4 * len(levels)))(*[
         v for f, off in zip(levels, level_offsets(levels))
         for v in (f.data_ptr(), f.shape[1], f.shape[2], off)])
@@ -145,10 +160,20 @@ def roi_align_bounded(levels: Sequence[Tensor], meta: Tensor, ys: Tensor, xs: Te
     code = kernels.fn("roi_align_bounded")(
         ctypes.addressof(table), len(levels), meta.data_ptr(), ys.data_ptr(), xs.data_ptr(),
         bounds.data_ptr(), None if active is None else active.data_ptr(), out.data_ptr(), K, C,
-        int(window[0]), int(window[1]), M, n, 1 if dtype == torch.bfloat16 else 0, dev, stream)
+        win_h, win_w, M, n, 1 if dtype == torch.bfloat16 else 0, dev, stream)
     kernels.check(code, "roi_align_bounded")
     kernels.LAUNCHES["roi_align"] += 1
     return out
+
+
+def _bounded_fake(levels, meta, ys, xs, bounds, win_h, win_w, M, n, active):
+    return levels[0].new_empty((meta.shape[0], M, M, levels[0].shape[-1]))
+
+
+roi_align_bounded_op = kernels.register_op(
+    "roi_align_bounded", "(Tensor[] levels, Tensor meta, Tensor ys, Tensor xs, Tensor bounds, "
+                         "int win_h, int win_w, int M, int n, Tensor? active) -> Tensor",
+    _launch_bounded, _bounded_fake)
 
 
 def roi_align_levels_plain(features: Sequence[Tensor], rois: Tensor, sizes: Sequence[int],

@@ -17,6 +17,12 @@ the family launch the direct kernel ``stem``.
 column 2ox-2 on, contiguous in the image — against the (6, 6, 3, N) weight
 seen as (108, N), both rounded to bf16 (the kernel rounds them as it
 stages them).
+
+Each kernel is a ``torch.library`` op (``hd_yolo_tpu_torch::stem_tc``,
+``hd_yolo_tpu_torch::stem``) whose body is the ``ctypes`` launch, with a fake
+implementation of its output shape and dtype, so ``torch.export`` keeps the
+kernel as one call in the graph.  Eager calls on the card go through the
+same ops.
 """
 
 from __future__ import annotations
@@ -53,12 +59,18 @@ def stem_form(x_shape, w_shape, stride: int, padding: int, out_dtype) -> str:
     return "direct"
 
 
-def _launch_direct(x, w, scale, bias, stride, padding, out_dtype, Ho, Wo):
+def _out_hw(x, w, stride: int, padding: int):
+    K = w.shape[0]
+    return ((x.shape[1] + 2 * padding - K) // stride + 1,
+            (x.shape[2] + 2 * padding - K) // stride + 1)
+
+
+def _launch_direct(x, w, scale, bias, stride, padding, out_dtype):
     B, H, W, C = x.shape
     K, N = w.shape[0], w.shape[-1]
+    Ho, Wo = _out_hw(x, w, stride, padding)
     cd = torch.bfloat16 if out_dtype == torch.bfloat16 else torch.float32
     wk = w.to(cd).float().contiguous()            # weights rounded like the plain version
-    kernels.require_cuda(x, wk, scale, bias)
     y = torch.empty((B, Ho, Wo, N), dtype=out_dtype, device=x.device)
     dev, stream = kernels.device_and_stream(x)
     code = kernels.fn("stem_conv")(
@@ -70,13 +82,13 @@ def _launch_direct(x, w, scale, bias, stride, padding, out_dtype, Ho, Wo):
     return y
 
 
-def _launch_tc(x, w, scale, bias, Ho, Wo):
+def _launch_tc(x, w, scale, bias):
     B, H, W, _ = x.shape
     N = w.shape[-1]
+    Ho, Wo = _out_hw(x, w, 2, 2)
     if x.data_ptr() % 16:                         # its 16-byte row copies need an aligned image
         x = x.clone()
     wk = w.float().contiguous()                   # rounded to bf16 as the kernel stages it
-    kernels.require_cuda(x, wk, scale, bias)
     y = torch.empty((B, Ho, Wo, N), dtype=torch.bfloat16, device=x.device)
     dev, stream = kernels.device_and_stream(x)
     code = kernels.fn("stem_tc")(x.data_ptr(), wk.data_ptr(), scale.data_ptr(), bias.data_ptr(),
@@ -84,6 +96,26 @@ def _launch_tc(x, w, scale, bias, Ho, Wo):
     kernels.check(code, "stem_tc")
     kernels.LAUNCHES["stem_tc"] += 1
     return y
+
+
+def _stem_tc_fake(x, w, scale, bias):
+    return x.new_empty((x.shape[0], *_out_hw(x, w, 2, 2), w.shape[-1]), dtype=torch.bfloat16)
+
+
+def _stem_fake(x, w, scale, bias, stride, padding, out_bf16):
+    return x.new_empty((x.shape[0], *_out_hw(x, w, stride, padding), w.shape[-1]),
+                       dtype=torch.bfloat16 if out_bf16 else torch.float32)
+
+
+stem_tc_op = kernels.register_op(
+    "stem_tc", "(Tensor x, Tensor w, Tensor scale, Tensor bias) -> Tensor", _launch_tc,
+    _stem_tc_fake)
+stem_op = kernels.register_op(
+    "stem", "(Tensor x, Tensor w, Tensor scale, Tensor bias, int stride, int padding, "
+            "bool out_bf16) -> Tensor",
+    lambda x, w, scale, bias, stride, padding, out_bf16: _launch_direct(
+        x, w, scale, bias, stride, padding, torch.bfloat16 if out_bf16 else torch.float32),
+    _stem_fake)
 
 
 def stem_conv(x: Tensor, w: Tensor, scale: Tensor, bias: Tensor, *, stride: int, padding: int,
@@ -105,10 +137,9 @@ def stem_conv(x: Tensor, w: Tensor, scale: Tensor, bias: Tensor, *, stride: int,
     if form not in ("tc", "direct") or (form == "tc" and auto != "tc"):
         raise ValueError(f"stem form {form!r} cannot take x {tuple(x.shape)}, w {tuple(w.shape)}, "
                          f"stride {stride}, padding {padding}, out {out_dtype}")
-    Ho = (H + 2 * padding - K) // stride + 1
-    Wo = (W + 2 * padding - K) // stride + 1
-    x = x.contiguous()
+    x, w = x.contiguous(), w.contiguous()
     scale, bias = scale.float().contiguous(), bias.float().contiguous()
+    kernels.require_cuda(x, w, scale, bias)
     if form == "tc":
-        return _launch_tc(x, w, scale, bias, Ho, Wo)
-    return _launch_direct(x, w, scale, bias, stride, padding, out_dtype, Ho, Wo)
+        return stem_tc_op(x, w, scale, bias)
+    return stem_op(x, w, scale, bias, stride, padding, out_dtype == torch.bfloat16)

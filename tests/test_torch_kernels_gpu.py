@@ -420,3 +420,83 @@ def test_kernels_raise_on_what_they_do_not_take(cuda):
         stem_lab.dot108(torch.zeros((5, 112), dtype=torch.bfloat16, device="cuda"),
                         torch.zeros((112, 64), dtype=torch.bfloat16, device="cuda"),
                         torch.ones(64, device="cuda"), torch.zeros(64, device="cuda"))
+
+
+def test_custom_op_fakes_match_real_outputs(cuda):
+    """Each kernel's ``torch.library`` op: its fake implementation (what
+    ``torch.export`` traces) gives the shape, dtype and device of the
+    kernel's real output."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    ops = torch.ops.hd_yolo_tpu_torch
+    x = torch.rand((2, 64, 96, 3), generator=cuda, device="cuda")
+    w = torch.randn((6, 6, 3, 64), generator=cuda, device="cuda") * 0.1
+    sc = torch.rand(64, generator=cuda, device="cuda") + 0.5
+    bi = torch.randn(64, generator=cuda, device="cuda") * 0.1
+    xy = torch.rand((2, 70, 2), generator=cuda, device="cuda") * 100
+    boxes = torch.cat([xy, xy + 12], -1).contiguous()
+    valid = torch.rand((2, 70), generator=cuda, device="cuda") > 0.2
+    levels = [torch.randn((2, 32 >> i, 32 >> i, 16), generator=cuda, device="cuda")
+              .to(torch.bfloat16) for i in range(3)]
+    K, M, n = 6, 7, 2
+    meta = torch.zeros((K, 4), dtype=torch.int32, device="cuda")
+    ys = torch.rand((K, M * n), generator=cuda, device="cuda") * 16
+    xs = torch.rand((K, M * n), generator=cuda, device="cuda") * 16
+    bounds = torch.tensor([[0.0, 32.0, 0.0, 32.0]], device="cuda").repeat(K, 1)
+    head = _mask_head(2, 3)
+    pooled = torch.randn((5, 14, 14, 256), generator=cuda, device="cuda").to(torch.bfloat16)
+    wf, bf, wd, bd = pallas_mask_head.kernel_weights(head)
+    wl = head.maskrcnn_preds.mask_fcn_logits.weight[:, :, 0, 0].to(torch.bfloat16).contiguous()
+    bl = head.maskrcnn_preds.mask_fcn_logits.bias.float().contiguous()
+    labels = torch.tensor([0, 1, 1, 0, 1], device="cuda")
+    calls = {
+        "stem_tc": (ops.stem_tc, (x, w, sc, bi)),
+        "stem": (ops.stem, (x, w, sc, bi, 2, 2, False)),
+        "nms_keep": (ops.nms_keep, (boxes, valid, 0.45, 30)),
+        "roi_align_bounded": (ops.roi_align_bounded,
+                              (levels, meta, ys, xs, bounds, 32, 32, M, n,
+                               torch.tensor(4, device="cuda"))),
+        "mask_head": (ops.mask_head, (pooled, pallas_mask_head.mask_head_stream(wf, wd), bf, bd,
+                                      wl, bl, labels, None)),
+    }
+    for name, (op, args) in calls.items():
+        with torch.no_grad():
+            real = op(*args)
+        mode = FakeTensorMode()
+        fake_args = [[mode.from_tensor(t) for t in a] if isinstance(a, list)
+                     else mode.from_tensor(a) if torch.is_tensor(a) else a for a in args]
+        with mode:
+            fake = op(*fake_args)
+        real = real if isinstance(real, tuple) else (real,)
+        fake = fake if isinstance(fake, tuple) else (fake,)
+        assert [(r.shape, r.dtype, r.device) for r in real] == \
+            [(f.shape, f.dtype, f.device) for f in fake], name
+
+
+def test_exported_flagship_equals_eager(cuda, tmp_path):
+    """``engines/evaluate.export`` of the flagship (``yolov5l6-mask`` at full
+    width, bf16, the per-image mask branch) at (2, 320, 320, 3): the graph
+    calls each of the four kernels once, the loaded program launches each
+    once, and its outputs equal the eager forward's exactly."""
+    from hd_yolo_tpu_torch.engines import evaluate
+
+    model, fwd = evaluate.build_model("yolov5l6-mask", "hyp-nuclei", device="cuda", seed=0)
+    with torch.no_grad():
+        for h in model.headers.values():             # enough detections to fill the masks
+            for conv in h.m:
+                conv.bias.view(h.na, h.no)[:, 4] += 4.0
+    path = evaluate.export(model, (2, 320, 320, 3), str(tmp_path / "flagship.pt2"))
+    program = evaluate.load_exported(path)
+    want_calls = {"stem_tc": 1, "nms_keep": 1, "roi_align_bounded": 1, "mask_head": 1}
+    assert evaluate.kernel_calls(program) == want_calls
+    x = torch.randint(0, 256, (2, 320, 320, 3), generator=cuda, device="cuda",
+                      dtype=torch.uint8)
+    want = fwd(x)
+    kernels.reset_launches()
+    got = program(x)
+    torch.cuda.synchronize()
+    assert {k: kernels.LAUNCHES[k] for k in ("stem_tc", "stem", "nms", "roi_align", "mask_head")} \
+        == {"stem_tc": 1, "stem": 0, "nms": 1, "roi_align": 1, "mask_head": 1}
+    assert int(want["detSC"]["mask_valid"].sum()) > 0
+    for k, v in want["detSC"].items():
+        assert torch.equal(got["detSC"][k], v), k

@@ -5,8 +5,8 @@ Run from the repo root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py [--only KERNEL,...]
 
-(``--only``: build, run only the named kernels' phase-3 checks and timings,
-and stop without the result lines.)
+(``--only``: build, run only the named kernels' phase-3 checks and timings
+— for ``roi_align_bwd``, phase 14 — and stop without the result lines.)
 
 Phases (any failure raises and the script exits non-zero):
   1. the card: ``nvidia-smi`` name and power limit, ``torch.cuda`` name;
@@ -106,7 +106,26 @@ Phases (any failure raises and the script exits non-zero):
  13. serving: ``serving._respond`` on a 640 tile and a 1500 x 1500 slide
      (records equal a direct ``Detector`` call's), latency a request, and an
      HTTP round trip through ``ThreadingHTTPServer`` on 127.0.0.1 where
-     ``cv2`` imports (whether it does is printed).
+     ``cv2`` imports (whether it does is printed);
+ 14. training: a labelled set of 64 PNG tiles of 640 px (~80 polygons of
+     10-40 px each, four classes) written to a temp dir;
+     ``engines/train.main`` on ``yolov5l6-mask`` at full width and depth,
+     bf16, masks, batch 16 (4 micro-steps an update), 2 epochs: ``last``,
+     ``best``, ``final`` written, validation each epoch; ``--resume`` to a
+     third epoch restores the saved step, parameters and EMA; ``final.pt``
+     loads into ``Detector``.  Then the step on one fixed batch: the
+     launches of one micro-step (ROI-align forward and backward one each,
+     no stem, NMS or mask-head kernel), median / min / max of 10 timed
+     micro-steps after 3 warm-ups, img/s, peak memory, a profiled step; 8
+     more updates on the batch, every loss item finite and the batch's loss
+     after them below the loss before them;
+     the ROI-align forward at the step's own 1024 whole-canvas bf16 ROIs bit
+     for bit its plain version, the backward kernel within 2e-2 x max|g| a
+     level of the plain version's autograd there and within 1e-5 on a
+     ragged f32 case against the CPU's plain version, its times and bound;
+ 14b. training reference: one step of ``yolov5s-test`` at 256 px in f32 on
+     the card and on the CPU from the same state (loss items, gradients of
+     four tensors).
 
 Phase 3 also holds the single-level ROI-align kernel bit for bit against
 its plain version at the four hnet-nucls level shapes in one launch
@@ -171,6 +190,8 @@ TPU_KERNEL = {
     "stem_k108": "tools/stem_lab.py:132",
     "stem_dot108": "tools/stem_lab.py:168",
     "stem_tc": "hd_yolo_tpu/ops/pallas_stem.py:79",
+    # the XLA vjp JAX's custom_vjp takes of the plain canvas form
+    "roi_align_bwd": "hd_yolo_tpu/ops/pallas_roi_align.py:270",
 }
 FLAGSHIP_KERNELS = ("stem_tc", "nms", "roi_align", "mask_head")
 LAB_KERNELS = ("stem", "stem_k108", "stem_dot108", "stem_tc")
@@ -1986,6 +2007,359 @@ def phase_serving():
     return launches, info
 
 
+# ---------------------------------------------------------------- training
+TRAIN_CLI = ["--cfg", "yolov5l6-mask", "--hyp", "hyp-nuclei", "--masks", "--batch-size", "16",
+             "--img-size", "640", "--max-targets", "256", "--mask-rois", "64", "--workers", "8"]
+
+
+def make_train_set(root: str, n: int = 64, size: int = 640, per_tile: int = 80,
+                   seed: int = 0) -> str:
+    """A labelled set written to ``root``: ``n`` PNG tiles of ``size`` px with
+    about ``per_tile`` nuclei-sized polygons each (10-40 px ellipses, four
+    classes, drawn darker on a textured background); returns the data yaml."""
+    import cv2
+    import yaml
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(n):
+        img = rng.integers(150, 230, (size, size, 3), dtype=np.uint8)
+        k = int(rng.integers(per_tile - 10, per_tile + 11))
+        c = rng.uniform(20, size - 20, (k, 2))
+        ax = rng.uniform(5, 20, (k, 2))
+        ang = rng.uniform(0, np.pi, k)
+        t = np.linspace(0, 2 * np.pi, 13)[:-1]
+        polys, boxes = np.empty(k, object), np.zeros((k, 4), np.float32)
+        for j in range(k):
+            px = ax[j, 0] * np.cos(t) * np.cos(ang[j]) - ax[j, 1] * np.sin(t) * np.sin(ang[j])
+            py = ax[j, 0] * np.cos(t) * np.sin(ang[j]) + ax[j, 1] * np.sin(t) * np.cos(ang[j])
+            pts = np.clip(np.stack([px + c[j, 0], py + c[j, 1]], 1), 0, size - 1).astype(np.float32)
+            polys[j] = [pts]
+            boxes[j] = [pts[:, 0].min(), pts[:, 1].min(), pts[:, 0].max(), pts[:, 1].max()]
+            cv2.fillPoly(img, [pts.astype(np.int32)], tuple(int(v) for v in rng.integers(40, 120, 3)))
+        cv2.imwrite(os.path.join(root, f"img{i}.png"), img)
+        np.savez(os.path.join(root, f"ann{i}.npz"), boxes=boxes, labels=rng.integers(1, 5, k),
+                 masks=polys, size=np.array([size, size]))
+        rows.append(f"img{i}.png,im{i},a{i},ann{i}.npz,detSC,poly")
+    csv = os.path.join(root, "index.csv")
+    with open(csv, "w") as f:
+        f.write("image_path,image_id,ann_id,ann_path,task_id,mask_mode\n" + "\n".join(rows) + "\n")
+    data = os.path.join(root, "data.yaml")
+    meta = {"detSC": {"labels_text": {1: "tumor", 2: "stromal", 3: "sTILs", 4: "other"}}}
+    with open(data, "w") as f:
+        yaml.safe_dump({"train": csv, "val": csv, "tasks": ["detSC"], "meta_info": meta}, f)
+    return data
+
+
+def phase_train_cli(data: str, save_dir: str) -> dict:
+    """``engines/train.main`` at full width and depth in bf16, 2 epochs (4
+    micro-steps an update, 2 updates); then a ``--resume`` to a third epoch
+    (the restored step, parameters and EMA are the saved ones); then
+    ``final.pt`` in a ``Detector``."""
+    from hd_yolo_tpu_torch.engines import train as train_mod
+
+    t0 = time.perf_counter()
+    res = train_mod.main(["--data", data, "--save-dir", save_dir, "--epochs", "2", *TRAIN_CLI])
+    t_cli = time.perf_counter() - t0
+    for name in ("last.pt", "last.json", "best.pt", "best.json", "final.pt"):
+        need(os.path.isfile(os.path.join(save_dir, name)), f"train did not write {name}")
+    rows = [json.loads(l) for l in open(os.path.join(save_dir, "results.json"))]
+    need([r["epoch"] for r in rows] == [0, 1] and all("detSC/map50" in r for r in rows),
+         f"validation did not run each epoch: {rows}")
+    saved = torch.load(os.path.join(save_dir, "last.pt"), map_location="cpu", weights_only=False)
+    need(int(saved["step"]) == 8 and int(saved["opt"]["count"]) == 2,
+         f"2 epochs of 4 steps at accumulate 4: step {int(saved['step'])}, updates "
+         f"{int(saved['opt']['count'])}")
+    log(f"  train.main 2 epochs: {t_cli:.1f} s; loss by epoch "
+        f"{[round(r['loss'], 4) for r in rows]}, fitness {[round(r['fitness'], 4) for r in rows]}")
+    seen = {}
+    orig = train_mod.restore_train_state
+
+    def spy(path, state):
+        state, meta = orig(path, state)
+        seen.update(step=int(state.step),
+                    params={n: p.detach().cpu() for n, p in state.model.named_parameters()},
+                    ema=[e.cpu() for e in state.ema.params])
+        return state, meta
+
+    train_mod.restore_train_state = spy
+    try:
+        t0 = time.perf_counter()
+        train_mod.main(["--data", data, "--save-dir", save_dir, "--epochs", "3", "--resume",
+                        *TRAIN_CLI])
+        t_resume = time.perf_counter() - t0
+    finally:
+        train_mod.restore_train_state = orig
+    need(seen.get("step") == 8, "--resume did not restore the saved step")
+    need(all(torch.equal(p, saved["model"][n]) for n, p in seen["params"].items()),
+         "--resume restored other parameters than were saved")
+    need(all(torch.equal(e, s) for e, s in zip(seen["ema"], saved["ema"])),
+         "--resume restored another EMA than was saved")
+    rows = [json.loads(l) for l in open(os.path.join(save_dir, "results.json"))]
+    need([r["epoch"] for r in rows] == [0, 1, 2], f"the resumed run logged {rows}")
+    det = Detector("yolov5l6-mask", "hyp-nuclei", weights=os.path.join(save_dir, "final.pt"),
+                   device="cuda")
+    x = np.random.default_rng(2).integers(0, 256, (4, 640, 640, 3), dtype=np.uint8)
+    out = det.tiles(x)["detSC"]
+    need(out["boxes"].shape == (4, 300, 4) and bool(torch.isfinite(out["boxes"]).all()),
+         "final.pt: bad Detector outputs")
+    log(f"  --resume to epoch 3: {t_resume:.1f} s, step/params/EMA as saved; final.pt in "
+        f"Detector: {int(out['valid'].sum())} detections on 4 tiles")
+    return {"cli_2_epochs_s": t_cli, "resume_epoch_s": t_resume,
+            "loss_by_epoch": [r["loss"] for r in rows], "fitness_by_epoch": [r["fitness"] for r in rows]}
+
+
+def capture_train_call(step, state, batch):
+    """One training micro-step, returning the arguments of its one
+    ``roi_align_bounded`` call and of its one ``roi_align_bounded_bwd`` call
+    (the output gradient included)."""
+    calls = {}
+    fwd, bwd = pallas_roi_align.roi_align_bounded, pallas_roi_align.roi_align_bounded_bwd
+
+    def spy_f(*a):
+        calls["fwd"] = a
+        return fwd(*a)
+
+    def spy_b(*a):
+        calls["bwd"] = (a[0].detach().clone(),) + a[1:]
+        return bwd(*a)
+
+    pallas_roi_align.roi_align_bounded, pallas_roi_align.roi_align_bounded_bwd = spy_f, spy_b
+    try:
+        step(state, batch)
+    finally:
+        pallas_roi_align.roi_align_bounded, pallas_roi_align.roi_align_bounded_bwd = fwd, bwd
+    return calls["fwd"], calls["bwd"]
+
+
+def bwd_bound(bargs, grads):
+    """The backward's bound: the output gradient read once, each level's
+    gradient written once, the coordinates read; M²·n² samples of 4 taps a
+    ROI, a multiply-add each per channel."""
+    g, levels, meta, ys, xs, bnds, window, M, n = bargs[:9]
+    K, C = meta.shape[0], g.shape[-1]
+    return bound(nbytes(g, meta, ys, xs, bnds, *grads), K * M * M * n * n * 4 * 2 * C, F32_FLOPS)
+
+
+def check_bwd(name, got, want, rel):
+    """Hold per-level gradients within ``rel``·max|plain| of each level."""
+    worst = 0.0
+    for lvl, (a, b) in enumerate(zip(got, want)):
+        scale = float(b.float().abs().max())
+        err = float((a.float() - b.float()).abs().max())
+        worst = max(worst, err)
+        if not math.isfinite(err) or err > rel * max(scale, 1e-30):
+            raise AssertionError(f"{name}: level {lvl} max |d| {err:.3g} > {rel} x {scale:.3g}")
+    log(f"  {name}: max_abs_err {worst:.3g} (tolerance per level |d| <= {rel} x max|plain|)")
+    return worst
+
+
+def phase_train(iters: int):
+    """Phase 14: yolov5l6-mask training at full width, batch 16 x 640, bf16."""
+    import tempfile
+
+    from hd_yolo_tpu_torch.data.dataset import DataLoader, DetectionDataset
+    from hd_yolo_tpu_torch.engines.optim import build_optimizer
+    from hd_yolo_tpu_torch.engines.train import scale_task_hyp
+    from hd_yolo_tpu_torch.engines.train_step import TrainState, make_train_step, to_device
+    from hd_yolo_tpu_torch.models.builder import parse_model_cfg
+    from hd_yolo_tpu_torch.models.yolo import Model
+
+    torch.cuda.empty_cache()
+    info = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        data = make_train_set(tmp)
+        log(f"  labelled set: 64 tiles of 640 px, ~80 polygons each, written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        info["cli"] = phase_train_cli(data, os.path.join(tmp, "run"))
+        torch.cuda.empty_cache()
+
+        # the step on one fixed batch, as the CLI builds it
+        hyp = scale_task_hyp(load_cfg("hyp-nuclei"), parse_model_cfg("yolov5l6-mask",
+                                                                     "hyp-nuclei"), 640)
+        model = Model.from_cfg("yolov5l6-mask", hyp, dtype=torch.bfloat16, mask_rois=64)
+        model.init_weights(torch.Generator().manual_seed(0))
+        model.cuda()
+        opt = build_optimizer(model, hyp, 2, 4, accumulate=4)
+        state = TrainState.create(model, opt)
+        step = make_train_step()
+        ds = DetectionDataset(os.path.join(tmp, "index.csv"), {**hyp, "img_size": 640},
+                              train=True, max_targets=256, seed=1)
+        # one worker: the batch's augmentation draws come in one order, so
+        # every run trains on the same batch
+        batch = to_device(next(iter(DataLoader(ds, 16, workers=1))), "cuda")
+        n_obj = int(batch["targets"]["detSC"]["valid"].sum())
+        losses = []
+        for _ in range(3):
+            losses.append(step(state, batch)[1])
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        _, m = step(state, batch)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        losses.append(m)
+        log(f"  launches of one training micro-step: {launches}")
+        need(launches["roi_align"] == 1 and launches["roi_align_bwd"] == 1,
+             "the training step must pool once and launch the ROI-align backward once")
+        need(launches["stem_tc"] == launches["stem"] == launches["mask_head"] == 0,
+             "the training forward runs the plain stem conv and the cuDNN mask-head chain")
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(iters):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, m = step(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(m)
+        med = statistics.median(times)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"  train step (batch 16 x 640, bf16, masks, {n_obj} objects, mask_rois 64): median "
+            f"{med * 1e3:.2f} ms over {iters} (min {min(times) * 1e3:.2f}, max "
+            f"{max(times) * 1e3:.2f}); {16 / med:.1f} img/s; peak memory {peak:.2f} GiB")
+        profile_step(lambda: step(state, batch))
+        info["step"] = {"median_ms": med * 1e3, "min_ms": min(times) * 1e3,
+                        "max_ms": max(times) * 1e3, "img_per_s": 16 / med, "peak_gib": peak,
+                        "objects": n_obj}
+
+        # 8 more updates (32 micro-steps) on the same batch: the loss after
+        # them (one more forward, no update) is below the loss before them
+        def batch_loss():
+            with torch.no_grad():
+                losses_, _ = state.model.losses(batch["image"], batch["targets"])
+                return float(state.model.total_loss(losses_))
+
+        for _ in range((4 - int(opt.state["mini_step"])) % 4):   # finish the open update
+            losses.append(step(state, batch)[1])
+        before = batch_loss()
+        per_update = []
+        for _ in range(8):
+            ms = [step(state, batch)[1] for _ in range(4)]
+            losses += ms
+            per_update.append(float(torch.stack([x["loss"] for x in ms]).mean()))
+        after = batch_loss()
+        items = {k: torch.stack([x[k] for x in losses]).float().cpu() for k in losses[0]}
+        for k, v in items.items():
+            need(bool(torch.isfinite(v).all()), f"non-finite {k} in a training step")
+        log(f"  loss on the batch before 8 updates {before:.4f}, after {after:.4f}; mean loss "
+            f"of each update's micro-steps {[round(v, 4) for v in per_update]}; last items "
+            f"{({k: round(float(v[-1]), 4) for k, v in items.items()})}")
+        need(after < before, "the loss did not fall over 8 updates")
+        info["loss_before_after"] = [before, after]
+        info["loss_per_update"] = per_update
+
+        # the kernels of this path at its shapes
+        fargs, bargs = capture_train_call(step, state, batch)
+        K = fargs[1].shape[0]
+        need(K == 16 * 64 and fargs[0][0].dtype == torch.bfloat16,
+             f"expected 1024 bf16 ROIs, got {K}")
+        rab, plain = pallas_roi_align.roi_align_bounded, pallas_roi_align.roi_align_bounded_plain
+        check_equal(f"roi_align forward at the training shapes ({K} whole-canvas ROIs, bf16)",
+                    rab(*fargs), plain(*fargs))
+        bk = pallas_roi_align.roi_align_bounded_bwd
+        bp = pallas_roi_align.roi_align_bounded_bwd_plain
+        got = bk(*bargs)
+        torch.cuda.synchronize()
+        err = check_bwd(f"roi_align_bwd at the training shapes ({K} ROIs, bf16) vs the plain "
+                        f"version's autograd", got, bp(*bargs), 2e-2)
+        ragged = ragged_bwd_case()
+        t = kernel_ms(lambda: bk(*bargs), 20)
+        t["device_ms"] = device_ms(lambda: bk(*bargs))
+        plain_ms = cuda_ms(lambda: bp(*bargs), 5)
+        b_ms, by = bwd_bound(bargs, got)
+        log(f"  roi_align_bwd: {t['ms']:.4f} ms a call ({t['ms_back_to_back']:.4f} back to back, "
+            f"device {t['device_ms']:.4f}) | plain {plain_ms:.4f} ms | bound {b_ms:.4f} ms ({by})")
+        result = dict(max_abs_err=err, ms=t["ms"], ms_back_to_back=t["ms_back_to_back"],
+                      device_ms=t["device_ms"], plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                      library_ms=None, ragged_f32_max_abs_err=ragged)
+    del model, state, opt, batch
+    torch.cuda.empty_cache()
+    return launches, result, info
+
+
+def ragged_bwd_case() -> float:
+    """The backward on a ragged f32 case (odd level sizes, 12 channels, boxes
+    across level borders, an active prefix) against the plain version on the
+    CPU."""
+    gen = torch.Generator().manual_seed(11)
+    feats = [torch.randn((2, h, w, 12), generator=gen) for h, w in ((37, 29), (19, 15), (10, 8))]
+    strides = (8.0, 16.0, 32.0)
+    K, M, n = 9, 7, 2
+    xy = torch.rand((2, K, 2), generator=gen) * 250 - 10
+    boxes = torch.cat([xy, xy + torch.rand((2, K, 2), generator=gen) * 120 + 1], -1)
+    levels = torch.randint(0, 3, (2, K), generator=gen)
+    meta = roi_ops.level_meta(feats, strides)
+    lv = levels.reshape(-1).to(torch.int32)
+    ys, xs, moff, mh, mw = sample_coords(boxes.reshape(-1, 4), lv, meta, M * n, False)
+    bnds = torch.stack([moff, moff + mh, torch.zeros_like(mw), mw], -1)
+    b_idx = torch.arange(2, dtype=torch.int32).repeat_interleave(K)
+    z = torch.zeros_like(b_idx)
+    rmeta = torch.stack([b_idx, z, z, lv], -1)
+    g = torch.randn((2 * K, M, M, 12), generator=gen)
+    window = (sum(f.shape[1] for f in feats), feats[0].shape[2])
+    args = (g, feats, rmeta, ys, xs, bnds, window, M, n, torch.tensor(13))
+    want = pallas_roi_align.roi_align_bounded_bwd_plain(*args)
+    cuda = lambda t: t.cuda() if torch.is_tensor(t) else [x.cuda() for x in t] \
+        if isinstance(t, list) else t
+    got = pallas_roi_align.roi_align_bounded_bwd(*[cuda(a) for a in args])
+    return check_bwd("roi_align_bwd, ragged f32 (card vs the CPU's plain version)",
+                     [x.cpu() for x in got], want, 1e-5)
+
+
+def phase_train_reference():
+    """One training step of yolov5s-test at 256 px in f32 (no TF32) on the
+    card and on the CPU from the same state: the loss items (rtol 1e-4) and
+    the gradients of the stem conv, a BatchNorm scale and a det conv bias
+    (1e-3 x max|g|) and of the mask head's first conv (2e-2 x max|g|: its
+    gradient is a sum of cancelling terms behind five ReLUs, which rounding
+    moves that far)."""
+    from hd_yolo_tpu_torch.models.yolo import Model
+
+    cfg = load_cfg("hyp-nuclei")
+    cfg["det"]["mask_iou_t"] = 0.05
+    rng = np.random.default_rng(4)
+    B, T = 2, 24
+    x = torch.from_numpy(rng.integers(0, 256, (B, 256, 256, 3), dtype=np.uint8))
+    xy = rng.uniform(0.05, 0.8, (B, T, 2))
+    boxes = np.concatenate([xy, np.minimum(xy + rng.uniform(0.04, 0.15, (B, T, 2)), 1)], -1)
+    yy, xx = np.mgrid[0:28, 0:28] + 0.5
+    rad = rng.uniform(6, 13, (B, T, 1, 1))
+    tg = {"boxes": torch.tensor(boxes, dtype=torch.float32),
+          "labels": torch.from_numpy(rng.integers(0, 5, (B, T))),
+          "masks": torch.from_numpy((((yy - 14) ** 2 + (xx - 14) ** 2) < rad ** 2).astype(np.float32)),
+          "valid": torch.from_numpy(rng.uniform(size=(B, T)) < 0.8)}
+    m0 = Model.from_cfg("yolov5s-test", cfg, mask_rois=8)
+    m0.init_weights(torch.Generator().manual_seed(3))
+    models, res = {}, {}
+    for dev in ("cuda", "cpu"):
+        m = Model.from_cfg("yolov5s-test", cfg, mask_rois=8)
+        m.load_state_dict(m0.state_dict())
+        m.to(dev).train()
+        losses, _ = m.losses(x.to(dev), {"det": {k: v.to(dev) for k, v in tg.items()}})
+        m.total_loss(losses).backward()
+        models[dev] = m
+        res[dev] = {k: float(v) for k, v in losses["det"]["loss_items"].items()}
+    for k in res["cpu"]:
+        need(abs(res["cuda"][k] - res["cpu"][k]) <= 1e-4 * abs(res["cpu"][k]) + 1e-7,
+             f"train reference: loss {k} {res['cuda'][k]} on the card vs {res['cpu'][k]}")
+    need(res["cpu"]["mask"] > 0, "train reference: no mask loss")
+    names = {"backbone.0.conv.weight": 1e-3, "backbone.1.bn.weight": 1e-3,
+             "headers.det.m.0.bias": 1e-3,
+             "headers.det.seg_h.maskrcnn_heads.mask_fcn1.weight": 2e-2}
+    pc = dict(models["cpu"].named_parameters())
+    worst = {}
+    for n, p in models["cuda"].named_parameters():
+        if n in names:
+            want = pc[n].grad
+            err = float((p.grad.cpu() - want).abs().max())
+            worst[n] = err / float(want.abs().max())
+            need(err <= names[n] * float(want.abs().max()),
+                 f"train reference: gradient of {n} differs by {err:.3g}")
+    log(f"  yolov5s-test 256 px f32 step, card vs CPU: loss items {res['cuda']} vs {res['cpu']}; "
+        f"gradient |d| / max|g|: {({k.split('.', 1)[1]: f'{v:.2e}' for k, v in worst.items()})}")
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2009,7 +2383,7 @@ def main(argv=None) -> int:
 
     secs = kernels.build_all()
     log(f"[2] built {sorted(kernels.KERNELS)} in {secs:.1f} s; ptxas of the redesigned kernels:")
-    for k in REDESIGNED:
+    for k in REDESIGNED + ("roi_align_bwd",):
         for line in kernels.ptxas_report(k).splitlines():
             if "Used" in line or "spill" in line or "C75" in line:
                 log(f"  {k}: {line}")
@@ -2032,6 +2406,11 @@ def main(argv=None) -> int:
         log(f"  {kname}: kernel {r['ms']:.4f} ms ({r['ms_back_to_back']:.4f} back to back) | "
             f"plain {r['plain_ms']:.4f} ms | "
             f"library {lib} ms | bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    if "roi_align_bwd" in only:
+        log("[14] training: yolov5l6-mask, batch 16 x 640, bf16, masks")
+        phase_train(10)
+        log("[14b] training reference: yolov5s-test 256 px f32, the card against the CPU")
+        phase_train_reference()
     if only:
         log(f"  --only {','.join(sorted(only))}: the other phases and the result lines skipped")
         return 0
@@ -2064,12 +2443,19 @@ def main(argv=None) -> int:
     log("[13] serving: the request path on the flagship at its defaults")
     serving_launches, serving_info = phase_serving()
     log("  " + json.dumps({"val": val_res, "export": export_info, "serving": serving_info}))
+    log("[14] training: yolov5l6-mask, batch 16 x 640, bf16, masks")
+    train_launches, results["roi_align_bwd"], train_info = phase_train(10)
+    log("[14b] training reference: yolov5s-test 256 px f32, the card against the CPU")
+    phase_train_reference()
+    log("  " + json.dumps({"train": train_info}))
 
     paths = {"flagship": launches, "defaults": default_launches, "hnet": hnet_launches,
              "lab": lab_launches, "slide": slide_launches, "val": val_launches,
-             "loader": loader_launches, "export": export_launches, "serving": serving_launches}
+             "loader": loader_launches, "export": export_launches, "serving": serving_launches,
+             "train": train_launches}
     main_path = {k: "flagship" for k in FLAGSHIP_KERNELS}
-    main_path.update(roi_align_single="hnet", stem_k108="lab", stem_dot108="lab", stem="lab")
+    main_path.update(roi_align_single="hnet", stem_k108="lab", stem_dot108="lab", stem="lab",
+                     roi_align_bwd="train")
     results["nms"]["stitch"] = stitch
     results["nms"]["hnet"] = {k: v for k, v in hnet_times.items() if k.startswith("nms")}
     results["roi_align"]["hnet"] = {k: v for k, v in hnet_times.items()
@@ -2079,7 +2465,7 @@ def main(argv=None) -> int:
     record = {"kernels": [
         {"name": k, "route": "cuda", "source": f"hd_yolo_tpu_torch/kernels/{k}.cu",
          "replaces": TPU_KERNEL[k], "launches": paths[main_path[k]][k],
-         "launches_by_path": {p: n[k] for p, n in paths.items()}, **results[k]}
+         "launches_by_path": {p: n.get(k, 0) for p, n in paths.items()}, **results[k]}
         for k in TPU_KERNEL]}
     print(json.dumps(record), flush=True)
     print(smi, flush=True)

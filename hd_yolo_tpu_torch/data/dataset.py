@@ -1,30 +1,38 @@
-"""Multi-task detection dataset, evaluation path: CSV index → padded batches
-(port of ``hd_yolo_tpu/data/dataset.py`` with ``train=False``).
+"""Multi-task detection dataset: CSV index → padded batches (port of
+``hd_yolo_tpu/data/dataset.py``).
 
 CSV rows ``image_path,image_id,ann_id,ann_path,task_id,mask_mode`` map
 images to annotation files (``.npz`` or a torch ``.pt`` of {boxes, labels,
-masks, size}), cached in memory.  A validation sample is the image resized
-to ``img_size`` (or, with ``keep_res`` > 0, rescaled by that factor and
-center padded / cropped), with every task's targets padded to
-``max_targets`` under a validity mask: normalized xyxy boxes, labels and
-28x28 in-box masks.  Batches are plain stacked numpy arrays; images stay
-uint8 and the model divides by 255 on the device.
+masks, size}), cached in memory.  A validation sample (``train=False``) is
+the image resized to ``img_size`` (or, with ``keep_res`` > 0, rescaled by
+that factor and center padded / cropped).  A training sample is a k x k
+mosaic of the image and random partners, each tile through the host
+augmentation chain (``data/augment.py``), cropped at random to
+``img_size``, optionally mixed up with a second mosaic (``hyp['mixup']``);
+``host_augment=False`` serves the resized tile with no augmentation instead.
+Every task's targets are padded to ``max_targets`` under a validity mask:
+normalized xyxy boxes, labels and 28x28 in-box masks.  Batches are plain
+stacked numpy arrays; images stay uint8 and the model divides by 255 on the
+device.
 
-The training sample (mosaic, the host augmentations, mixup) needs
-``data/augment.py``, which is not ported yet: ``train=True`` raises.
-OpenCV and pandas are imported inside the functions that use them.
+The training draws come from the dataset's own ``AugRng`` (seeded by
+``seed``), in the JAX package's order of its global ``random`` /
+``np.random`` draws.  OpenCV and pandas are imported inside the functions
+that use them.
 """
 
 from __future__ import annotations
 
 import os
 import queue
+import random
 import threading
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from .. import LOGGER
+from .augment import AugRng, mixup, train_proc_multi
 from .mask import Mask
 
 Ann = Dict[str, object]
@@ -45,22 +53,27 @@ def load_annotation_file(path: str) -> Dict[str, np.ndarray]:
 
 
 class DetectionDataset:
-    """CSV-indexed multi-task dataset producing padded validation samples.
+    """CSV-indexed multi-task dataset producing padded samples.
 
     ``data``: the csv index path (``root`` defaults to its directory) or a
-    list of its rows as dicts.  ``hyp``: ``img_size`` (640) and
-    ``keep_res`` (-1: off)."""
+    list of its rows as dicts.  ``hyp``: ``img_size`` (640), ``keep_res``
+    (-1: off) and, for training, ``patch_size`` (the mosaic tile, default
+    ``img_size``), ``k_mosaic`` (2), ``mixup`` and the augmentation keys of
+    ``data/augment.train_proc_multi``."""
 
     def __init__(self, data, hyp: Dict, train: bool = True, max_targets: int = 256,
-                 root: Optional[str] = None):
-        if train:
-            raise NotImplementedError(
-                "DetectionDataset(train=True) needs the training augmentations (data/augment.py, "
-                "mosaic, mixup), which come with yolo training (ROADMAP A.4); pass train=False")
+                 root: Optional[str] = None, host_augment: bool = True, seed: int = 0,
+                 cache_images: bool = False):
         self.hyp = dict(hyp)
+        self.train = train
         self.max_targets = max_targets
         self.img_size = int(self.hyp.get("img_size", 640))
+        self.patch_size = int(self.hyp.get("patch_size") or self.img_size)
+        self.k_mosaic = int(self.hyp.get("k_mosaic", 2)) if train else 1
         self.keep_res = float(self.hyp.get("keep_res", -1))
+        self.host_augment = bool(host_augment)
+        self.rng = AugRng(seed)
+        self._img_cache: Optional[Dict[int, np.ndarray]] = {} if cache_images else None
 
         self.root = root or "./"
         if isinstance(data, str):
@@ -114,10 +127,17 @@ class DetectionDataset:
         import cv2
 
         info = self.images[idx]
-        img = cv2.imread(os.path.join(self.root, info["image_path"]))
+        img = None if self._img_cache is None else self._img_cache.get(idx)
         if img is None:
-            raise FileNotFoundError(info["image_path"])
-        img = cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+            img = cv2.imread(os.path.join(self.root, info["image_path"]))
+            if img is None:
+                raise FileNotFoundError(info["image_path"])
+            img = cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+            if self._img_cache is not None:         # decoded once, copied per use
+                img.setflags(write=False)
+                self._img_cache[idx] = img
+        if self._img_cache is not None:
+            img = img.copy()
         anns: Dict[str, Ann] = {}
         for ann_idx in info["anns"]:
             task = self.annotations[ann_idx]["task_id"]
@@ -162,12 +182,17 @@ class DetectionDataset:
             return img, anns
         return DetectionDataset._scaled(img, anns, nh, nw)
 
-    def _pad_or_crop(self, img: np.ndarray, anns: Dict[str, Ann], size: int, cval: int = 114):
-        """Center pad and/or crop to a square ``size``, annotations with it."""
+    def _pad_or_crop(self, img: np.ndarray, anns: Dict[str, Ann], size: int, pos: str = "center",
+                     cval: int = 114):
+        """Pad and/or crop to a square ``size`` (centred, or at a random
+        offset with ``pos='random'``), annotations with it."""
         h, w = img.shape[:2]
         ph, pw = max(size - h, 0), max(size - w, 0)
         if ph or pw:
-            top, left = ph // 2, pw // 2
+            if pos == "random":
+                top, left = self.rng.py.randint(0, ph), self.rng.py.randint(0, pw)
+            else:
+                top, left = ph // 2, pw // 2
             canvas = np.full((max(h + ph, size), max(w + pw, size), 3), cval, img.dtype)
             canvas[top: top + h, left: left + w] = img
             img = canvas
@@ -175,7 +200,10 @@ class DetectionDataset:
             h, w = img.shape[:2]
         ch, cw = max(h - size, 0), max(w - size, 0)
         if ch or cw:
-            y0, x0 = ch // 2, cw // 2
+            if pos == "random":
+                y0, x0 = self.rng.py.randint(0, ch), self.rng.py.randint(0, cw)
+            else:
+                y0, x0 = ch // 2, cw // 2
             img = img[y0: y0 + size, x0: x0 + size]
             anns = self._shift(anns, -y0, -x0, (size, size))
             for a in anns.values():
@@ -194,15 +222,69 @@ class DetectionDataset:
 
     # ---------------------------------------------------------------- get item
     def __getitem__(self, idx: int) -> Dict[str, object]:
+        if self.train and not self.host_augment:
+            return self._raw_sample(idx)
+        if self.train:
+            img, anns = self._train_sample(idx)
+            if self.rng.py.random() < float(self.hyp.get("mixup", 0.0)):
+                img2, anns2 = self._train_sample(self.rng.py.randrange(len(self)))
+                img, anns = mixup(img, anns, img2, anns2, self.rng)
+            return self._to_padded(img, anns)
+        return self._to_padded(*self._fixed_tile(idx))
+
+    def _fixed_tile(self, idx: int):
+        """The image and its annotations resized to ``img_size`` (or, with
+        ``keep_res``, rescaled and center padded / cropped)."""
         img, anns = self.load_image_and_target(idx)
         if self.keep_res > 0:  # fixed µm/px: rescale + center pad/crop
             img, anns = self._rescale(img, anns, self.keep_res)
-            img, anns = self._pad_or_crop(img, anns, self.img_size)
-        else:
-            img, anns = self._resize(img, anns, self.img_size)
-        return self._to_padded(img, anns)
+            return self._pad_or_crop(img, anns, self.img_size)
+        return self._resize(img, anns, self.img_size)
 
-    def _to_padded(self, img: np.ndarray, anns: Dict[str, Ann]) -> Dict[str, object]:
+    def _raw_sample(self, idx: int) -> Dict[str, object]:
+        """A training sample with no augmentation: the resized tile and its
+        padded targets, with no small-object filter."""
+        return self._to_padded(*self._fixed_tile(idx), small_filter=False)
+
+    def _train_sample(self, idx: int):
+        """A k x k mosaic of ``idx`` and k²−1 random partners, each tile
+        augmented, cropped at random to ``img_size``."""
+        k, size, rng = self.k_mosaic, self.patch_size, self.rng
+        indices = [idx] + rng.py.choices(range(len(self)), k=k * k - 1)
+        rng.py.shuffle(indices)
+        merged: Dict[str, dict] = {}
+        canvas = np.full((k * size, k * size, 3), 114, np.uint8)
+        for rc, img_idx in enumerate(indices):
+            r, c = rc // k, rc % k
+            img, anns = self.load_image_and_target(img_idx)
+            if self.keep_res > 0:  # resolution-preserving tile prep
+                img, anns = self._rescale(img, anns, self.keep_res)
+                img, anns = self._pad_or_crop(img, anns, size, pos="random")
+            else:
+                img, anns = self._resize(img, anns, size)
+            img, anns = train_proc_multi(img, anns, self.hyp, rng)
+            canvas[r * size: (r + 1) * size, c * size: (c + 1) * size] = img
+            for task, a in self._shift(anns, r * size, c * size, (k * size, k * size)).items():
+                m = merged.setdefault(task, {"boxes": [], "labels": [], "masks": []})
+                m["boxes"].append(a["boxes"])
+                m["labels"].append(a["labels"])
+                m["masks"].extend(a["masks"])
+        anns = {t: {"boxes": np.concatenate(v["boxes"]) if v["boxes"] else np.zeros((0, 4), np.float32),
+                    "labels": np.concatenate(v["labels"]) if v["labels"] else np.zeros((0,), np.int64),
+                    "masks": v["masks"]}
+                for t, v in merged.items()}
+        H = canvas.shape[0]
+        if H > self.img_size:
+            y0 = rng.py.randint(0, H - self.img_size)
+            x0 = rng.py.randint(0, H - self.img_size)
+            canvas = canvas[y0: y0 + self.img_size, x0: x0 + self.img_size]
+            anns = self._shift(anns, -y0, -x0, (self.img_size, self.img_size))
+            for a in anns.values():
+                a["boxes"] = np.clip(a["boxes"], 0, [self.img_size] * 4)
+        return canvas, anns
+
+    def _to_padded(self, img: np.ndarray, anns: Dict[str, Ann],
+                   small_filter: bool = True) -> Dict[str, object]:
         """Pad every task's annotations to max_targets; 28×28 in-box masks."""
         H, W = img.shape[:2]
         T, M = self.max_targets, MASK_SIZE
@@ -216,7 +298,8 @@ class DetectionDataset:
             if a is not None and len(a["boxes"]):
                 b = np.asarray(a["boxes"], np.float32)
                 l = np.asarray(a["labels"], np.int64)
-                keep = (b[:, 2] - b[:, 0] > 10) & (b[:, 3] - b[:, 1] > 10)  # small-object filter
+                keep = ((b[:, 2] - b[:, 0] > 10) & (b[:, 3] - b[:, 1] > 10) if small_filter
+                        else np.ones(len(b), bool))                       # small-object filter
                 b, l = b[keep], l[keep]
                 mlist = [m for m, k2 in zip(a["masks"], keep) if k2]
                 n = min(len(b), T)
@@ -259,25 +342,43 @@ def collate_padded(samples: Sequence[Dict[str, object]]) -> Dict[str, object]:
 
 
 class DataLoader:
-    """Prefetching loader, one pass in order: background threads run
-    ``dataset[i]`` (OpenCV releases the GIL for the heavy work) and batches
-    come out in order.  A failure in a worker is raised in the caller.  The
-    JAX loader's training options (``shuffle``, ``infinite``, ``shard``)
-    come with yolo training."""
+    """Prefetching loader: background threads run ``dataset[i]`` (OpenCV
+    releases the GIL for the heavy work) and batches come out in order.  A
+    failure in a worker is raised in the caller.  ``shuffle`` draws each
+    epoch's order from ``random.Random(seed + epoch)``; ``infinite`` runs
+    epoch after epoch (the training loader); ``drop_last`` drops a partial
+    last batch."""
 
     def __init__(self, dataset: DetectionDataset, batch_size: int = 8, workers: int = 4,
-                 drop_last: bool = True):
+                 drop_last: bool = True, shuffle: bool = False, infinite: bool = False,
+                 seed: int = 0):
         self.dataset = dataset
         self.batch_size = batch_size
         self.workers = max(workers, 1)
         self.drop_last = drop_last
+        self.shuffle = shuffle
+        self.infinite = infinite
+        self.seed = seed
 
     def __len__(self) -> int:
         n = len(self.dataset)
         return n // self.batch_size if self.drop_last else (n + self.batch_size - 1) // self.batch_size
 
+    def _epoch_indices(self, epoch: int) -> List[int]:
+        idx = list(range(len(self.dataset)))
+        if self.shuffle:
+            random.Random(self.seed + epoch).shuffle(idx)
+        return idx[: len(self) * self.batch_size] if self.drop_last else idx
+
     def __iter__(self) -> Iterator[Dict[str, object]]:
-        indices = list(range(len(self) * self.batch_size if self.drop_last else len(self.dataset)))
+        epoch = 0
+        while True:
+            yield from self._epoch(self._epoch_indices(epoch))
+            if not self.infinite:
+                return
+            epoch += 1
+
+    def _epoch(self, indices: List[int]) -> Iterator[Dict[str, object]]:
         batches = [indices[i: i + self.batch_size] for i in range(0, len(indices), self.batch_size)]
         q: "queue.Queue" = queue.Queue(maxsize=self.workers * 2)
         stop = threading.Event()

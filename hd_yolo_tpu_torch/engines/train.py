@@ -1,0 +1,345 @@
+"""Training loop: dataset → train steps → per-epoch validation →
+checkpoints (port of ``hd_yolo_tpu/engines/train.py``).
+
+    python -m hd_yolo_tpu_torch.engines.train --data data.yaml --masks \\
+        [--cfg yolov5l6-mask] [--hyp hyp-nuclei] [--batch-size 16] [--device cpu]
+
+On the card by default (bf16); ``--device cpu`` runs the plain path and
+raises nothing else.  The flags are the JAX package's plus ``--device``.
+Per-header hyp rescaling is applied before the model is built: box·3/nl,
+cls·nc/80·3/nl, obj·(imgsz/640)²·3/nl.  A fresh model starts from
+``Model.init_weights`` (flax's default distributions, seeded by ``--seed``);
+``--weights`` merges a port ``.pt`` state_dict or a pickled flax
+``{'params', 'batch_stats'}`` tree into it, tensor by tensor where the
+shapes agree.  Validation runs ``engines/val.run`` on the EMA parameters
+with the live BatchNorm statistics.  Checkpoints: ``last`` / ``best``
+(``.pt`` + ``.json``, the whole train state) and ``final.pt`` (the EMA
+inference weights).
+
+Flags whose modules are not ported raise ``NotImplementedError`` naming
+their ROADMAP item: ``--device-augment`` / ``--cache-device`` (A.4a),
+``--multi-scale``, ``--batch-size -1``, ``--autoanchor``, ``--evolve``
+(A.4c), ``--plots`` (A.4d), and a reference training ``.pt`` as
+``--weights`` (A.4f).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from .. import LOGGER
+from ..config import load_cfg, load_dataset_info, save_cfg
+from ..data.dataset import DataLoader, DetectionDataset
+from ..detector import resolve_device
+from ..models.builder import parse_model_cfg
+from ..models.yolo import Model
+from ..utils.general import check_img_size
+from . import val as val_engine
+from .callbacks import Callbacks
+from .checkpoint import restore_train_state, save_checkpoint, save_inference, wait_for_saves
+from .loggers import Loggers
+from .optim import build_optimizer
+from .train_step import TrainState, make_train_step, swap_ema, to_device
+
+
+def fitness_weights(stats: Dict[str, float]) -> float:
+    """0.1·mAP@.5 + 0.9·mAP@.5:.95."""
+    return stats.get("map50", 0.0) * 0.1 + stats.get("map", 0.0) * 0.9
+
+
+def scale_task_hyp(hyp: dict, spec, img_size: int) -> dict:
+    """Per-header loss-gain rescaling."""
+    hyp = dict(hyp)
+    for h in spec.headers:
+        if h.tag not in hyp:
+            continue
+        nl = len(h.strides)
+        th = dict(hyp[h.tag])
+        th["box"] = th.get("box", 0.05) * 3.0 / nl
+        th["cls"] = th.get("cls", 0.5) * h.nc / 80.0 * 3.0 / nl
+        th["obj"] = th.get("obj", 1.0) * (img_size / 640.0) ** 2 * 3.0 / nl
+        hyp[h.tag] = th
+    return hyp
+
+
+class EarlyStopping:
+    """Stop after ``patience`` validated epochs without a better fitness."""
+
+    def __init__(self, patience: int = 30):
+        self.best_fitness = 0.0
+        self.best_epoch = 0
+        self.patience = patience or float("inf")
+
+    def __call__(self, epoch: int, fitness: float) -> bool:
+        if fitness >= self.best_fitness:
+            self.best_epoch, self.best_fitness = epoch, fitness
+        stop = (epoch - self.best_epoch) >= self.patience
+        if stop:
+            LOGGER.info(f"Stopping early: no improvement in last {self.patience} epochs "
+                        f"(best epoch {self.best_epoch}).")
+        return stop
+
+
+def _deferred(opt) -> None:
+    """Raise for the flags whose modules are not ported yet."""
+    waits = [("device_augment", "--device-augment (on-device augmentation)", "A.4a"),
+             ("cache_device", "--cache-device (a device-resident dataset)", "A.4a"),
+             ("multi_scale", "--multi-scale", "A.4c"),
+             ("autoanchor", "--autoanchor", "A.4c"),
+             ("evolve", "--evolve", "A.4c"),
+             ("plots", "--plots (training plots need matplotlib)", "A.4d")]
+    for attr, flag, item in waits:
+        if getattr(opt, attr, False):
+            raise NotImplementedError(f"{flag} is not ported to hd_yolo_tpu_torch yet "
+                                      f"(ROADMAP {item})")
+    if opt.batch_size == -1:
+        raise NotImplementedError("--batch-size -1 (autobatch) is not ported to "
+                                  "hd_yolo_tpu_torch yet (ROADMAP A.4c)")
+
+
+def load_pretrained(model: Model, path: str) -> int:
+    """Merge a port ``.pt`` state_dict or a pickled flax tree into ``model``
+    where names and shapes agree; returns the tensors loaded.  A reference
+    training checkpoint (a pickled module, not a flat state_dict) raises."""
+    if path.endswith((".pt", ".pth")):
+        import pickle
+
+        try:
+            sd = torch.load(path, map_location="cpu", weights_only=True)
+        except pickle.UnpicklingError:
+            sd = None
+        if not isinstance(sd, dict) or not all(torch.is_tensor(v) for v in sd.values()):
+            raise NotImplementedError(
+                f"{path} is not a state_dict of this package; importing reference training "
+                f"checkpoints (utils/import_torch.py) is not ported yet (ROADMAP A.4f)")
+    else:
+        import pickle
+
+        from ..utils.convert import state_dict_from_flax
+
+        with open(path, "rb") as f:
+            sd = state_dict_from_flax(pickle.load(f), model.spec)
+    own = model.state_dict()
+    hits = 0
+    with torch.no_grad():
+        for k, v in sd.items():
+            if k in own and own[k].shape == v.shape:
+                own[k].copy_(v)
+                hits += 1
+    return hits
+
+
+def train(opt, callbacks: Optional[Callbacks] = None) -> Dict[str, float]:
+    callbacks = callbacks or Callbacks()
+    _deferred(opt)
+    device = resolve_device(opt.device)
+    save_dir = opt.save_dir
+    if (os.path.exists(save_dir) and os.listdir(save_dir) and not opt.resume
+            and not getattr(opt, "exist_ok", False)):
+        base, n = save_dir.rstrip("/"), 2      # exp -> exp2 -> ...
+        while os.path.exists(f"{base}{n}"):
+            n += 1
+        save_dir = f"{base}{n}"
+        LOGGER.info(f"save dir exists; using {save_dir} (pass --exist-ok to reuse)")
+    os.makedirs(save_dir, exist_ok=True)
+    data_info = load_dataset_info(opt.data)
+    hyp = load_cfg(opt.hyp)
+    loggers = Loggers(save_dir)
+    loggers.register(callbacks)
+
+    spec0 = parse_model_cfg(opt.cfg, hyp)
+    gs = int(max(max(h.strides) for h in spec0.headers))
+    opt.img_size = check_img_size(opt.img_size, gs)
+    hyp = scale_task_hyp(hyp, spec0, opt.img_size)
+    data_tasks = set(data_info.get("tasks", []))
+    model_tasks = {h.tag for h in spec0.headers}
+    if data_tasks and not (data_tasks & model_tasks):
+        raise ValueError(f"data yaml tasks {sorted(data_tasks)} match no model header tags "
+                         f"{sorted(model_tasks)} — check the 'tag' column of the header rows "
+                         f"in {opt.cfg!r} vs the dataset's task_id values")
+    save_cfg(hyp, os.path.join(save_dir, "hyp.yaml"))
+
+    model = Model.from_cfg(opt.cfg, hyp, dtype=torch.bfloat16 if opt.bf16 else torch.float32,
+                           mask_rois=opt.mask_rois, max_masks=opt.max_masks)
+    model.init_weights(torch.Generator().manual_seed(opt.seed))
+    if opt.weights:
+        LOGGER.info(f"loaded pretrained weights from {opt.weights} "
+                    f"({load_pretrained(model, opt.weights)} tensors)")
+    model.to(device)
+    LOGGER.info(f"model params: {sum(p.numel() for p in model.parameters()):,} on {device}")
+
+    train_ds = DetectionDataset(
+        data_info["train"], {**hyp, "img_size": opt.img_size, "patch_size": opt.patch_size,
+                             "k_mosaic": opt.k_mosaic, "keep_res": opt.keep_res},
+        train=True, max_targets=opt.max_targets, seed=opt.seed,
+        cache_images=opt.cache_images)
+    val_ds = DetectionDataset(data_info["val"], {"img_size": opt.img_size}, train=False,
+                              max_targets=opt.max_targets, cache_images=opt.cache_images)
+    train_dl = DataLoader(train_ds, opt.batch_size, workers=opt.workers, infinite=True,
+                          shuffle=True, seed=opt.seed)
+    val_dl = DataLoader(val_ds, opt.batch_size, workers=opt.workers, drop_last=False)
+    steps_per_epoch = max(len(train_dl), 1)
+
+    optimizer = build_optimizer(
+        model, hyp, opt.epochs, steps_per_epoch, schedule="cosine" if opt.cos_lr else "linear",
+        accumulate=max(round(opt.nominal_batch_size / opt.batch_size), 1),
+        freeze=opt.freeze or None, optimizer=opt.optimizer)
+    state = TrainState.create(model, optimizer)
+    start_epoch, best_fitness = 0, 0.0
+    last = os.path.join(save_dir, "last")
+    if opt.resume and os.path.exists(last + ".pt"):
+        state, meta = restore_train_state(last, state)
+        start_epoch = int(meta.get("epoch", -1)) + 1
+        best_fitness = float(meta.get("best_fitness", 0.0))
+        LOGGER.info(f"resumed from epoch {start_epoch}")
+    step_fn = make_train_step(mask_weight=1.0 if opt.masks else 0.0)
+    stopper = EarlyStopping(opt.patience)
+    meta_info = data_info.get("meta_info", {})
+
+    def validate():
+        with swap_ema(state):
+            model.eval()
+            return val_engine.run(model, ((b["image"], b["targets"]) for b in val_dl),
+                                  meta_info=meta_info, compute_masks=opt.masks,
+                                  input_size=opt.img_size, verbose=opt.verbose)
+
+    callbacks.run("on_train_start")
+    train_iter = iter(train_dl)
+    final_stats: Dict[str, float] = {}
+    if opt.pretrain_val:
+        fit0, _, _ = validate()
+        LOGGER.info(f"pre-train val (EMA init): fitness={fit0:.4f}")
+    bench_batch = None
+    for epoch in range(start_epoch, opt.epochs):
+        callbacks.run("on_train_epoch_start")
+        t_epoch = time.time()
+        mloss: Dict[str, float] = {}
+        step_metrics = []              # 0-d device tensors: one host fetch an epoch
+        for _ in range(steps_per_epoch):
+            if opt.bench_loop and bench_batch is not None:
+                batch = bench_batch    # --bench-loop: the loader taken out
+            else:
+                batch = to_device(next(train_iter), device)
+                if opt.bench_loop:
+                    bench_batch = batch
+            state, metrics = step_fn(state, batch)
+            step_metrics.append(metrics)
+            callbacks.run("on_train_batch_end")
+        mkeys = sorted(step_metrics[0])
+        vals = torch.stack([torch.stack([m[k].float() for k in mkeys])
+                            for m in step_metrics]).cpu().numpy()
+        t_steps = time.time() - t_epoch
+        for row in vals:
+            m = dict(zip(mkeys, row))
+            if not np.isfinite(m["loss"]):         # a skipped step
+                mloss["nonfinite_steps"] = mloss.get("nonfinite_steps", 0.0) + 1.0
+                continue
+            for k, v in m.items():
+                if np.isfinite(v):
+                    mloss[k] = mloss.get(k, 0.0) + float(v) / steps_per_epoch
+        callbacks.run("on_train_epoch_end", epoch=epoch)
+
+        fit = 0.0
+        stats: Dict[str, Dict[str, float]] = {}
+        do_val = (epoch + 1) % max(opt.val_interval, 1) == 0 or epoch == opt.epochs - 1
+        if do_val:
+            fit, stats, _ = validate()
+        final_stats = {f"{t}/{k}": v for t, s in stats.items() for k, v in s.items()}
+        skipped = int(mloss.get("nonfinite_steps", 0))
+        LOGGER.info(f"epoch {epoch}: loss={mloss.get('loss', float('nan')):.4f} "
+                    f"fitness={fit:.4f} ({time.time() - t_epoch:.0f}s, "
+                    f"{steps_per_epoch * opt.batch_size / max(t_steps, 1e-9):.1f} img/s)"
+                    + (f" [skipped {skipped} non-finite step(s)]" if skipped else ""))
+        callbacks.run("on_fit_epoch_end", {**mloss, **final_stats, "fitness": fit}, epoch,
+                      best_fitness, fit)
+        if fit >= best_fitness:
+            best_fitness = fit
+            if do_val:
+                save_checkpoint(os.path.join(save_dir, "best"), state, epoch, best_fitness,
+                                async_save=opt.async_ckpt)
+        if (epoch + 1) % max(opt.save_interval, 1) == 0 or epoch == opt.epochs - 1:
+            save_checkpoint(last, state, epoch, best_fitness, async_save=opt.async_ckpt)
+        callbacks.run("on_model_save", epoch=epoch)
+        if do_val and stopper(epoch, fit):
+            break
+
+    train_iter.close()             # stops the loader's producer thread
+    wait_for_saves()
+    with swap_ema(state):
+        save_inference(os.path.join(save_dir, "final.pt"), model)
+    callbacks.run("on_train_end")
+    return {"best_fitness": best_fitness, "save_dir": save_dir, **final_stats}
+
+
+def argument_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser("hd_yolo_tpu_torch train")
+    p.add_argument("--data", required=True, help="data yaml")
+    p.add_argument("--cfg", default="yolov5l6-mask", help="model yaml")
+    p.add_argument("--hyp", default="hyp-nuclei", help="hyp yaml")
+    p.add_argument("--weights", default="", help="pretrained weights (a .pt state_dict of this "
+                   "package, or a pickled flax {'params', 'batch_stats'} tree)")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--epochs", type=int, default=100)
+    p.add_argument("--batch-size", dest="batch_size", type=int, default=32,
+                   help="batch size; -1 = autobatch (not ported)")
+    p.add_argument("--multi-scale", dest="multi_scale", action="store_true",
+                   help="bucketized 0.5-1.5x image-size jitter per step (not ported)")
+    p.add_argument("--pretrain-val", dest="pretrain_val", action="store_true",
+                   help="validate the EMA before epoch 0")
+    p.add_argument("--nominal-batch-size", dest="nominal_batch_size", type=int, default=64)
+    p.add_argument("--img-size", dest="img_size", type=int, default=640)
+    p.add_argument("--patch-size", dest="patch_size", type=int, default=None)
+    p.add_argument("--k-mosaic", dest="k_mosaic", type=int, default=2)
+    p.add_argument("--keep-res", dest="keep_res", type=float, default=-1)
+    p.add_argument("--masks", action="store_true")
+    p.add_argument("--bf16", action="store_true", default=True)
+    p.add_argument("--no-bf16", dest="bf16", action="store_false")
+    p.add_argument("--cos-lr", dest="cos_lr", action="store_true")
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--patience", type=int, default=30)
+    p.add_argument("--async-ckpt", dest="async_ckpt", action="store_true",
+                   help="write checkpoints in a background thread")
+    p.add_argument("--save-interval", dest="save_interval", type=int, default=1,
+                   help="write 'last' every N epochs (the final epoch always saves)")
+    p.add_argument("--val-interval", dest="val_interval", type=int, default=1,
+                   help="validate every N epochs (the final epoch always validates)")
+    p.add_argument("--workers", type=int, default=8)
+    p.add_argument("--device-augment", dest="device_augment", action="store_true",
+                   help="the augmentation recipe on the device (not ported)")
+    p.add_argument("--cache-images", dest="cache_images", action="store_true",
+                   help="keep decoded images in RAM")
+    p.add_argument("--cache-device", dest="cache_device", action="store_true",
+                   help="a device-resident dataset (not ported)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--bench-loop", dest="bench_loop", action="store_true",
+                   help="reuse the first (device-resident) batch every step: the step's "
+                        "ceiling with the data pipeline taken out")
+    p.add_argument("--max-targets", dest="max_targets", type=int, default=256)
+    p.add_argument("--mask-rois", dest="mask_rois", type=int, default=64)
+    p.add_argument("--max-masks", dest="max_masks", type=int, default=100)
+    p.add_argument("--save-dir", dest="save_dir", default="runs/train/exp")
+    p.add_argument("--exist-ok", dest="exist_ok", action="store_true",
+                   help="reuse --save-dir as it is instead of exp -> exp2")
+    p.add_argument("--optimizer", choices=["sgd", "adam", "adamw"], default="sgd")
+    p.add_argument("--verbose", action="store_true")
+    p.add_argument("--plots", action="store_true", help="training plots (not ported)")
+    p.add_argument("--autoanchor", action="store_true", help="anchor fit report (not ported)")
+    p.add_argument("--freeze", nargs="*", default=[],
+                   help="parameter-name substrings to freeze, e.g. backbone.0. headers.")
+    p.add_argument("--evolve", type=int, default=0, metavar="GENERATIONS",
+                   help="hyperparameter evolution (not ported)")
+    return p
+
+
+def main(argv=None):
+    return train(argument_parser().parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

@@ -48,6 +48,7 @@ KERNELS: Dict[str, list] = {
     "stem_k108": [],
     "stem_dot108": [],
     "stem_tc": [],
+    "roi_align_bwd": [],
 }
 
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
@@ -64,6 +65,7 @@ _SIGNATURES = {
     "stem_conv": ("stem", [_P] * 5 + [_I] * 13 + [_P]),
     "nms_keep": ("nms", [_P] * 5 + [_I, _I, _I, _F, _I, _P]),
     "roi_align_bounded": ("roi_align", [_P, _I] + [_P] * 6 + [_I] * 8 + [_P]),
+    "roi_align_bounded_bwd": ("roi_align_bwd", [_P, _I] + [_P] * 6 + [_I] * 8 + [_P]),
     "mask_head": ("mask_head", [_P] * 9 + [_I, _I, _P]),
     "roi_align_levels": ("roi_align_single", [ctypes.c_char_p, _I, _P] + [_I] * 7 + [_P]),
     "roi_align_levels_limits": ("roi_align_single", [_I]),

@@ -44,7 +44,7 @@
 // channel slabs.  ROIs at or past the device-side `active` count are written
 // as zeros with 16-byte stores.  No atomics: a relaunch is bit-identical.
 
-#include "common.cuh"
+#include "roi_taps.cuh"
 
 namespace {
 
@@ -98,34 +98,6 @@ template <> struct Vec<float> {
   }
   static __device__ __forceinline__ float round(float w) { return w; }
 };
-
-// One sample coordinate → its two window-local taps (index -1: no
-// contribution) and their weights, in the op order of
-// `_bounded_interp_matrix`; two taps on one index are merged as its
-// (grid == low) + (grid == high) sum.
-__device__ __forceinline__ void sample_taps(float c, float lo, float hi, int win, int* idx,
-                                            float* w) {
-  const bool in_range = (c > lo - 1.f) && (c < hi);
-  const float cc = fminf(fmaxf(c, lo), hi - 1.f);
-  const float low = floorf(cc);
-  const float lw = cc - low;
-  const float high = fminf(low + 1.f, hi - 1.f);
-  const float inr = in_range ? 1.f : 0.f;
-  const float a = (1.f - lw) * inr, b = lw * inr;
-  const bool ok0 = in_range && low >= 0.f && low < static_cast<float>(win);
-  const bool ok1 = in_range && high >= 0.f && high < static_cast<float>(win);
-  if (high == low) {
-    idx[0] = ok0 ? static_cast<int>(low) : -1;
-    w[0] = a + b;
-    idx[1] = -1;
-    w[1] = 0.f;
-  } else {
-    idx[0] = ok0 ? static_cast<int>(low) : -1;
-    w[0] = a;
-    idx[1] = ok1 ? static_cast<int>(high) : -1;
-    w[1] = b;
-  }
-}
 
 // acc = Σ_e w[e] · vector(e) over a bin's `cnt` entries, in entry order,
 // f32.  The first four vectors (all of them when n = 2) are loaded before
@@ -192,8 +164,8 @@ roi_align_kernel(const Levels lv, const int4* __restrict__ meta, const float* __
   for (int s = tid; s < 2 * S; s += NTHREADS) {
     const int ax = s >= S, q = s - ax * S;
     const float c = (ax ? xs : ys)[static_cast<size_t>(k) * S + q];
-    sample_taps(c, ax ? bd.z : bd.x, ax ? bd.w : bd.y, ax ? win_w : win_h, &s_idx[ax][2 * q],
-                &s_w[ax][2 * q]);
+    hdy::sample_taps(c, ax ? bd.z : bd.x, ax ? bd.w : bd.y, ax ? win_w : win_h,
+                     &s_idx[ax][2 * q], &s_w[ax][2 * q]);
   }
   __syncthreads();
 

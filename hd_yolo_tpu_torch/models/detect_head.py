@@ -1,7 +1,15 @@
-"""Detect header, inference: per-level 1x1 det convs, sigmoid decode, per-image
-NMS, hierarchical label scores, and both mask branches: per image (no
-``mask_budget``, the default) and occupancy-packed (port of
-``hd_yolo_tpu/models/detect_head.py``; training losses are not ported yet).
+"""Detect header (port of ``hd_yolo_tpu/models/detect_head.py``).
+
+Inference: per-level 1x1 det convs, sigmoid decode, per-image NMS,
+hierarchical label scores, and both mask branches: per image (no
+``mask_budget``, the default) and occupancy-packed.
+
+Training (``Detect.losses``): the anchor/cell matcher, ``det_loss``, and the
+mask loss on the best-IoU proposal of each object (top ``mask_rois`` an
+image by IoU), pooled through the differentiable bounded ROI-align and the
+plain mask-head chain (``MaskHead.forward``), as the JAX package trains its
+flax mask head.  In training mode it returns losses only; in eval mode with
+targets (validation) losses and inference outputs.
 
 Reference key layout: ``m.l`` (det convs), ``seg.k`` (the mask-branch 3x3
 ConvBnAct of level ``nl-1-k``: the reference builds its list top-down),
@@ -18,15 +26,25 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.boxes import paired_box_iou, xywh2xyxy, xyxy2xywh
 from ..ops.nms import nms_per_image
 from ..ops.pallas_mask_head import fused_mask_probs
 from ..ops.roi_align import multiscale_roi_align_canvas, multiscale_roi_align_packed
+from ..ops.scatter import segment_max_with_argmax
 from .builder import HeaderSpec
 from .layers import ConvBnAct, cached, conv
+from .losses import det_loss, get_loss_hyp, seg_loss
+from .matcher import match_targets
 
 Tensor = torch.Tensor
 
 DEFAULT_NMS_PARAMS = {"conf_thres": 0.15, "iou_thres": 0.45, "max_det": 300}
+
+
+def one_hot_labels(labels: Tensor, nc: int) -> Tensor:
+    """Int labels (1..nc; 0 / −100 = unlabeled) → (..., nc+1) f32 one-hot,
+    column 0 = unlabeled."""
+    return F.one_hot(labels.long().clamp(0, nc), nc + 1).float()
 
 
 class _MaskHeads(nn.Module):
@@ -60,21 +78,26 @@ class MaskHead(nn.Module):
         return [getattr(self.maskrcnn_heads, f"mask_fcn{j}") for j in range(1, 5)]
 
     def forward(self, x: Tensor) -> Tensor:
+        """(N, M, M, C) → (N, 2M, 2M, nc_masks) logits, weights cast to ``x``'s dtype."""
         y = x.permute(0, 3, 1, 2)
-        for conv in self.fcn:
-            y = F.relu(conv(y))
-        y = F.relu(self.maskrcnn_preds.conv5_mask(y))
-        return self.maskrcnn_preds.mask_fcn_logits(y).permute(0, 2, 3, 1)
+        cast = lambda t: t.to(y.dtype)
+        for c in self.fcn:
+            y = F.relu(F.conv2d(y, cast(c.weight), cast(c.bias), padding=1))
+        d, lg = self.maskrcnn_preds.conv5_mask, self.maskrcnn_preds.mask_fcn_logits
+        y = F.relu(F.conv_transpose2d(y, cast(d.weight), cast(d.bias), stride=2))
+        return F.conv2d(y, cast(lg.weight), cast(lg.bias)).permute(0, 2, 3, 1)
 
 
 class Detect(nn.Module):
     def __init__(self, spec: HeaderSpec, pre_nms_topk: int = 1024, max_masks: int = 100,
                  dim_reduced: int = 256, mask_output_size: int = 28,
-                 mask_window: Optional[int] = None, mask_budget: Optional[int] = None):
+                 mask_window: Optional[int] = None, mask_budget: Optional[int] = None,
+                 mask_rois: int = 64):
         super().__init__()
         self.spec = spec
         self.pre_nms_topk = pre_nms_topk
         self.max_masks = max_masks
+        self.mask_rois = mask_rois
         self.dim_reduced = dim_reduced
         self.mask_output_size = mask_output_size
         self.mask_window = mask_window
@@ -118,6 +141,15 @@ class Detect(nn.Module):
         p.update(dict(self.spec.nms_params))
         return p
 
+    @property
+    def loss_hyp(self) -> dict:
+        return get_loss_hyp(dict(self.spec.loss_hyp))
+
+    def anchors_cells(self, device) -> List[Tensor]:
+        """Per-level (A, 2) anchors in feature-cell units."""
+        return [torch.tensor(row, dtype=torch.float32, device=device).reshape(-1, 2) / s
+                for row, s in zip(self.spec.anchors, self.spec.strides)]
+
     def seg_conv(self, level: int) -> ConvBnAct:
         return self.seg[self.nl - 1 - level]
 
@@ -132,13 +164,17 @@ class Detect(nn.Module):
             conv.bias.copy_(b.reshape(-1))
 
     # --------------------------------------------------------------- forward
-    def forward(self, features: Sequence[Tensor], compute_masks: bool = True) -> Dict[str, Tensor]:
-        """features: per level NCHW (channels-last) → inference outputs."""
-        compute_masks = compute_masks and self.nc_masks > 0
+    def _heads(self, features: Sequence[Tensor], compute_masks: bool):
+        """Per level the det logits (B, ny, nx, A, no) and, with masks, the
+        NHWC mask-branch features.  Training reads the det convs' weights
+        directly (differentiable), inference their cached casts."""
         dets = []
         for m, f in zip(self.m, features):
-            w, b = cached(m, f"w_{f.dtype}", (m.weight, m.bias),
-                          lambda: (m.weight.to(f.dtype), m.bias.to(f.dtype)))
+            if self.training:
+                w, b = m.weight.to(f.dtype), m.bias.to(f.dtype)
+            else:
+                w, b = cached(m, f"w_{f.dtype}", (m.weight, m.bias),
+                              lambda: (m.weight.to(f.dtype), m.bias.to(f.dtype)))
             d = conv(f, w, b)
             B, _, ny, nx = d.shape
             dets.append(d.permute(0, 2, 3, 1).reshape(B, ny, nx, self.na, self.no))
@@ -146,7 +182,121 @@ class Detect(nn.Module):
         if compute_masks:
             seg_feats = [self.seg_conv(i)(f).permute(0, 2, 3, 1)
                          for i, f in enumerate(features)]
+        return dets, seg_feats
+
+    def forward(self, features: Sequence[Tensor], compute_masks: bool = True) -> Dict[str, Tensor]:
+        """features: per level NCHW (channels-last) → inference outputs."""
+        compute_masks = compute_masks and self.nc_masks > 0
+        dets, seg_feats = self._heads(features, compute_masks)
         return self._compute_outputs(dets, seg_feats, compute_masks)
+
+    def losses(self, features: Sequence[Tensor], targets: Dict[str, Tensor],
+               compute_masks: bool = True):
+        """(losses, outputs): in training mode the losses and no outputs, in
+        eval mode (validation) the losses and the inference outputs.
+        ``targets``: boxes (B, T, 4) normalized xyxy, labels (B, T) ints or
+        (B, T, nc+1) one-hot, masks (B, T, 28, 28), valid (B, T) and
+        optionally active (B,)."""
+        compute_masks = compute_masks and self.nc_masks > 0
+        dets, seg_feats = self._heads(features, compute_masks)
+        losses = self._compute_losses(dets, seg_feats, targets, compute_masks)
+        outputs = {} if self.training else self._compute_outputs(dets, seg_feats, compute_masks)
+        return losses, outputs
+
+    # -------------------------------------------------------------- training
+    def _compute_losses(self, dets, seg_feats, targets: Dict[str, Tensor],
+                        compute_masks: bool) -> Dict[str, object]:
+        hyp = self.loss_hyp
+        tvalid = targets["valid"].bool()
+        active = targets["active"].bool() if "active" in targets else tvalid.any(-1)
+        labels = targets["labels"]
+        labels_oh = one_hot_labels(labels, self.nc) if labels.dim() == 2 else labels.float()
+        boxes_n = xyxy2xywh(targets["boxes"].float().clamp(0.0, 1.0))
+        level_shapes = [(d.shape[1], d.shape[2]) for d in dets]
+        matches = match_targets(boxes_n, tvalid, self.anchors_cells(tvalid.device), level_shapes,
+                                hyp["anchor_t"])
+        dloss, items, _ = det_loss(dets, matches, labels_oh, active, hyp, self.nc)
+        if compute_masks:
+            mloss = self._mask_loss(dets, seg_feats, matches, targets, labels_oh, active)
+        else:
+            mloss = torch.zeros_like(dloss)
+        items = dict(items)
+        items["mask"] = mloss.detach()
+        return {"det_loss": dloss, "mask_loss": mloss, "loss_items": items}
+
+    def _mask_loss(self, dets, seg_feats, matches, targets, labels_oh, active) -> Tensor:
+        """Best-IoU-proposal-per-object mask loss: each object's winner is its
+        matched candidate whose decoded box has the highest pixel IoU with
+        the object's box (>= ``mask_iou_t``); each image pools its top
+        ``mask_rois`` winners by IoU on the winner's level."""
+        hyp = self.loss_hyp
+        tvalid = targets["valid"].bool()
+        B, T = tvalid.shape
+        dev = tvalid.device
+        s0 = self.spec.strides[0]
+        input_w, input_h = dets[0].shape[2] * s0, dets[0].shape[1] * s0
+        gt_boxes_px = targets["boxes"].float() * torch.tensor(
+            [input_w, input_h, input_w, input_h], dtype=torch.float32, device=dev)
+
+        all_iou, all_obj, all_lvl, all_valid = [], [], [], []
+        for i, (pi, m) in enumerate(zip(dets, matches)):
+            s = self.spec.strides[i]
+            pr = pi[m.b, m.gj, m.gi, m.a].float()
+            pxy = (torch.sigmoid(pr[:, 0:2]) * 2.0 - 0.5
+                   + torch.stack([m.gi.float(), m.gj.float()], -1)) * s
+            pwh = (torch.sigmoid(pr[:, 2:4]) * 2.0) ** 2 * m.anchor_wh * s
+            pbox = xywh2xyxy(torch.cat([pxy, pwh], -1))
+            iou = paired_box_iou(pbox, gt_boxes_px.reshape(B * T, 4)[m.obj_idx])
+            mvalid = m.valid & active[m.b]
+            all_iou.append(torch.where(mvalid, iou, torch.full_like(iou, -1.0)))
+            all_obj.append(m.obj_idx)
+            all_lvl.append(torch.full_like(m.obj_idx, i))
+            all_valid.append(mvalid)
+        iou_cat = torch.cat(all_iou).detach()
+        obj_cat, lvl_cat, valid_cat = torch.cat(all_obj), torch.cat(all_lvl), torch.cat(all_valid)
+        obj_for_seg = torch.where(valid_cat, obj_cat, torch.full_like(obj_cat, B * T))
+
+        mask_iou_t = float(hyp.get("mask_iou_t", 0.8))
+        best_iou, best_arg = segment_max_with_argmax(iou_cat, obj_for_seg, B * T)
+        n_cand = iou_cat.shape[0]
+        has_winner = (best_arg < n_cand) & (best_iou >= mask_iou_t)
+        win_level = torch.where(has_winner, lvl_cat[best_arg.clamp(0, n_cand - 1)],
+                                torch.zeros_like(best_arg)).reshape(B, T)
+        win_ok = has_winner.reshape(B, T) & tvalid
+
+        # top-R winners of each image by IoU; lax.top_k's order: descending,
+        # ties to the lower index (a stable sort)
+        R = min(self.mask_rois, T)
+        rank_score = torch.where(win_ok, best_iou.reshape(B, T),
+                                 torch.full_like(best_iou.reshape(B, T), -math.inf))
+        top_iou, top_t = torch.sort(rank_score, dim=1, descending=True, stable=True)
+        top_iou, top_t = top_iou[:, :R], top_t[:, :R]
+        roi_valid = torch.isfinite(top_iou) & (top_iou >= mask_iou_t)
+
+        roi_boxes = torch.take_along_dim(gt_boxes_px, top_t[..., None], 1)          # (B, R, 4)
+        roi_levels = torch.take_along_dim(win_level, top_t, 1)
+        roi_masks = torch.take_along_dim(targets["masks"].float(), top_t[..., None, None], 1)
+        roi_labels_oh = torch.take_along_dim(labels_oh, top_t[..., None], 1)
+
+        M = self.mask_output_size // 2
+        if self.mask_window is None:
+            pooled = multiscale_roi_align_canvas(seg_feats, roi_boxes, roi_levels,
+                                                 self.spec.strides, M).reshape(B * R, M, M, -1)
+        else:
+            b_idx = torch.arange(B, device=dev).repeat_interleave(R)
+            pooled = multiscale_roi_align_packed(
+                seg_feats, roi_boxes.reshape(B * R, 4), roi_levels.reshape(B * R), b_idx,
+                self.spec.strides, M, window=int(self.mask_window))
+        logits = self.seg_h(pooled)
+
+        # the lowest-level label picks the mask channel
+        hier_label = (roi_labels_oh * torch.arange(self.nc + 1, dtype=roi_labels_oh.dtype,
+                                                   device=dev)).argmax(-1)
+        mask_idx = torch.tensor(self.mask_indices_list, device=dev)
+        mask_labels = mask_idx[hier_label].reshape(B * R)
+        S = self.mask_output_size
+        return seg_loss(logits, roi_masks.reshape(B * R, S, S), mask_labels,
+                        roi_valid.reshape(B * R), hyp)
 
     def decode_proposals(self, dets: Sequence[Tensor]) -> Tensor:
         """(B, ny, nx, A, no) logits per level → (B, ΣK, no+1) decoded rows

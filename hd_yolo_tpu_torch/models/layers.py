@@ -1,4 +1,4 @@
-"""Trunk building blocks (port of ``hd_yolo_tpu/models/layers.py``, inference).
+"""Trunk building blocks (port of ``hd_yolo_tpu/models/layers.py``).
 
 Module and parameter names follow the reference torch layout
 (``conv``/``bn``, ``cv1``/``cv2``/``cv3``, ``m.j``), so a flax tree converted
@@ -15,6 +15,14 @@ masters (``cached``), not on every call.  A 1x1 conv runs as a matmul over
 the NHWC bytes (``F.linear``, bias added in the GEMM epilogue).  The first
 layer (a stem-shaped conv on <= 4 channels) goes through the stem kernel
 (``ops/pallas_stem.py``).
+
+In training mode (``module.training``) every conv runs differentiably as
+conv → BatchNorm on the batch's statistics → activation, with no folded
+weights, merged C3 convs or stem kernel (the JAX package's training forward
+also keeps its stem kernel off).  The statistics are f32 whatever the
+activation dtype and the output is in that dtype, as flax's BatchNorm; the
+running statistics follow flax: ``mean ← 0.97·mean + 0.03·batch_mean`` and
+``var ← 0.97·var + 0.03·batch_var`` with the biased batch variance.
 """
 
 from __future__ import annotations
@@ -57,11 +65,28 @@ def cached(module: nn.Module, name: str, sources, make):
     return hit[1]
 
 
-def conv(x: Tensor, w: Tensor, b: Tensor, stride=1, padding=0, groups: int = 1) -> Tensor:
+def conv(x: Tensor, w: Tensor, b: Optional[Tensor], stride=1, padding=0,
+         groups: int = 1) -> Tensor:
     """conv2d with bias; a 1x1/stride-1 conv runs as one matmul over the NHWC bytes."""
     if w.shape[2:] == (1, 1) and groups == 1 and tuple(_pair(stride)) == (1, 1):
         return F.linear(x.permute(0, 2, 3, 1), w[:, :, 0, 0], b).permute(0, 3, 1, 2)
     return F.conv2d(x, w, b, stride, padding, 1, groups)
+
+
+def batch_norm_train(x: Tensor, bn: nn.BatchNorm2d) -> Tensor:
+    """Training BatchNorm of the NCHW ``x``: normalized with the batch's f32
+    mean and biased variance, output in ``x``'s dtype; ``bn``'s running
+    statistics updated as flax updates them.  The kernel gets no buffers
+    (its own update would blend in the unbiased variance); the biased
+    variance is read back from the inverse standard deviation it saves,
+    which spares a second pass over ``x``."""
+    y, mean, invstd = torch.native_batch_norm(x, bn.weight, bn.bias, None, None, True, 0.0,
+                                              BN_EPS)
+    with torch.no_grad():
+        var = (invstd.float().reciprocal().square() - BN_EPS).clamp(min=0.0)
+        bn.running_mean.mul_(1.0 - BN_MOMENTUM).add_(BN_MOMENTUM * mean.float())
+        bn.running_var.mul_(1.0 - BN_MOMENTUM).add_(BN_MOMENTUM * var)
+    return y
 
 
 def _pair(v):
@@ -121,6 +146,10 @@ class ConvBnAct(nn.Module):
 
     def forward(self, x: Tensor, dtype: Optional[torch.dtype] = None) -> Tensor:
         dtype = dtype or x.dtype
+        if self.training:
+            c = self.conv
+            y = conv(x.to(dtype), c.weight.to(dtype), None, c.stride, c.padding, c.groups)
+            return self.act(batch_norm_train(y, self.bn))
         if self.is_stem(x):
             def make():
                 scale, shift = self.folded()
@@ -169,6 +198,9 @@ class C3(nn.Module):
         self.m = nn.Sequential(*(Bottleneck(c_, c_, shortcut, g, e=1.0) for _ in range(n)))
 
     def forward(self, x: Tensor) -> Tensor:
+        if self.training:
+            return self.cv3(torch.cat([self.m(self.cv1(x)), self.cv2(x)], 1))
+
         def make():
             w1, b1 = self.cv1.fused_weight(x.dtype)
             w2, b2 = self.cv2.fused_weight(x.dtype)

@@ -1,5 +1,10 @@
 """Model container: backbone → neck → Detect headers, from a parsed spec
-(port of ``hd_yolo_tpu/models/yolo.py``, inference).
+(port of ``hd_yolo_tpu/models/yolo.py``).
+
+``forward`` is the inference path (no autograd); ``losses`` is the training
+forward (``model.train()``: BatchNorm on batch statistics, losses only) and
+the validation forward with targets (``model.eval()``: losses and outputs).
+A model is built in eval mode.
 
 The module tree uses the reference torch key layout — ``backbone.i``,
 ``neck.j``, ``headers.<tag>`` — so converted flax weights and reference
@@ -44,7 +49,7 @@ def _build_layer(l, c_in: int) -> nn.Module:
 
 
 class Model(nn.Module):
-    """Config-driven multi-task detector (inference).
+    """Config-driven multi-task detector.
 
     Construct via ``Model.from_cfg('yolov5l6-mask', 'hyp-nuclei')``.
     ``dtype`` is the compute dtype of the activations; parameters stay f32.
@@ -52,7 +57,8 @@ class Model(nn.Module):
 
     def __init__(self, spec: NetworkSpec, dtype: torch.dtype = torch.float32,
                  pre_nms_topk: int = 1024, max_masks: int = 100, dim_reduced: int = 256,
-                 mask_window: Optional[int] = None, mask_budget: Optional[int] = None):
+                 mask_window: Optional[int] = None, mask_budget: Optional[int] = None,
+                 mask_rois: int = 64):
         super().__init__()
         self.spec = spec
         self.dtype = dtype
@@ -77,9 +83,10 @@ class Model(nn.Module):
         self.headers = nn.ModuleDict({
             h.tag: Detect(h, pre_nms_topk=pre_nms_topk, max_masks=max_masks,
                           dim_reduced=dim_reduced, mask_window=mask_window,
-                          mask_budget=mask_budget)
+                          mask_budget=mask_budget, mask_rois=mask_rois)
             for h in spec.headers
         })
+        self.eval()
 
     @classmethod
     def from_cfg(cls, cfg, hyp=None, **kwargs) -> "Model":
@@ -121,6 +128,58 @@ class Model(nn.Module):
             h.tag: self.headers[h.tag]([feats[j] for j in h.from_idx], compute_masks=compute_masks)
             for h in self.spec.headers
         }
+
+    def losses(self, x: Tensor, targets: Dict[str, Dict[str, Tensor]],
+               compute_masks: bool = True):
+        """(B, H, W, 3) batch and {task: targets} → ({task: losses}, {task:
+        outputs}): outputs are empty in training mode (``model.train()``)
+        and the inference outputs in eval mode."""
+        feats = self.trunk(x)
+        losses, outputs = {}, {}
+        for h in self.spec.headers:
+            losses[h.tag], outputs[h.tag] = self.headers[h.tag].losses(
+                [feats[j] for j in h.from_idx], targets[h.tag], compute_masks=compute_masks)
+        return losses, outputs
+
+    @staticmethod
+    def total_loss(losses: Dict[str, Dict], mask_weight: float = 1.0) -> Tensor:
+        """Σ over tasks of det + mask loss."""
+        total = 0.0
+        for task_losses in losses.values():
+            total = total + task_losses["det_loss"] + mask_weight * task_losses["mask_loss"]
+        return total
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        """Seeded weights for training from scratch, from flax's default
+        distributions: each conv and deconv kernel lecun-normal on its fan-in
+        (a normal truncated at ±2 standard deviations, scaled to variance
+        1/fan_in), zero biases, BatchNorm scale 1 and shift 0 with running
+        statistics 0 / 1, and the Detect prior biases."""
+        for mod in self.modules():
+            if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
+                w = mod.weight
+                # flax's fan-in: the kernel's (kh, kw, I) for a conv, the
+                # deconv's (kh, kw, I) too (its torch layout is (I, O, kh, kw))
+                fan_in = w[0].numel() if isinstance(mod, nn.Conv2d) else \
+                    w.shape[0] * w[0, 0].numel()
+                std = math.sqrt(1.0 / fan_in) / 0.87962566103423978   # truncnorm(-2, 2) std
+                t = torch.empty(w.shape).normal_(generator=generator)
+                while True:                                  # redraw past ±2
+                    bad = t.abs() > 2.0
+                    if not bad.any():
+                        break
+                    t[bad] = torch.empty(int(bad.sum())).normal_(generator=generator)
+                w.copy_(t * std)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, nn.BatchNorm2d):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+                mod.running_mean.zero_()
+                mod.running_var.fill_(1.0)
+        for det in self.headers.values():
+            det.init_det_bias()
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:

@@ -44,6 +44,15 @@ a fake implementation of its output shape), so ``torch.export`` keeps it as
 one call in the graph of the yolo forward; eager calls on the card go
 through the same op.  ``roi_align_levels`` (hnet's pyramid, not on an
 exported path) stays a plain ``ctypes`` wrapper.
+
+Training differentiates the bounded pooling with respect to the level maps:
+``RoiAlignBoundedFn`` runs ``roi_align_bounded`` forward and
+``roi_align_bounded_bwd`` backward, the op
+``hd_yolo_tpu_torch::roi_align_bounded_bwd`` of ``kernels/roi_align_bwd.cu``
+on the card (the adjoint: each tap's ``g · wy · wx`` added into f32 level
+gradients, cast to the levels' dtype), and on CPU levels the plain version,
+the autograd of ``roi_align_bounded_plain``.  The coordinates, bounds and
+boxes get no gradient.
 """
 
 from __future__ import annotations
@@ -174,6 +183,115 @@ roi_align_bounded_op = kernels.register_op(
     "roi_align_bounded", "(Tensor[] levels, Tensor meta, Tensor ys, Tensor xs, Tensor bounds, "
                          "int win_h, int win_w, int M, int n, Tensor? active) -> Tensor",
     _launch_bounded, _bounded_fake)
+
+
+def roi_align_bounded_bwd_plain(grad_out: Tensor, levels: Sequence[Tensor], meta: Tensor,
+                                ys: Tensor, xs: Tensor, bounds: Tensor, window: Tuple[int, int],
+                                M: int, n: int, active: Optional[Tensor] = None) -> List[Tensor]:
+    """The plain version of ``roi_align_bounded_bwd``: the autograd of
+    ``roi_align_bounded_plain`` with respect to the levels."""
+    leaves = [f.detach().requires_grad_() for f in levels]
+    with torch.enable_grad():
+        out = roi_align_bounded_plain(leaves, meta, ys, xs, bounds, window, M, n, active)
+    grads = torch.autograd.grad(out, leaves, grad_out.to(out.dtype), allow_unused=True)
+    return [torch.zeros_like(f) if g is None else g for f, g in zip(levels, grads)]
+
+
+def roi_align_bounded_bwd(grad_out: Tensor, levels: Sequence[Tensor], meta: Tensor, ys: Tensor,
+                          xs: Tensor, bounds: Tensor, window: Tuple[int, int], M: int, n: int,
+                          active: Optional[Tensor] = None) -> List[Tensor]:
+    """The gradient of ``roi_align_bounded``'s output with respect to each
+    level map: grad_out (K, M, M, C), the forward's arguments → per level a
+    (B, H_l, W_l, C) gradient in the levels' dtype.  Reads only the levels'
+    shapes and dtype.  The kernel on CUDA levels, the plain version on CPU
+    levels."""
+    levels = list(levels)
+    f0 = levels[0]
+    if f0.device.type == "cpu":
+        return roi_align_bounded_bwd_plain(grad_out, levels, meta, ys, xs, bounds, window, M, n,
+                                           active)
+    B, C, dtype = f0.shape[0], f0.shape[-1], f0.dtype
+    K = meta.shape[0]
+    if (dtype not in (torch.float32, torch.bfloat16)
+            or any(f.dim() != 4 or f.dtype != dtype or f.shape[0] != B or f.shape[-1] != C
+                   for f in levels)):
+        raise ValueError(f"roi_align_bwd kernel takes (B, H, W, C) f32/bf16 levels of one dtype, "
+                         f"batch and C, got {[(f.dtype, tuple(f.shape)) for f in levels]}")
+    if not 1 <= len(levels) <= MAX_LEVELS or M * n > 64:
+        raise ValueError(f"roi_align_bwd kernel takes 1 to {MAX_LEVELS} levels and at most 64 "
+                         f"samples per axis, got {len(levels)} and {M * n}")
+    if grad_out.shape != (K, M, M, C) or meta.shape != (K, 4) or bounds.shape != (K, 4) \
+            or ys.shape != (K, M * n) or xs.shape != (K, M * n):
+        raise ValueError(f"roi_align_bwd kernel takes grad ({K}, {M}, {M}, {C}), meta/bounds "
+                         f"({K}, 4) and ys/xs ({K}, {M * n}), got {tuple(grad_out.shape)} "
+                         f"{tuple(meta.shape)} {tuple(bounds.shape)} {tuple(ys.shape)} "
+                         f"{tuple(xs.shape)}")
+    grad_out = _dense(grad_out, dtype)
+    meta, ys, xs, bounds = (_dense(meta, torch.int32), _dense(ys, torch.float32),
+                            _dense(xs, torch.float32), _dense(bounds, torch.float32))
+    tensors = [grad_out, meta, ys, xs, bounds]
+    if active is not None:
+        active = _dense(active, torch.int64).reshape(())
+        tensors.append(active)
+    kernels.require_cuda(*tensors)
+    if any(f.device != f0.device for f in levels) or f0.device != meta.device:
+        raise ValueError("roi_align_bwd kernel inputs must share one CUDA device")
+    return roi_align_bounded_bwd_op(grad_out, levels, meta, ys, xs, bounds, int(window[0]),
+                                    int(window[1]), int(M), int(n), active)
+
+
+def _launch_bounded_bwd(grad_out, levels, meta, ys, xs, bounds, win_h: int, win_w: int, M: int,
+                        n: int, active: Optional[Tensor]) -> List[Tensor]:
+    f0 = levels[0]
+    K, C, dtype = meta.shape[0], f0.shape[-1], f0.dtype
+    outs = [torch.empty(f.shape, dtype=dtype, device=f0.device) for f in levels]
+    # bf16 levels: the scatter sums into f32 buffers, cast into the outputs
+    accs = outs if dtype == torch.float32 else \
+        [torch.empty(f.shape, dtype=torch.float32, device=f0.device) for f in levels]
+    table = (ctypes.c_longlong * (6 * len(levels)))(*[
+        v for a, o, f, off in zip(accs, outs, levels, level_offsets(levels))
+        for v in (a.data_ptr(), o.data_ptr(), f.shape[1], f.shape[2], off, f.numel())])
+    dev, stream = kernels.device_and_stream(f0)
+    code = kernels.fn("roi_align_bounded_bwd")(
+        ctypes.addressof(table), len(levels), grad_out.data_ptr(), meta.data_ptr(),
+        ys.data_ptr(), xs.data_ptr(), bounds.data_ptr(),
+        None if active is None else active.data_ptr(), K, C, win_h, win_w, M, n,
+        1 if dtype == torch.bfloat16 else 0, dev, stream)
+    kernels.check(code, "roi_align_bounded_bwd")
+    kernels.LAUNCHES["roi_align_bwd"] += 1
+    return outs
+
+
+def _bounded_bwd_fake(grad_out, levels, meta, ys, xs, bounds, win_h, win_w, M, n, active):
+    return [f.new_empty(f.shape) for f in levels]
+
+
+roi_align_bounded_bwd_op = kernels.register_op(
+    "roi_align_bounded_bwd",
+    "(Tensor grad_out, Tensor[] levels, Tensor meta, Tensor ys, Tensor xs, Tensor bounds, "
+    "int win_h, int win_w, int M, int n, Tensor? active) -> Tensor[]",
+    _launch_bounded_bwd, _bounded_bwd_fake)
+
+
+class RoiAlignBoundedFn(torch.autograd.Function):
+    """``roi_align_bounded`` differentiable in the level maps:
+    ``apply(meta, ys, xs, bounds, window, M, n, active, *levels)``.  The
+    forward is ``roi_align_bounded``, the backward ``roi_align_bounded_bwd``
+    (both the kernel on CUDA levels, the plain version on CPU levels)."""
+
+    @staticmethod
+    def forward(ctx, meta, ys, xs, bounds, window, M, n, active, *levels):
+        ctx.args = (window, M, n)
+        ctx.save_for_backward(meta, ys, xs, bounds, active, *levels)
+        return roi_align_bounded(levels, meta, ys, xs, bounds, window, M, n, active)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        meta, ys, xs, bounds, active, *levels = ctx.saved_tensors
+        window, M, n = ctx.args
+        grads = roi_align_bounded_bwd(grad_out, levels, meta, ys, xs, bounds, window, M, n,
+                                      active)
+        return (None,) * 8 + tuple(grads)
 
 
 def roi_align_levels_plain(features: Sequence[Tensor], rois: Tensor, sizes: Sequence[int],

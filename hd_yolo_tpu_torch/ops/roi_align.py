@@ -21,6 +21,12 @@ float32 with the JAX package's op order; the pooling itself is
 in place (canvas row r of level l is its row r - moff_l) — the CUDA kernel
 for CUDA maps, its plain version for CPU maps.  Only the plain einsum form
 ``_multiscale_roi_align_canvas`` builds the canvas (``level_canvas``).
+
+Under autograd (grad enabled and a level map that requires it: the training
+step's mask loss) both multiscale forms pool through
+``pallas_roi_align.RoiAlignBoundedFn``, whose backward is the level
+gradient (the kernel ``roi_align_bwd`` on the card); otherwise they call
+the op directly.
 """
 
 from __future__ import annotations
@@ -179,6 +185,16 @@ def _multiscale_roi_align_canvas(features: Sequence[Tensor], boxes: Tensor, leve
     return out.to(features[0].dtype)
 
 
+def _pool_bounded(levels, meta, ys, xs, bounds, window, M, n, active=None) -> Tensor:
+    """``roi_align_bounded``, through ``RoiAlignBoundedFn`` when autograd
+    needs the levels' gradient."""
+    from .pallas_roi_align import RoiAlignBoundedFn, roi_align_bounded
+
+    if torch.is_grad_enabled() and any(f.requires_grad for f in levels):
+        return RoiAlignBoundedFn.apply(meta, ys, xs, bounds, window, M, n, active, *levels)
+    return roi_align_bounded(levels, meta, ys, xs, bounds, window, M, n, active)
+
+
 def multiscale_roi_align_packed(features: Sequence[Tensor], boxes: Tensor, levels: Tensor,
                                 batch_idx: Tensor, strides: Sequence[float], output_size: int,
                                 sampling_ratio: int = 2, aligned: bool = False,
@@ -194,8 +210,6 @@ def multiscale_roi_align_packed(features: Sequence[Tensor], boxes: Tensor, level
     the pooling reads each ROI's level map in place.  ``active`` (a 0-d
     integer tensor) pools only the leading ROIs; the rest come out 0.
     """
-    from .pallas_roi_align import roi_align_bounded
-
     M, n = output_size, sampling_ratio
     S = M * n
     meta = level_meta(features, strides)
@@ -210,8 +224,8 @@ def multiscale_roi_align_packed(features: Sequence[Tensor], boxes: Tensor, level
     bounds = torch.stack([moff - oyf, moff + mh - oyf, -oxf, mw - oxf], -1)
     b_idx = batch_idx.to(torch.int32).clamp(0, B - 1)
     roi_meta = torch.stack([b_idx, oy, ox, lv], -1)
-    return roi_align_bounded(features, roi_meta, ys - oyf[:, None], xs - oxf[:, None], bounds,
-                             (win, win), M, n, active)
+    return _pool_bounded(list(features), roi_meta, ys - oyf[:, None], xs - oxf[:, None], bounds,
+                         (win, win), M, n, active)
 
 
 def multiscale_roi_align_canvas(features: Sequence[Tensor], boxes: Tensor, levels: Tensor,
@@ -220,8 +234,6 @@ def multiscale_roi_align_canvas(features: Sequence[Tensor], boxes: Tensor, level
     """Exact canvas semantics through the bounded ROI-align (kernel on CUDA):
     (B, K) ROIs, each against its image's whole level-stacked canvas, read
     from the level maps in place → (B, K, M, M, C)."""
-    from .pallas_roi_align import roi_align_bounded
-
     M, n = output_size, sampling_ratio
     meta = level_meta(features, strides)
     B, W0, C = features[0].shape[0], features[0].shape[2], features[0].shape[3]
@@ -233,5 +245,5 @@ def multiscale_roi_align_canvas(features: Sequence[Tensor], boxes: Tensor, level
     b_idx = torch.arange(B, dtype=torch.int32, device=boxes.device).repeat_interleave(K)
     zero = torch.zeros_like(b_idx)
     roi_meta = torch.stack([b_idx, zero, zero, lv], -1)
-    out = roi_align_bounded(features, roi_meta, ys, xs, bounds, (Ht, W0), M, n)
+    out = _pool_bounded(list(features), roi_meta, ys, xs, bounds, (Ht, W0), M, n)
     return out.reshape(B, K, M, M, C)

@@ -221,6 +221,77 @@ def hnet_state_dict_from_flax(variables_np: Mapping, cfg: Mapping) -> Dict[str, 
     return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
 
 
+def _find(node, field: str) -> list:
+    """Every namedtuple in an optax state tree that has ``field``, in tree order."""
+    out = []
+    if hasattr(node, "_fields"):
+        if field in node._fields:
+            out.append(node)
+        for v in node:
+            out += _find(v, field)
+    elif isinstance(node, (list, tuple)):
+        for v in node:
+            out += _find(v, field)
+    elif isinstance(node, dict):
+        for v in node.values():
+            out += _find(v, field)
+    return out
+
+
+def _merge_masked(trees: list, like):
+    """One params tree from several ``multi_transform`` group trees, each
+    holding arrays for its group's leaves and ``MaskedNode`` elsewhere; a
+    leaf no group holds (frozen) is zeros shaped as in ``like``."""
+    if isinstance(like, dict):
+        return {k: _merge_masked([t[k] for t in trees], like[k]) for k in like}
+    for t in trees:
+        if not (hasattr(t, "_fields") and type(t).__name__ == "MaskedNode"):
+            return np.asarray(t)
+    return np.zeros_like(np.asarray(like))
+
+
+def train_state_from_flax(state, model, opt, ema) -> None:
+    """Load the JAX package's ``TrainState`` (its arrays as numpy; params,
+    batch_stats, the optax state of ``engines/optim.build_optimizer`` —
+    ``apply_if_finite``, ``MultiSteps``, the SGD traces or Adam moments of
+    each group —, EMA and step) into the port's ``model``, optimizer ``opt``
+    and ``ema`` (``engines/optim``), in place.  Returns the step as an int.
+    Frozen parameters have no optimizer state in the JAX tree and get 0."""
+    spec = model.spec
+    stats = state.batch_stats
+    model.load_state_dict(state_dict_from_flax({"params": state.params, "batch_stats": stats},
+                                                spec))
+    names = opt.names
+
+    def to_t(tree):
+        sd = state_dict_from_flax({"params": tree, "batch_stats": stats}, spec)
+        return [sd[n] for n in names]
+
+    st = opt.state
+    fin = _find(state.opt_state, "notfinite_count")
+    if fin:
+        st["notfinite"] = torch.tensor(int(np.asarray(fin[0].notfinite_count)))
+    multi = _find(state.opt_state, "mini_step")
+    if multi and "acc" in st:
+        st["mini_step"] = torch.tensor(int(np.asarray(multi[0].mini_step)))
+        st["acc"] = to_t(multi[0].acc_grads)
+    counts = _find(state.opt_state, "hyperparams")
+    if counts:
+        st["count"] = torch.tensor(int(np.asarray(counts[0].count)))
+    traces = _find(state.opt_state, "trace") or _find(state.opt_state, "mu")
+    first = "trace" if _find(state.opt_state, "trace") else "mu"
+    st["trace"] = to_t(_merge_masked([getattr(t, first) for t in traces], state.params))
+    if "nu" in st:
+        st["nu"] = to_t(_merge_masked([t.nu for t in _find(state.opt_state, "nu")],
+                                      state.params))
+    dev = opt.params[0].device
+    for k, v in list(st.items()):
+        st[k] = v.to(dev) if torch.is_tensor(v) else [t.to(dev).contiguous() for t in v]
+    ema.params = [t.to(dev).contiguous() for t in to_t(state.ema.params)]
+    ema.updates = torch.tensor(int(np.asarray(state.ema.updates))).to(dev)
+    return int(np.asarray(state.step))
+
+
 def load_weights(model, path: str) -> None:
     """Load a port/reference ``.pt`` state_dict (also inside ``{'model'|'ema': ...}``)
     or a pickled flax ``{'params', 'batch_stats'}`` tree into ``model``,

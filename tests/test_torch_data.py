@@ -173,8 +173,13 @@ def test_loader_raises_a_worker_failure(eval_set, tmp_path):
 
 
 def test_train_dataset_waits_for_training(eval_set):
-    with pytest.raises(NotImplementedError, match="A.4"):
-        tds.DetectionDataset(eval_set, {"img_size": 64}, train=True)
+    """``train=True`` no longer waits: it serves augmented mosaic samples of
+    the padded schema (held against JAX in ``test_torch_augment.py``)."""
+    ds = tds.DetectionDataset(eval_set, {"img_size": 64}, train=True, max_targets=8)
+    s = ds[0]
+    assert s["image"].shape == (64, 64, 3) and s["image"].dtype == np.uint8
+    assert s["targets"]["det"]["boxes"].shape == (8, 4)
+    assert s["targets"]["det"]["masks"].shape == (8, 28, 28)
 
 
 def test_annotation_files_equal_jax(tmp_path):

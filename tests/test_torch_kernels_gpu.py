@@ -500,3 +500,87 @@ def test_exported_flagship_equals_eager(cuda, tmp_path):
     assert int(want["detSC"]["mask_valid"].sum()) > 0
     for k, v in want["detSC"].items():
         assert torch.equal(got["detSC"][k], v), k
+
+
+def _bwd_case(gen, B, K, sizes, C, dtype, M=14, n=2, dev="cuda"):
+    """Whole-canvas bounded ROI-align arguments (the training call's form)
+    and an output gradient."""
+    from hd_yolo_tpu_torch.ops.roi_align import level_meta, sample_coords
+
+    strides = [8.0 * 2 ** i for i in range(len(sizes))]
+    feats = [torch.randn((B, h, w, C), generator=gen, device=dev).to(dtype) for h, w in sizes]
+    img = sizes[0][0] * 8
+    xy = torch.rand((B * K, 2), generator=gen, device=dev) * img * 0.9 - 8
+    boxes = torch.cat([xy, xy + torch.rand((B * K, 2), generator=gen, device=dev) * 60 + 2], -1)
+    lv = torch.randint(0, len(sizes), (B * K,), generator=gen, device=dev).to(torch.int32)
+    meta = level_meta(feats, strides)
+    ys, xs, moff, mh, mw = sample_coords(boxes, lv, meta, M * n, False)
+    bounds = torch.stack([moff, moff + mh, torch.zeros_like(mw), mw], -1)
+    b = torch.arange(B, dtype=torch.int32, device=dev).repeat_interleave(K)
+    z = torch.zeros_like(b)
+    window = (sum(h for h, _ in sizes), sizes[0][1])
+    g = torch.randn((B * K, M, M, C), generator=gen, device=dev).to(dtype)
+    return g, feats, torch.stack([b, z, z, lv], -1), ys, xs, bounds, window, M, n
+
+
+@pytest.mark.parametrize("B,K,sizes,C,dtype,rel", [
+    (2, 5, ((23, 17), (12, 9), (6, 5)), 8, torch.float32, 1e-5),
+    (2, 7, ((40, 40), (20, 20)), 16, torch.bfloat16, 2e-2),
+    (16, 64, ((80, 80), (40, 40), (20, 20), (10, 10)), 256, torch.bfloat16, 2e-2),
+])
+def test_roi_align_bwd_kernel_matches_plain_autograd(cuda, B, K, sizes, C, dtype, rel):
+    """The backward kernel against the plain version's autograd on the card,
+    per level within ``rel``·max|plain| (f32: atomics sum in another order;
+    bf16: the plain autograd rounds its intermediate gradients to bf16 and
+    sums the index backward in bf16, the kernel sums in f32)."""
+    args = _bwd_case(cuda, B, K, sizes, C, dtype)
+    n0 = kernels.LAUNCHES["roi_align_bwd"]
+    got = pallas_roi_align.roi_align_bounded_bwd(*args)
+    assert kernels.LAUNCHES["roi_align_bwd"] == n0 + 1
+    want = pallas_roi_align.roi_align_bounded_bwd_plain(*args)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert float((a.float() - b.float()).abs().max()) <= rel * float(b.float().abs().max())
+    active = torch.tensor(3, device="cuda")
+    part = pallas_roi_align.roi_align_bounded_bwd(*args, active)
+    first = pallas_roi_align.roi_align_bounded_bwd(args[0][:3], args[1], *[a[:3] for a in args[2:6]],
+                                                   *args[6:])
+    for a, b in zip(part, first):
+        assert float((a.float() - b.float()).abs().max()) <= 1e-5 * max(float(b.float().abs().max()), 1)
+
+
+def test_roi_align_function_gradient_through_model_losses(cuda):
+    """``Model.losses`` on the card (yolov5s-test, 128 px, f32): the level
+    gradient goes through ``RoiAlignBoundedFn`` to the kernel (one launch
+    each way) and the gradients of the seg convs match the CPU's within
+    2e-2·max|g| (the mask branch's cancelling sums, as the CPU tests state)."""
+    import numpy as np
+
+    from hd_yolo_tpu_torch.config import load_cfg
+    from hd_yolo_tpu_torch.models.yolo import Model
+
+    hyp = load_cfg("hyp-nuclei")
+    hyp["det"]["mask_iou_t"] = 0.05
+    rng = np.random.default_rng(0)
+    B, T = 2, 12
+    x = torch.from_numpy(rng.integers(0, 256, (B, 128, 128, 3), dtype=np.uint8))
+    xy = rng.uniform(0.05, 0.8, (B, T, 2))
+    tg = {"boxes": torch.tensor(np.concatenate([xy, xy + 0.15], -1), dtype=torch.float32),
+          "labels": torch.from_numpy(rng.integers(1, 5, (B, T))),
+          "masks": torch.from_numpy((rng.uniform(size=(B, T, 28, 28)) > 0.5).astype(np.float32)),
+          "valid": torch.ones((B, T), dtype=torch.bool)}
+    m0 = Model.from_cfg("yolov5s-test", hyp, mask_rois=4)
+    m0.init_weights(torch.Generator().manual_seed(0))
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        m = Model.from_cfg("yolov5s-test", hyp, mask_rois=4)
+        m.load_state_dict(m0.state_dict())
+        m.to(dev).train()
+        kernels.reset_launches()
+        losses, _ = m.losses(x.to(dev), {"det": {k: v.to(dev) for k, v in tg.items()}})
+        m.total_loss(losses).backward()
+        if dev == "cuda":
+            assert kernels.LAUNCHES["roi_align"] == 1 and kernels.LAUNCHES["roi_align_bwd"] == 1
+        grads[dev] = {n: p.grad.cpu() for n, p in m.named_parameters() if "seg." in n}
+    for n, g in grads["cpu"].items():
+        assert float((grads["cuda"][n] - g).abs().max()) <= 2e-2 * float(g.abs().max()), n

@@ -6,7 +6,8 @@ Run from the repo root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py [--only KERNEL,...]
 
 (``--only``: build, run only the named kernels' phase-3 checks and timings
-— for ``roi_align_bwd``, phase 14 — and stop without the result lines.)
+— for ``roi_align_bwd`` also phases 14 and 14b, for ``roi_align_single_bwd``
+also phases 15 and 15b — and stop without the result lines.)
 
 Phases (any failure raises and the script exits non-zero):
   1. the card: ``nvidia-smi`` name and power limit, ``torch.cuda`` name;
@@ -125,9 +126,32 @@ Phases (any failure raises and the script exits non-zero):
      ragged f32 case against the CPU's plain version, its times and bound;
  14b. training reference: one step of ``yolov5s-test`` at 256 px in f32 on
      the card and on the CPU from the same state (loss items, gradients of
-     four tensors).
+     four tensors);
+ 15. hnet training: ``hnet-nucls`` at full width (Swin-T with drop path
+     0.2, FPN 256, Mask R-CNN with masks, panoptic, cl and the mask-weighted
+     constrain) with seeded weights, bf16, ``build_optimizer`` (lr0 0.005,
+     warmup 3 epochs, grad-norm clip 10) and ``make_train_step`` on a fixed
+     synthetic batch of 4 x 640 tiles (up to 64 nuclei a tile, 28x28 masks,
+     a stride-16 seg map painted from them, a tile label): the launches of
+     one micro-step (single-level ROI-align forward and backward 3 each,
+     canvas ROI-align forward and backward 4 each, NMS 3, no mask-head or
+     stem kernel), median / min / max of 10 timed micro-steps after 3
+     warm-ups, img/s, peak memory, a profiled step (device busy, idle
+     share); 8 updates with every loss item finite and the batch's loss in
+     eval mode below its loss before them; the backward kernel on the
+     step's own inputs (both pyramids bit for bit the plain autograd, the
+     constrain's pooling within 1e-5 x max|g| of the CPU's plain version);
+ 15b. hnet training reference: the small hnet of ``tests/test_torch_hnet.py``
+     in f32, one training forward and backward on the card and on the CPU
+     from the same weights and batch (loss items, gradients by parameter
+     group).
 
-Phase 3 also holds the single-level ROI-align kernel bit for bit against
+Phase 3 also holds the single-level ROI-align's backward kernel
+(``roi_align_levels_bwd``) against its plain version at its two call sites:
+hnet's pyramid (the four levels, bf16, one launch, bit for bit) and the
+confliction loss's pooling (f32, 5 channels, 100 boxes an image, output 28,
+against the CPU), with its times and bound; and it holds the single-level
+ROI-align kernel bit for bit against
 its plain version at the four hnet-nucls level shapes in one launch
 (``roi_align_levels``; device time and wrapper host time, in turns with
 four one-map launches; and a small f32 case with 5 channels), kernels 2–4 at the shapes hnet-nucls gives them (both NMS calls
@@ -192,6 +216,8 @@ TPU_KERNEL = {
     "stem_tc": "hd_yolo_tpu/ops/pallas_stem.py:79",
     # the XLA vjp JAX's custom_vjp takes of the plain canvas form
     "roi_align_bwd": "hd_yolo_tpu/ops/pallas_roi_align.py:270",
+    # the XLA vjp JAX's custom_vjp of the single-level kernel takes
+    "roi_align_single_bwd": "hd_yolo_tpu/ops/pallas_roi_align.py:117",
 }
 FLAGSHIP_KERNELS = ("stem_tc", "nms", "roi_align", "mask_head")
 LAB_KERNELS = ("stem", "stem_k108", "stem_dot108", "stem_tc")
@@ -212,6 +238,17 @@ HNET_LAUNCHES = {"stem": 0, "stem_tc": 0, "nms": 2, "roi_align": 2, "mask_head":
                  "roi_align_single": 1}
 # hnet-nucls at 640 px: the tile ROI's pyramid levels (size, stride)
 HNET_LEVELS = ((160, 4.0), (80, 8.0), (40, 16.0), (20, 32.0))
+# launches of one hnet-nucls training micro-step: the ROI pyramid of pass 1
+# and of pass 2 and the constrain's pooling of the seg probabilities, each
+# forward and backward; the canvas ROI-align at the box head's and the mask
+# head's ROIs in both passes, forward and backward; the RPN NMS of both
+# passes and the class-aware NMS of pass 1; the cuDNN mask-head chain
+HNET_TRAIN_LAUNCHES = {"stem": 0, "stem_tc": 0, "nms": 3, "roi_align": 4, "roi_align_bwd": 4,
+                       "mask_head": 0, "roi_align_single": 3, "roi_align_single_bwd": 3,
+                       "stem_k108": 0, "stem_dot108": 0}
+# hnet training recipe of tools/hnet_train_check.py (lr, warmup, clip; 48
+# tiles at batch 4 for 80 epochs)
+HNET_HYP = {"lr0": 0.005, "warmup_epochs": 3.0, "clip_grad_norm": 10.0}
 
 
 def log(*a):
@@ -271,21 +308,29 @@ def host_us(fn, n: int = 200) -> float:
     return t * 1e6
 
 
-def device_ms(fn, n: int = 10) -> float:
+def device_ms(fn, n: int = 10, tries: int = 3) -> float:
     """Device milliseconds per call of ``fn``: the profiler's summed time of
     everything ``fn`` runs on the card, over ``n`` calls after a warm-up.
-    Unlike ``ms`` and ``ms_back_to_back`` it holds no host time."""
+    Unlike ``ms`` and ``ms_back_to_back`` it holds no host time.  The
+    profiler can lose a window's device events (a reading of 0 was seen
+    on the card's machine), so a window with no device time is taken
+    again, up to ``tries`` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / n / 1e3
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA)
+        if total > 0:
+            return total / n / 1e3
+    raise AssertionError(f"the profiler recorded no device time over {n} calls in each of "
+                         f"{tries} windows")
 
 
 def bound(nbytes: float, flops: float, peak_flops: float):
@@ -328,7 +373,8 @@ def nbytes(*ts) -> int:
 def phase_stem(gen, iters):
     """The direct kernel (stem.cu) at the flagship shape in bf16 (forced: on
     the trunk's bf16 path ``stem_form`` picks ``stem_tc``), and in f32 (its
-    form on the card) at a small shape."""
+    form on the card) at a small shape against the plain version and at the
+    flagship shape timed beside its own bound."""
     dev = "cuda"
     x = torch.rand((16, 640, 640, 3), generator=gen, device=dev)
     w = torch.randn((6, 6, 3, 64), generator=gen, device=dev) * 0.15
@@ -350,8 +396,16 @@ def phase_stem(gen, iters):
     plain_ms = cuda_ms(lambda: pallas_stem.stem_conv_plain(x, w, scale, bias, **kw), iters)
     flops = 2.0 * got.numel() * 6 * 6 * 3
     b_ms, by = bound(nbytes(x, w, scale, bias, got), flops, BF16_FLOPS)
+    # the f32 form (f32 output, CUDA-core f32 arithmetic) at the flagship shape
+    kw32 = dict(stride=2, padding=2, out_dtype=torch.float32)
+    got32 = pallas_stem.stem_conv(x, w, scale, bias, **kw32)
+    t32 = kernel_ms(lambda: pallas_stem.stem_conv(x, w, scale, bias, **kw32), iters)
+    t32["bound_ms"], t32["bound_by"] = bound(nbytes(x, w, scale, bias, got32), flops, F32_FLOPS)
+    log(f"  stem (direct, f32) (16, 640, 640, 3): {t32['ms']:.4f} ms a call "
+        f"({t32['ms_back_to_back']:.4f} back to back) | bound {t32['bound_ms']:.4f} ms "
+        f"({t32['bound_by']})")
     return dict(max_abs_err=err, **t, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-                library_ms=stem_library_ms(x, w, scale, bias, iters))
+                library_ms=stem_library_ms(x, w, scale, bias, iters), f32=t32)
 
 
 def check_stem_tc_silu():
@@ -634,6 +688,25 @@ def seeded_mask_head(nc: int, C: int, seed: int) -> MaskHead:
     return head.to("cuda")
 
 
+def mask_head_library(head: MaskHead):
+    """The mask head as cuDNN's chain in bf16 (4 convs, deconv, 1x1, sigmoid
+    on NCHW input): the library yardstick of the mask-head kernel."""
+    bf = lambda t: t.to(torch.bfloat16)
+    convs = [(bf(c.weight), bf(c.bias)) for c in head.fcn]
+    preds = head.maskrcnn_preds
+    dw, db = bf(preds.conv5_mask.weight), bf(preds.conv5_mask.bias)
+    lw, lb = bf(preds.mask_fcn_logits.weight), bf(preds.mask_fcn_logits.bias)
+
+    def library(xb):
+        y = xb
+        for w, b in convs:
+            y = F.relu(F.conv2d(y, w, b, padding=1))
+        y = F.relu(F.conv_transpose2d(y, dw, db, stride=2))
+        return torch.sigmoid(F.conv2d(y, lw, lb))
+
+    return library
+
+
 def phase_mask_head(gen, iters):
     """The mask head at the flagship's 768-ROI budget, all slots active and
     with a 360-of-768 prefix (``active``, as the slide's packed branch gives
@@ -662,19 +735,7 @@ def phase_mask_head(gen, iters):
         need(torch.equal(got_p[:used], got[:used]), "mask_head: the prefix changed active slots")
         plain_ms = cuda_ms(lambda: pallas_mask_head.fused_mask_probs_plain(head, pooled, labels),
                            iters)
-        bf = lambda t: t.to(torch.bfloat16)
-        convs = [(bf(c.weight), bf(c.bias)) for c in head.fcn]
-        preds = head.maskrcnn_preds
-        dw, db = bf(preds.conv5_mask.weight), bf(preds.conv5_mask.bias)
-        lw, lb = bf(preds.mask_fcn_logits.weight), bf(preds.mask_fcn_logits.bias)
-
-        def library(xb):
-            y = xb
-            for w, b in convs:
-                y = F.relu(F.conv2d(y, w, b, padding=1))
-            y = F.relu(F.conv_transpose2d(y, dw, db, stride=2))
-            return torch.sigmoid(F.conv2d(y, lw, lb))
-
+        library = mask_head_library(head)
         xb = pooled.permute(0, 3, 1, 2)
         # one reading per side, the kernel's and cuDNN's windows in turns
         fns = {"kernel": lambda: pallas_mask_head.fused_mask_probs(head, pooled, labels),
@@ -766,6 +827,118 @@ def phase_roi_single(gen, iters):
                 four_launches=dict(ms=ms["four launches"], ms_back_to_back=b2b["four launches"],
                                    device_ms=dev_ms["four launches"],
                                    host_us=host["four launches"]))
+
+
+def levels_bwd_bound(grads, outs, rois):
+    """The single-level backward's bound: each output gradient read once,
+    each map gradient written once, the boxes read; per output-gradient
+    element n x n samples of 4 taps, a multiply-add each (n = 2)."""
+    flops = sum(g.numel() for g in grads) * 4 * 4 * 2
+    return bound(nbytes(*grads, *outs, rois), flops, F32_FLOPS)
+
+
+def constrain_pooling(gen, B: int = 4, K: int = 100):
+    """The confliction loss's pooling at hnet-nucls' shapes: seg
+    probabilities (B, 40, 40, 5) f32 at stride 16, K boxes an image of 10-40
+    px over the 640 px tile, output 28 (the masks' size)."""
+    probs = torch.softmax(torch.randn((B, 40, 40, 5), generator=gen, device="cuda"), -1)
+    wh = torch.rand((B, K, 2), generator=gen, device="cuda") * 30 + 10
+    xy = torch.rand((B, K, 2), generator=gen, device="cuda") * (640 - wh)
+    return probs, torch.cat([xy, xy + wh], -1)
+
+
+class backward_path:
+    """``with backward_path("gather"):`` the single-level backward takes its
+    gather path for every call (the per-ROI path off); ``"per_roi"``: its
+    own choice.  The cached plans are dropped on entry and exit."""
+
+    def __init__(self, path: str):
+        self.path = path
+
+    def __enter__(self):
+        self.saved = pallas_roi_align.PER_ROI_MIN_K
+        if self.path == "gather":
+            pallas_roi_align.PER_ROI_MIN_K = 1 << 30
+        pallas_roi_align._BWD_PLANS.clear()
+
+    def __exit__(self, *exc):
+        pallas_roi_align.PER_ROI_MIN_K = self.saved
+        pallas_roi_align._BWD_PLANS.clear()
+        return False
+
+
+def constrain_bwd_paths(cargs, iters: int, what: str) -> dict:
+    """The single-level backward at a confliction-loss call, by both paths:
+    each within 1e-5 x max|g| of the CPU's plain version (ROADMAP C.4) and
+    deterministic (two launches bit-identical), its times; the per-ROI
+    path's (the one the call takes) at the top level, the gather's under
+    ``"gather"``."""
+    bwd = pallas_roi_align.roi_align_levels_bwd
+    want = pallas_roi_align.roi_align_levels_bwd_plain(*cpu_tree(cargs))
+    res = {}
+    for path in ("gather", "per_roi"):
+        with backward_path(path):
+            need(pallas_roi_align._bwd_plan(cargs[1], cargs[2], cargs[3], 2)[1]
+                 == (path == "per_roi"), f"roi_align_single_bwd did not take its {path} path")
+            got = bwd(*cargs)
+            err = check_bwd(f"roi_align_single_bwd ({path} path), {what} (card vs the CPU's "
+                            f"plain version)", [x.cpu() for x in got], want, 1e-5)
+            need(torch.equal(got[0], bwd(*cargs)[0]),
+                 f"roi_align_single_bwd ({path} path): two launches differ")
+            t = kernel_ms(lambda: bwd(*cargs), iters)
+            t["device_ms"] = device_ms(lambda: bwd(*cargs))
+        res[path] = dict(t, max_abs_err=err)
+    return dict(res.pop("per_roi"), **res)
+
+
+def phase_roi_single_bwd(gen, iters):
+    """The single-level ROI-align's backward at its two call sites: hnet's
+    ROI pyramid (the four hnet-nucls levels, bf16, 256 channels, one
+    whole-tile ROI an image, one launch) bit for bit the plain version's
+    autograd on the card; the confliction loss's pooling (f32, 5 channels,
+    100 boxes an image, output 28, scale 1/16) within 1e-5 x max|g| of the
+    plain version on the CPU (ROADMAP C.4).  Times of both, the pyramid's as
+    the record."""
+    dev = "cuda"
+    bwd, plain = pallas_roi_align.roi_align_levels_bwd, pallas_roi_align.roi_align_levels_bwd_plain
+    feats = [torch.randn((4, s, s, 256), generator=gen, device=dev).to(torch.bfloat16)
+             for s, _ in HNET_LEVELS]
+    tile = torch.tensor([0.0, 0.0, 640.0, 640.0], device=dev).expand(4, 1, 4).contiguous()
+    sizes, scales = [s for s, _ in HNET_LEVELS], [1.0 / st for _, st in HNET_LEVELS]
+    gs = [torch.randn((4, 1, s, s, 256), generator=gen, device=dev).to(torch.bfloat16)
+          for s in sizes]
+    args = (gs, feats, tile, sizes, scales, 2)
+    n0 = kernels.LAUNCHES["roi_align_single_bwd"]
+    got = bwd(*args)
+    need(kernels.LAUNCHES["roi_align_single_bwd"] == n0 + 1,
+         "roi_align_levels_bwd: the four levels took more than one launch")
+    torch.cuda.synchronize()
+    # each level cell sums two exact bf16 terms a step, on both sides
+    err = max(check_equal(f"roi_align_single_bwd pyramid {tuple(f.shape)}", g, w)
+              for f, g, w in zip(feats, got, plain(*args)))
+    t = kernel_ms(lambda: bwd(*args), iters)
+    t["device_ms"] = device_ms(lambda: bwd(*args))
+    plain_ms = cuda_ms(lambda: plain(*args), 5)
+    b_ms, by = levels_bwd_bound(gs, got, tile)
+    log(f"  roi_align_single_bwd, the four hnet levels: {t['ms']:.4f} ms a call "
+        f"({t['ms_back_to_back']:.4f} back to back, device {t['device_ms']:.4f}) | plain "
+        f"{plain_ms:.4f} ms | bound {b_ms:.4f} ms ({by})")
+
+    probs, boxes = constrain_pooling(gen)
+    gc = [torch.randn((4, 100, 28, 28, 5), generator=gen, device=dev)]
+    cargs = (gc, [probs], boxes, [28], [1.0 / 16], 2)
+    tc = constrain_bwd_paths(cargs, iters, "the confliction loss's pooling (4, 40, 40, 5) f32, "
+                                           "100 boxes of 10-40 px an image, output 28")
+    tc["plain_ms"] = cuda_ms(lambda: plain(*cargs), 5)
+    tc["bound_ms"], tc["bound_by"] = levels_bwd_bound(gc, bwd(*cargs), boxes)
+    log(f"  roi_align_single_bwd, the confliction loss's pooling: {tc['ms']:.4f} ms a call "
+        f"({tc['ms_back_to_back']:.4f} back to back, device {tc['device_ms']:.4f}) | gather "
+        f"path {tc['gather']['ms']:.4f} ({tc['gather']['ms_back_to_back']:.4f}, device "
+        f"{tc['gather']['device_ms']:.4f}) | plain {tc['plain_ms']:.4f} ms | bound "
+        f"{tc['bound_ms']:.4f} ms ({tc['bound_by']})")
+    return dict(max_abs_err=err, ms=t["ms"], ms_back_to_back=t["ms_back_to_back"],
+                device_ms=t["device_ms"], plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                library_ms=None, constrain=tc)
 
 
 def check_hnet_shapes(gen, iters):
@@ -1034,7 +1207,7 @@ class MaskPrefix:
 
 def profile_step(step):
     """One profiled ``step()``: device time by kernel, and the device idle
-    share (1 - summed kernel time / wall time of the step)."""
+    share (1 - summed kernel time / wall time of the step), also returned."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1053,6 +1226,8 @@ def profile_step(step):
         f"launches; device time by kernel:")
     for us, n, key in rows[:30]:
         log(f"    {us / 1e3:8.3f} ms {n:4d}x  {key[:100]}")
+    return {"profiled_wall_ms": wall * 1e3, "device_busy_ms": busy * 1e3,
+            "idle_share": max(0.0, 1 - busy / wall), "device_launches": sum(r[1] for r in rows)}
 
 
 def phase_flagship(iters: int):
@@ -1217,13 +1392,16 @@ def phase_defaults(iters: int):
                 pallas_mask_head.fused_mask_probs_plain(synth, rnd, labels), atol=2e-2, rtol=0.0)
     t_m = kernel_ms(lambda: pallas_mask_head.fused_mask_probs(sh, pooled, labels), iters)
     t_m["device_ms"] = device_ms(lambda: pallas_mask_head.fused_mask_probs(sh, pooled, labels))
+    library, xb = mask_head_library(sh), pooled.permute(0, 3, 1, 2)
+    t_m["library_ms"] = cuda_ms(lambda: library(xb), iters)
     N, C = pooled.shape[0], pooled.shape[-1]
     wbytes = (4 * 9 * C * C + 4 * C + 4 * C * C + C) * 2
     b_m, by_m = bound(nbytes(pooled, got_m) + wbytes + N * 8, mask_head_flops(N, C), BF16_FLOPS)
     for name, t, b_ms, by in (("roi_align", t_r, b_r, by_r), ("mask_head", t_m, b_m, by_m)):
         log(f"  {name} at the per-image shapes: {t['ms']:.4f} ms one call a window, "
             f"{t['ms_back_to_back']:.4f} back to back, device time {t['device_ms']:.4f} | bound "
-            f"{b_ms:.4f} ({by})")
+            f"{b_ms:.4f} ({by})" + (f" | cuDNN chain {t['library_ms']:.4f} ms"
+                                    if "library_ms" in t else ""))
 
     for _ in range(2):
         det.tiles(x)
@@ -2109,27 +2287,34 @@ def phase_train_cli(data: str, save_dir: str) -> dict:
             "loss_by_epoch": [r["loss"] for r in rows], "fitness_by_epoch": [r["fitness"] for r in rows]}
 
 
-def capture_train_call(step, state, batch):
-    """One training micro-step, returning the arguments of its one
-    ``roi_align_bounded`` call and of its one ``roi_align_bounded_bwd`` call
-    (the output gradient included)."""
-    calls = {}
-    fwd, bwd = pallas_roi_align.roi_align_bounded, pallas_roi_align.roi_align_bounded_bwd
+# the ROI-align wrappers a training step calls, by name in ops/pallas_roi_align
+STEP_CALLS = ("roi_align_bounded", "roi_align_bounded_bwd", "roi_align_levels_bwd")
 
-    def spy_f(*a):
-        calls["fwd"] = a
-        return fwd(*a)
 
-    def spy_b(*a):
-        calls["bwd"] = (a[0].detach().clone(),) + a[1:]
-        return bwd(*a)
+def capture_step_calls(step, state, batch) -> dict:
+    """One training micro-step, returning the arguments of each call it made
+    to the wrappers of ``STEP_CALLS``, by name in call order (the backward
+    calls' output gradients cloned)."""
+    calls = {name: [] for name in STEP_CALLS}
+    orig = {name: getattr(pallas_roi_align, name) for name in STEP_CALLS}
 
-    pallas_roi_align.roi_align_bounded, pallas_roi_align.roi_align_bounded_bwd = spy_f, spy_b
+    def spy(name):
+        def wrapped(*a):
+            g = a[0]
+            first = ([t.detach().clone() for t in g] if isinstance(g, (list, tuple))
+                     else g.detach().clone()) if name.endswith("_bwd") else g
+            calls[name].append((first,) + a[1:])
+            return orig[name](*a)
+        return wrapped
+
+    for name in STEP_CALLS:
+        setattr(pallas_roi_align, name, spy(name))
     try:
         step(state, batch)
     finally:
-        pallas_roi_align.roi_align_bounded, pallas_roi_align.roi_align_bounded_bwd = fwd, bwd
-    return calls["fwd"], calls["bwd"]
+        for name, fn in orig.items():
+            setattr(pallas_roi_align, name, fn)
+    return calls
 
 
 def bwd_bound(bargs, grads):
@@ -2250,7 +2435,10 @@ def phase_train(iters: int):
         info["loss_per_update"] = per_update
 
         # the kernels of this path at its shapes
-        fargs, bargs = capture_train_call(step, state, batch)
+        calls = capture_step_calls(step, state, batch)
+        need(len(calls["roi_align_bounded"]) == len(calls["roi_align_bounded_bwd"]) == 1,
+             "the training step must pool once and run the ROI-align backward once")
+        fargs, bargs = calls["roi_align_bounded"][0], calls["roi_align_bounded_bwd"][0]
         K = fargs[1].shape[0]
         need(K == 16 * 64 and fargs[0][0].dtype == torch.bfloat16,
              f"expected 1024 bf16 ROIs, got {K}")
@@ -2360,6 +2548,298 @@ def phase_train_reference():
         f"gradient |d| / max|g|: {({k.split('.', 1)[1]: f'{v:.2e}' for k, v in worst.items()})}")
 
 
+def hnet_batch(seed: int, B: int = 4, size: int = 640, max_t: int = 64, seg_stride: int = 16):
+    """A labelled hnet batch from ``seed``: B tiles of ``size`` px with
+    3/4·max_t to max_t nuclei each (10-40 px ellipses of classes 1-4, drawn
+    darker by class on a textured background), for ``det40x`` their boxes,
+    labels and 28x28 in-box masks; for ``seg10x`` a (B, size/seg_stride,
+    size/seg_stride) seg map painted from them (a cell whose centre lies in
+    a nucleus takes its class); for ``cl5x`` each tile's dominant class,
+    capped to 3 classes.  Numpy arrays."""
+    rng = np.random.default_rng(seed)
+    S = size // seg_stride
+    img = rng.integers(150, 230, (B, size, size, 3), dtype=np.uint8)
+    boxes = np.zeros((B, max_t, 4), np.float32)
+    labels = np.zeros((B, max_t), np.int64)
+    valid = np.zeros((B, max_t), bool)
+    masks = np.zeros((B, max_t, 28, 28), np.float32)
+    seg = np.zeros((B, S, S), np.int64)
+    cl = np.zeros((B,), np.int64)
+    u = (np.arange(28) + 0.5) / 28
+    disk = ((u[:, None] - 0.5) ** 2 + (u[None, :] - 0.5) ** 2 <= 0.25).astype(np.float32)
+    centres = np.arange(S) * seg_stride + seg_stride / 2
+    for b in range(B):
+        k = int(rng.integers(max_t * 3 // 4, max_t + 1))
+        wh = rng.uniform(10, min(40, size / 2), (k, 2))
+        xy = rng.uniform(0, size - wh)
+        lab = rng.integers(1, 5, k)
+        for j in range(k):
+            (x1, y1), (x2, y2) = xy[j], xy[j] + wh[j]
+            cx, cy, rx, ry = (x1 + x2) / 2, (y1 + y2) / 2, wh[j, 0] / 2, wh[j, 1] / 2
+            r0, r1, c0, c1 = int(y1), int(np.ceil(y2)), int(x1), int(np.ceil(x2))
+            yy, xx = np.mgrid[r0:r1, c0:c1] + 0.5
+            inside = ((xx - cx) / rx) ** 2 + ((yy - cy) / ry) ** 2 <= 1
+            img[b, r0:r1, c0:c1][inside] = 30 + 25 * lab[j]
+            boxes[b, j] = [x1 / size, y1 / size, x2 / size, y2 / size]
+            labels[b, j], valid[b, j], masks[b, j] = lab[j], True, disk
+            cell = (((centres[None, :] - cx) / rx) ** 2 + ((centres[:, None] - cy) / ry) ** 2) <= 1
+            seg[b][cell] = lab[j]
+        cl[b] = min(int(np.argmax(np.bincount(lab, minlength=5)[1:])), 2)
+    return img, {"det40x": {"boxes": boxes, "labels": labels, "valid": valid, "masks": masks},
+                 "seg10x": {"seg_map": seg}, "cl5x": {"label": cl}}
+
+
+def canvas_plain_parts(args, levels):
+    """A whole-canvas ``roi_align_bounded`` call (the window the stacked
+    canvas, every origin 0: ``multiscale_roi_align_canvas``) in the plain
+    canvas form, per image as ``_multiscale_roi_align_canvas`` contracts
+    (the same interpolation matrices and rounding points as
+    ``roi_align_bounded_plain``, without its per-ROI copies of the
+    window): [(that image's ROI indices, their output)] over the images.
+    ``levels`` stand in for the call's own (leaves for a gradient)."""
+    _, meta, ys, xs, bnds, window, M, n = args[:8]
+    Ht, W0 = window
+    need((len(args) < 9 or args[8] is None) and Ht == sum(f.shape[1] for f in levels)
+         and W0 == max(f.shape[2] for f in levels) and not bool(meta[:, 1:3].any()),
+         "the check takes whole-canvas ROI-align calls")
+    cd = torch.bfloat16 if levels[0].dtype == torch.bfloat16 else torch.float32
+    canvas = torch.cat([F.pad(f, (0, 0, 0, W0 - f.shape[2])) for f in levels], 1)
+    Wy = roi_ops._bounded_interp_matrix(ys, bnds[:, 0], bnds[:, 1], Ht, M, n).to(cd).float()
+    Wx = roi_ops._bounded_interp_matrix(xs, bnds[:, 2], bnds[:, 3], W0, M, n).to(cd).float()
+    parts = []
+    for b in range(levels[0].shape[0]):
+        idx = (meta[:, 0] == b).nonzero()[:, 0]
+        r = torch.einsum("ksh,hwc->kswc", Wy[idx], canvas[b].to(cd).float()).to(cd).float()
+        parts.append((idx, torch.einsum("ktw,kswc->kstc", Wx[idx], r).to(levels[0].dtype)))
+    return parts
+
+
+def canvas_plain(args) -> torch.Tensor:
+    """The plain output of a whole-canvas ``roi_align_bounded`` call."""
+    K, M, C = args[1].shape[0], args[6], args[0][0].shape[-1]
+    out = torch.empty((K, M, M, C), dtype=args[0][0].dtype, device=args[1].device)
+    for idx, o in canvas_plain_parts(args, [f.detach() for f in args[0]]):
+        out[idx] = o
+    return out
+
+
+def canvas_bwd_plain(bargs) -> list:
+    """The plain level gradients of a whole-canvas call's backward: the
+    autograd of ``canvas_plain_parts``, each image's in f32, summed."""
+    g, levels = bargs[0], bargs[1]
+    leaves = [f.detach().requires_grad_() for f in levels]
+    acc = [torch.zeros(f.shape, dtype=torch.float32, device=f.device) for f in levels]
+    with torch.enable_grad():
+        for idx, o in canvas_plain_parts(bargs[1:], leaves):
+            got = torch.autograd.grad(o, leaves, g[idx].to(o.dtype), allow_unused=True)
+            for x, y in zip(acc, got):
+                if y is not None:
+                    x += y.float()
+    return acc
+
+
+@torch.no_grad()
+def check_step_canvas(calls) -> dict:
+    """The canvas ROI-align's calls of an hnet training step (the box head's
+    and the mask head's pooling of pass 1 and pass 2), each on its own
+    captured inputs: the forward bit for bit the plain canvas form, the
+    backward (``roi_align_bwd``) within 2e-2 x max|plain| of each level's
+    gradient by that form's autograd, as phase 14 holds it; times and
+    bounds of each."""
+    rab, bk = pallas_roi_align.roi_align_bounded, pallas_roi_align.roi_align_bounded_bwd
+    res = {}
+    for i, fa in enumerate(calls["roi_align_bounded"]):
+        K, M = fa[1].shape[0], fa[6]
+        got = rab(*fa)
+        check_equal(f"roi_align forward at the hnet step's call {i} ({K} whole-canvas ROIs at "
+                    f"{M}x{M}, {fa[0][0].dtype})", got, canvas_plain(fa))
+        t = kernel_ms(lambda: rab(*fa), 20)
+        t["bound_ms"], t["bound_by"] = roi_bound(fa, got)
+        res[f"fwd_{i}_{K}x{M}"] = t
+    for i, ba in enumerate(calls["roi_align_bounded_bwd"]):
+        K, M = ba[2].shape[0], ba[7]
+        got = bk(*ba)
+        check_bwd(f"roi_align_bwd at the hnet step's call {i} ({K} ROIs at {M}x{M}, "
+                  f"{ba[0].dtype}) vs the plain version's autograd", got,
+                  canvas_bwd_plain(ba), 2e-2)
+        t = kernel_ms(lambda: bk(*ba), 20)
+        t["device_ms"] = device_ms(lambda: bk(*ba))
+        t["bound_ms"], t["bound_by"] = bwd_bound(ba, got)
+        res[f"bwd_{i}_{K}x{M}"] = t
+    log(f"  the canvas ROI-align on the hnet step's inputs: {json.dumps(res)}")
+    return res
+
+
+def phase_hnet_train(iters: int):
+    """Phase 15: hnet-nucls training at full width (Swin-T with drop path
+    0.2, FPN 256, Mask R-CNN, panoptic, cl and the mask-weighted
+    constrain), bf16, batch 4 x 640, through ``build_optimizer`` and
+    ``make_train_step``."""
+    from hd_yolo_tpu_torch.engines.optim import build_optimizer
+    from hd_yolo_tpu_torch.engines.train_step import TrainState, make_train_step, to_device
+
+    torch.cuda.empty_cache()
+    model = HNet.from_cfg(load_cfg("hnet-nucls"), dtype=torch.bfloat16, seed=0)
+    need(model.stochastic, "hnet-nucls trains with drop path on")
+    opt = build_optimizer(model, HNET_HYP, 80, 12)
+    state = TrainState.create(model, opt)
+    step = make_train_step()
+    x, t = hnet_batch(0)
+    batch = to_device({"image": x, "targets": t}, "cuda")
+    n_obj = int(t["det40x"]["valid"].sum())
+    metrics = [step(state, batch)[1] for _ in range(3)]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    _, m = step(state, batch)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    metrics.append(m)
+    log(f"  launches of one hnet training micro-step: {launches}")
+    for k, n in HNET_TRAIN_LAUNCHES.items():
+        need(launches[k] == n, f"kernel {k}: {launches[k]} launches in one hnet training "
+                               f"micro-step, expected {n}")
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        metrics.append(m)
+    med = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"  hnet train step (batch 4 x 640, bf16, drop path 0.2, {n_obj} objects): median "
+        f"{med * 1e3:.2f} ms over {iters} (min {min(times) * 1e3:.2f}, max "
+        f"{max(times) * 1e3:.2f}); {4 / med:.1f} img/s; peak memory {peak:.2f} GiB")
+    busy = profile_step(lambda: step(state, batch))
+    info = {"median_ms": med * 1e3, "min_ms": min(times) * 1e3, "max_ms": max(times) * 1e3,
+            "img_per_s": 4 / med, "peak_gib": peak, "objects": n_obj, **busy}
+
+    # 8 updates on the fixed batch: the loss of the batch in eval mode (no
+    # drop path) after them is below the loss before them
+    def batch_loss():
+        model.eval()
+        losses, _ = model(batch["image"], batch["targets"])
+        return float(model.total_loss(losses))
+
+    with torch.no_grad():
+        before = batch_loss()
+    per_update = []
+    for _ in range(8):
+        _, m = step(state, batch)
+        metrics.append(m)
+        per_update.append(float(m["loss"]))
+    with torch.no_grad():
+        after = batch_loss()
+    items = {k: torch.stack([mm[k] for mm in metrics]).float().cpu() for k in metrics[0]}
+    for k, v in items.items():
+        need(bool(torch.isfinite(v).all()), f"non-finite {k} in an hnet training step")
+    log(f"  loss on the batch (eval mode) before 8 updates {before:.4f}, after {after:.4f}; "
+        f"the updates' losses {[round(v, 4) for v in per_update]}; last items "
+        f"{({k: round(float(v[-1]), 4) for k, v in items.items()})}")
+    need(after < before, "the hnet loss did not fall over 8 updates")
+    info.update(loss_before_after=[before, after], loss_per_update=per_update,
+                last_items={k: float(v[-1]) for k, v in items.items()})
+
+    # the step's ROI-align kernels on the step's own inputs: the canvas
+    # ROI-align bit for bit and its backward (phase 14's kernel) within
+    # phase 14's tolerance of the plain autograd, at each of the step's
+    # calls; the single-level backward's two pyramids bit for bit the plain
+    # autograd on the card, the constrain's pooling against the CPU's plain
+    # version
+    calls = capture_step_calls(step, state, batch)
+    need(len(calls["roi_align_bounded"]) == len(calls["roi_align_bounded_bwd"]) == 4,
+         f"expected 4 roi_align_bounded and 4 roi_align_bounded_bwd calls a step, got "
+         f"{len(calls['roi_align_bounded'])} and {len(calls['roi_align_bounded_bwd'])}")
+    info["canvas_at_step"] = check_step_canvas(calls)
+    calls = calls["roi_align_levels_bwd"]
+    need(len(calls) == 3, f"expected 3 roi_align_levels_bwd calls a step, got {len(calls)}")
+    bwd, plain = pallas_roi_align.roi_align_levels_bwd, pallas_roi_align.roi_align_levels_bwd_plain
+    step_bwd = {}
+    for i, args in enumerate(calls):
+        if len(args[1]) == 4:
+            for f, g, w in zip(args[1], bwd(*args), plain(*args)):
+                check_equal(f"roi_align_single_bwd at the step's pyramid {i} {tuple(f.shape)} "
+                            f"{f.dtype}", g, w)
+            step_bwd[f"pyramid_{i}"] = kernel_ms(lambda: bwd(*args), 20)
+        else:
+            step_bwd["constrain"] = constrain_bwd_paths(
+                args, 20, f"the step's constrain pooling {tuple(args[1][0].shape)}, "
+                          f"{args[2].shape[1]} boxes an image")
+            wh = (args[2][..., 2:] - args[2][..., :2]).flatten()
+            step_bwd["constrain_box_side_px_median"] = float(wh.median())
+    log(f"  roi_align_single_bwd on the step's inputs: {json.dumps(step_bwd)}")
+    info["roi_align_single_bwd_at_step"] = step_bwd
+    del model, state, opt, batch
+    torch.cuda.empty_cache()
+    return launches, info
+
+
+# tests/test_torch_hnet.py's small hnet, with hnet-nucls' mask-weighted
+# constrain and a box-mean one
+HNET_TINY = {
+    "backbone": {"type": "swin", "embed_dim": 32, "depths": [1, 1, 1, 1],
+                 "num_heads": [1, 2, 4, 8], "window_size": 4},
+    "fpn": {"out_channels": 32},
+    "headers": {
+        "det40x": {"type": "maskrcnn", "num_classes": 4, "pre_nms_topk": 128,
+                   "num_proposals": 32, "num_detections": 16,
+                   "anchor_sizes": [16.0, 32.0, 64.0, 128.0]},
+        "seg10x": {"type": "panoptic", "num_classes": 5, "channels": 32},
+        "cl5x": {"type": "cl", "num_classes": 3, "hidden": 32, "amplification": 0.5},
+    },
+    "constrains": {
+        "c0": {"seg_task": "seg10x", "det_task": "det40x", "weighting": "mask",
+               "edges": [[1, 1], [2, 2], [3, 3]], "values": [1.0, 1.0, 1.0]},
+        "c1": {"seg_task": "seg10x", "det_task": "det40x", "edges": [[1, 1], [2, 2], [3, 3]]},
+    },
+}
+
+
+def phase_hnet_train_reference():
+    """Phase 15b: the small hnet in f32 (no TF32), one training forward and
+    backward on the card and on the CPU from the same weights and batch (2
+    x 64 px): every loss item within rtol 1e-4, and per parameter group
+    (``label_params``) each tensor's gradient within 1e-3 x its max|g| —
+    the mask head's within 2e-2 (its gradients are sums of cancelling terms
+    behind five ReLUs, as phase 14b states).  The seg map is at stride 8, so
+    the probabilities are resized to it; the weights (seed 0) give valid
+    detections, so both constrain losses are held too."""
+    from hd_yolo_tpu_torch.engines.optim import label_params
+
+    x, t = hnet_batch(5, B=2, size=64, max_t=6, seg_stride=8)
+    m0 = HNet.from_cfg(HNET_TINY, device="cpu", seed=0)
+    res, grads = {}, {}
+    for dev in ("cuda", "cpu"):
+        m = HNet(HNET_TINY, device=dev)
+        m.load_state_dict(m0.state_dict())
+        m.train()
+        tt = {task: {k: torch.from_numpy(v).to(dev) for k, v in d.items()}
+              for task, d in t.items()}
+        losses, _ = m(torch.from_numpy(x).to(dev), tt)
+        m.total_loss(losses).backward()
+        res[dev] = {f"{task}/{k}": float(v.detach()) for task, d in losses.items()
+                    for k, v in d.items()}
+        grads[dev] = {n: p.grad.cpu() for n, p in m.named_parameters()}
+    for k, v in res["cpu"].items():
+        need(math.isfinite(v) and abs(res["cuda"][k] - v) <= 1e-4 * abs(v) + 1e-6,
+             f"hnet train reference: loss {k} {res['cuda'][k]} on the card vs {v}")
+    need(res["cpu"]["constrains/c0"] > 0 and res["cpu"]["constrains/c1"] > 0,
+         "hnet train reference: no valid detections, so no constrain loss to hold")
+    worst = {}
+    for name, group in label_params(m0).items():
+        want, got = grads["cpu"][name], grads["cuda"][name]
+        scale = float(want.abs().max())
+        rel = float((got - want).abs().max()) / max(scale, 1e-30)
+        lim = 2e-2 if ".mask_head." in name else 1e-3
+        need(rel <= lim or scale < 1e-7, f"hnet train reference: gradient of {name} ({group}) "
+                                         f"|d| / max|g| {rel:.3g} > {lim}")
+        worst[group] = max(worst.get(group, 0.0), rel if scale >= 1e-7 else 0.0)
+    log(f"  small hnet f32 training step, card vs CPU: loss items {res['cuda']} vs "
+        f"{res['cpu']}; worst gradient |d| / max|g| by group {worst}")
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2383,7 +2863,7 @@ def main(argv=None) -> int:
 
     secs = kernels.build_all()
     log(f"[2] built {sorted(kernels.KERNELS)} in {secs:.1f} s; ptxas of the redesigned kernels:")
-    for k in REDESIGNED + ("roi_align_bwd",):
+    for k in REDESIGNED + ("roi_align_bwd", "roi_align_single_bwd"):
         for line in kernels.ptxas_report(k).splitlines():
             if "Used" in line or "spill" in line or "C75" in line:
                 log(f"  {k}: {line}")
@@ -2396,8 +2876,9 @@ def main(argv=None) -> int:
     results = {}
     for kname, fn in (("stem", phase_stem), ("stem_tc", phase_stem_tc), ("nms", phase_nms),
                       ("roi_align", phase_roi), ("mask_head", phase_mask_head),
-                      ("roi_align_single", phase_roi_single), ("stem_k108", phase_stem_k108),
-                      ("stem_dot108", phase_stem_dot108)):
+                      ("roi_align_single", phase_roi_single),
+                      ("roi_align_single_bwd", phase_roi_single_bwd),
+                      ("stem_k108", phase_stem_k108), ("stem_dot108", phase_stem_dot108)):
         if only and kname not in only:
             continue
         results[kname] = fn(gen, 20)
@@ -2411,6 +2892,11 @@ def main(argv=None) -> int:
         phase_train(10)
         log("[14b] training reference: yolov5s-test 256 px f32, the card against the CPU")
         phase_train_reference()
+    if "roi_align_single_bwd" in only:
+        log("[15] hnet training: hnet-nucls, batch 4 x 640, bf16, drop path 0.2")
+        phase_hnet_train(10)
+        log("[15b] hnet training reference: the small hnet in f32, the card against the CPU")
+        phase_hnet_train_reference()
     if only:
         log(f"  --only {','.join(sorted(only))}: the other phases and the result lines skipped")
         return 0
@@ -2448,20 +2934,28 @@ def main(argv=None) -> int:
     log("[14b] training reference: yolov5s-test 256 px f32, the card against the CPU")
     phase_train_reference()
     log("  " + json.dumps({"train": train_info}))
+    log("[15] hnet training: hnet-nucls, batch 4 x 640, bf16, drop path 0.2")
+    hnet_train_launches, hnet_train_info = phase_hnet_train(10)
+    log("[15b] hnet training reference: the small hnet in f32, the card against the CPU")
+    phase_hnet_train_reference()
+    log("  " + json.dumps({"hnet_train": hnet_train_info}))
 
     paths = {"flagship": launches, "defaults": default_launches, "hnet": hnet_launches,
              "lab": lab_launches, "slide": slide_launches, "val": val_launches,
              "loader": loader_launches, "export": export_launches, "serving": serving_launches,
-             "train": train_launches}
+             "train": train_launches, "hnet_train": hnet_train_launches}
     main_path = {k: "flagship" for k in FLAGSHIP_KERNELS}
     main_path.update(roi_align_single="hnet", stem_k108="lab", stem_dot108="lab", stem="lab",
-                     roi_align_bwd="train")
+                     roi_align_bwd="train", roi_align_single_bwd="hnet_train")
     results["nms"]["stitch"] = stitch
     results["nms"]["hnet"] = {k: v for k, v in hnet_times.items() if k.startswith("nms")}
     results["roi_align"]["hnet"] = {k: v for k, v in hnet_times.items()
                                     if k.startswith("roi_align")}
     for k, v in per_image.items():
         results[k]["per_image"] = v
+    for k, pre in (("roi_align", "fwd"), ("roi_align_bwd", "bwd")):
+        results[k]["hnet_train"] = {c: v for c, v in hnet_train_info["canvas_at_step"].items()
+                                    if c.startswith(pre)}
     record = {"kernels": [
         {"name": k, "route": "cuda", "source": f"hd_yolo_tpu_torch/kernels/{k}.cu",
          "replaces": TPU_KERNEL[k], "launches": paths[main_path[k]][k],

@@ -1,8 +1,9 @@
 """Optimizer, LR schedules, warmup and EMA (port of
 ``hd_yolo_tpu/engines/optim.py``, which builds them from optax).
 
-* Param groups by module type (``label_params``): BatchNorm scales
-  ``bn_scale``, every bias ``bias``, every other weight ``kernel``, and
+* Param groups by module type (``label_params``): the scales of the
+  normalization layers (BatchNorm, LayerNorm, GroupNorm: every flax
+  ``scale``) ``bn_scale``, every bias ``bias``, every other weight ``kernel``, and
   parameters whose name holds a ``--freeze`` substring ``frozen``.  SGD with
   nesterov momentum (weight decay on kernels only, added to the gradient),
   or Adam / AdamW (decoupled decay) with b1 = ``momentum``.
@@ -44,6 +45,7 @@ DEFAULT_HYP = {
     "clip_grad_norm": 0.0,   # global grad-norm clip; 0 disables
 }
 GROUPS = ("kernel", "bn_scale", "bias", "frozen")
+NORMS = (nn.modules.batchnorm._BatchNorm, nn.LayerNorm, nn.GroupNorm)
 MAX_CONSECUTIVE_ERRORS = 100
 
 
@@ -62,16 +64,17 @@ def _hyp(hyp: dict) -> dict:
 
 
 def label_params(model: nn.Module, freeze: Optional[Sequence[str]] = None) -> Dict[str, str]:
-    """{parameter name: group}: a BatchNorm weight is ``bn_scale``, every
-    bias ``bias``, every other weight ``kernel``; a name holding any
-    ``freeze`` substring is ``frozen``."""
+    """{parameter name: group}: the weight of a normalization layer
+    (BatchNorm, LayerNorm, GroupNorm, whose flax parameter is ``scale``) is
+    ``bn_scale``, every bias ``bias``, every other weight ``kernel``; a name
+    holding any ``freeze`` substring is ``frozen``."""
     labels = {}
     for mod_name, mod in model.named_modules():
         for pname, _ in mod.named_parameters(recurse=False):
             name = f"{mod_name}.{pname}" if mod_name else pname
             if freeze and any(f in name for f in freeze):
                 labels[name] = "frozen"
-            elif isinstance(mod, nn.modules.batchnorm._BatchNorm) and pname == "weight":
+            elif isinstance(mod, NORMS) and pname == "weight":
                 labels[name] = "bn_scale"
             elif pname == "bias":
                 labels[name] = "bias"

@@ -7,14 +7,23 @@ Where the JAX step is a pure function of an immutable state, the port's
 the model's BatchNorm running statistics in the forward, the parameters,
 momentum and accumulation in ``Optimizer.update``, then the EMA.  The
 metrics come back as 0-d device tensors: nothing in a step waits for the
-card.
+card.  A model with drop path or dropout (``model.stochastic``: an
+``hnet.HNet`` whose backbone has nonzero rates) seeds each step's generator
+from ``(seed, step)``, as JAX folds the step into its dropout key; the step
+reads the state's host copy of the count for that.
+
+The step takes the flagship ``Model`` and ``hnet.HNet`` alike: both have
+``losses(images, targets, compute_masks)`` and ``total_loss(losses,
+mask_weight)``.  The metrics follow JAX's rule: a task's ``loss_items``
+where it has them (yolo), else its flat 0-d losses (hnet's headers and its
+``constrains`` pseudo-task).
 """
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -23,15 +32,29 @@ from .optim import EMA, Optimizer
 Tensor = torch.Tensor
 
 
-@dataclasses.dataclass
 class TrainState:
-    """step: 0-d int64 count of micro-steps; model: the module (parameters and
-    buffers); opt: its optimizer; ema: the EMA of its parameters."""
+    """step: 0-d int64 count of micro-steps on the model's device, with its
+    host copy ``count`` (set with it, read by the step without a sync);
+    model: the module (parameters and buffers); opt: its optimizer; ema: the
+    EMA of its parameters."""
 
-    step: Tensor
-    model: nn.Module
-    opt: Optimizer
-    ema: EMA
+    def __init__(self, step: Tensor, model: nn.Module, opt: Optimizer, ema: EMA):
+        self.model, self.opt, self.ema = model, opt, ema
+        self.step = step
+
+    @property
+    def step(self) -> Tensor:
+        return self._step
+
+    @step.setter
+    def step(self, value: Tensor) -> None:
+        self._step = value
+        self.count = int(value)
+
+    def advance(self) -> None:
+        """One micro-step more, on the device and on the host."""
+        self._step = self._step + 1
+        self.count += 1
 
     @classmethod
     def create(cls, model: nn.Module, opt: Optimizer) -> "TrainState":
@@ -47,23 +70,46 @@ def to_device(batch: Dict, device) -> Dict:
     return torch.as_tensor(batch).to(device, non_blocking=True)
 
 
-def make_train_step(mask_weight: float = 1.0, ema_decay: float = 0.9999):
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The drop path / dropout generator of micro-step ``step``, seeded from
+    ``(seed, step)``."""
+    state = int(np.random.SeedSequence([seed, step]).generate_state(1)[0])
+    return torch.Generator(device=device).manual_seed(state)
+
+
+def loss_items(losses: Dict) -> Dict[str, Tensor]:
+    """``'<task>/<item>'`` → detached 0-d loss: each task's ``loss_items``
+    where it has them, else its flat 0-d entries."""
+    items = {}
+    for task, tl in losses.items():
+        sub = tl.get("loss_items", tl) if isinstance(tl, dict) else {}
+        for k, v in sub.items():
+            if torch.is_tensor(v) and v.dim() == 0:
+                items[f"{task}/{k}"] = v.detach()
+    return items
+
+
+def make_train_step(mask_weight: float = 1.0, ema_decay: float = 0.9999, seed: int = 0):
     """``step(state, batch) → (state, metrics)``.  ``batch``: {'image': (B,
-    H, W, 3) uint8 or float, 'targets': {task: {boxes, labels, masks, valid[,
-    active]}}} as tensors on the model's device.  Metrics: each task's loss
-    items as ``'<task>/<item>'`` and the total ``'loss'``."""
+    H, W, 3) uint8 or float, 'targets': {task: {...}}} as tensors on the
+    model's device (yolo: boxes, labels, masks, valid[, active]; hnet: each
+    header's targets, ``loss_items``' rule above).  Metrics: the loss items
+    and the total ``'loss'``."""
 
     def step(state: TrainState, batch: Dict) -> tuple:
         model, opt = state.model, state.opt
         model.train()
-        losses, _ = model.losses(batch["image"], batch["targets"], compute_masks=mask_weight > 0)
+        kw = {}
+        if getattr(model, "stochastic", False):
+            kw["generator"] = step_generator(seed, state.count, opt.params[0].device)
+        losses, _ = model.losses(batch["image"], batch["targets"], compute_masks=mask_weight > 0,
+                                 **kw)
         total = model.total_loss(losses, mask_weight)
         grads = torch.autograd.grad(total, opt.params, allow_unused=True)
         opt.update(grads)
         state.ema.update(opt.params, decay=ema_decay)
-        state.step = state.step + 1
-        metrics = {f"{task}/{k}": v for task, tl in losses.items()
-                   for k, v in tl["loss_items"].items()}
+        state.advance()
+        metrics = loss_items(losses)
         metrics["loss"] = total.detach()
         return state, metrics
 
@@ -109,6 +155,7 @@ def make_eval_step(compute_masks: bool = True, use_ema: bool = True):
 
 
 def _eval(model, images, targets, compute_masks):
-    if targets is None:
-        return {}, model(images, compute_masks=compute_masks)
-    return model.losses(images, targets, compute_masks=compute_masks)
+    if targets is not None:
+        return model.losses(images, targets, compute_masks=compute_masks)
+    out = model(images, compute_masks=compute_masks)
+    return out if isinstance(out, tuple) else ({}, out)    # hnet returns (losses, outputs)

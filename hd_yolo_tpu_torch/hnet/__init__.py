@@ -1,6 +1,7 @@
-"""hnet inference: Swin-T backbone + FPN, with Mask R-CNN, panoptic
-segmentation and classification headers at per-task amplifications (port
-of ``hd_yolo_tpu/hnet/``)."""
+"""hnet: Swin-T backbone + FPN, with Mask R-CNN, panoptic segmentation and
+classification headers at per-task amplifications and the cross-header
+confliction losses, for inference and training (port of
+``hd_yolo_tpu/hnet/``)."""
 
 from .fpn import FeaturePyramidNetwork, PanopticFeatureConnector  # noqa: F401
 from .heads import ClassificationHead, PanopticSegHead  # noqa: F401

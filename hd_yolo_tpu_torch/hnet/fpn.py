@@ -1,5 +1,8 @@
-"""Feature pyramid network (full-map and per-ROI) and the panoptic connector,
-inference (port of ``hd_yolo_tpu/hnet/fpn.py``), on NHWC tensors.
+"""Feature pyramid network (full-map and per-ROI) and the panoptic connector
+(port of ``hd_yolo_tpu/hnet/fpn.py``), on NHWC tensors.  Both FPN forms are
+differentiable: ``forward_rois`` pools the raw levels through
+``extract_roi_feature_maps`` (the single-level ROI-align and its backward
+kernel on the card).
 
 ``FeaturePyramidNetwork`` uses torchvision's FPN key layout, as
 ``hd_yolo_tpu/utils/import_maskrcnn.py`` ``import_fpn_state_dict`` reads it:

@@ -1,26 +1,42 @@
-"""HNet container, inference (port of ``hd_yolo_tpu/hnet/hnet.py``): Swin
-backbone → FPN → per-task headers at their own amplifications.
+"""HNet container (port of ``hd_yolo_tpu/hnet/hnet.py``): Swin backbone →
+FPN → per-task headers at their own amplifications, and the cross-header
+constrain losses in training.
 
 ``HNet.from_cfg(load_cfg("hnet-nucls"), dtype=torch.bfloat16)`` builds the
-model on the card with seeded weights; ``forward(x)`` takes a (B, H, W, 3)
-batch (uint8 is divided by 255) and returns ``(losses, outputs)`` as
-``HNet.apply(..., train=False)`` does: ``losses[task] == {}`` and, per task,
+model on the card with seeded weights; ``forward(x, targets=None)`` takes a
+(B, H, W, 3) batch (uint8 is divided by 255) and returns ``(losses,
+outputs)`` as ``HNet.apply`` does.  Per task:
 
-* ``maskrcnn`` — the tile-grid pass of the JAX ``_maskrcnn_task``: the image
-  is cut into ``roi_size`` windows, each window is ROI-aligned from every
-  pyramid level at the task amplification (``extract_roi_feature_maps``,
-  the single-level ROI-align kernel), the header runs on that virtual batch
-  and its boxes are projected back to image pixels: ``boxes``, ``scores``,
-  ``labels``, ``valid``, ``masks``;
+* ``maskrcnn`` — pass 1, the tile-grid inference of the JAX
+  ``_maskrcnn_task``: the image is cut into ``roi_size`` windows, each
+  window is ROI-aligned from every pyramid level at the task amplification
+  (``extract_roi_feature_maps``, the single-level ROI-align kernel), the
+  header runs on that virtual batch and its boxes are projected back to
+  image pixels: ``boxes``, ``scores``, ``labels``, ``valid``, ``masks``.
+  With targets, pass 2 pools the annotation ROIs (``targets[task]['rois']``
+  with ``roi_valid``, else the whole image), projects the GT into each
+  ROI's virtual frame (``_project_gt_to_rois``) and computes the header's
+  losses (``rpn_obj_loss``, ``rpn_reg_loss``, ``roi_cls_loss``,
+  ``roi_reg_loss``, ``mask_loss``);
 * ``panoptic`` — ``probs`` and ``logits`` over the pyramid resized by the
-  amplification (bilinear, antialiased);
-* ``cl`` — ``probs`` and ``logits`` from the coarsest resized level.
+  amplification (bilinear, antialiased); with a ``seg_map`` target,
+  ``seg_loss``;
+* ``cl`` — ``probs`` and ``logits`` from the coarsest resized level; with a
+  ``label`` target, ``cl_loss``.
 
-On the card the mask branch runs the mask-head kernel, which takes bf16
-ROIs of 256 channels (``fpn.out_channels`` 256).  Not ported yet, and
-raising when asked for: training (``targets``: the losses, constrain
-modules and mosaic), the ``darknet`` backbone, the ``fcos`` header and
-keypoints.  A config's ``constrains`` are training-only and ignored here.
+With targets, each entry of the config's ``constrains`` adds
+``losses['constrains'][id]``: the confliction loss between a seg task's
+probabilities and a det task's detections (box-mean, or mask-weighted with
+``weighting: mask``).  Without targets the forward runs under
+``torch.no_grad``; with them it is differentiable (``train()`` turns on
+the backbone's drop path and dropouts, drawn from the ``generator`` given),
+and pass 1 keeps the gradients of the detections' scores and masks that
+the constrain losses use.  ``total_loss`` weighs the terms as JAX does.
+
+On the card inference runs the mask-head kernel, which takes bf16 ROIs of
+256 channels (``fpn.out_channels`` 256); a differentiable forward runs the
+cuDNN chain instead.  Not ported, and raising when asked for: the
+``darknet`` backbone, the ``fcos`` header and keypoints.
 """
 
 from __future__ import annotations
@@ -35,7 +51,8 @@ from ..detector import resolve_device
 from ..wsi.tiling import sliding_window_grid
 from .feature_mosaic import extract_roi_feature_maps
 from .fpn import FeaturePyramidNetwork
-from .heads import ClassificationHead, PanopticSegHead
+from .heads import (ClassificationHead, ConstrainModule, DynamicConstrainModule,
+                    PanopticSegHead)
 from .layers import resize_bilinear
 from .mask_rcnn import MaskRCNN
 from .swin import SwinTransformer
@@ -61,7 +78,10 @@ class HNet(nn.Module):
         self.backbone = SwinTransformer(
             embed_dim=b.get("embed_dim", 96), depths=depths,
             num_heads=tuple(b.get("num_heads", (3, 6, 12, 24))),
-            window_size=b.get("window_size", 7))
+            window_size=b.get("window_size", 7), drop_path_rate=b.get("drop_path_rate", 0.0),
+            drop_rate=b.get("drop_rate", 0.0), attn_drop_rate=b.get("attn_drop_rate", 0.0))
+        self.stochastic = any(b.get(k, 0.0) > 0 for k in ("drop_path_rate", "drop_rate",
+                                                          "attn_drop_rate"))
         # one pyramid level per swin stage (stride 4 · 2^stage)
         self.backbone_strides = tuple(4.0 * 2.0 ** i for i in range(len(depths)))
 
@@ -97,6 +117,11 @@ class HNet(nn.Module):
             else:
                 raise ValueError(f"unknown header type {kind!r}")
         self.headers = nn.ModuleDict(headers)
+        self.constrain_cfg = cfg.get("constrains", {})
+        self.constrains = nn.ModuleDict({
+            cid: DynamicConstrainModule(c["edges"], c.get("values", ()))
+            if c.get("weighting") == "mask" else ConstrainModule(c["edges"])
+            for cid, c in self.constrain_cfg.items()})
         self.eval().to(device)
 
     @classmethod
@@ -169,9 +194,42 @@ class HNet(nn.Module):
             cache[key] = torch.cat([origins, origins + float(win)], -1).to(device)
         return cache[key]
 
+    def _project_gt_to_rois(self, t: Dict[str, Tensor], rois_px: Tensor,
+                            img_hw: Tuple[int, int], v_px: int) -> Dict[str, Tensor]:
+        """Image-frame GT → per-ROI virtual-frame targets of the (B·R) ROI
+        batch: a GT lands in a ROI when its centre is inside; its box is
+        clipped to the ROI and rescaled to the v_px frame, and kept when
+        wider and taller than 1 px; labels and masks follow every ROI of
+        their image."""
+        H, W = img_hw
+        dev = rois_px.device
+        gt = t["boxes"].float() * torch.tensor([W, H, W, H], dtype=torch.float32, device=dev)
+        B, R = rois_px.shape[:2]
+        T = gt.shape[1]
+        r = rois_px.float()
+        sw = v_px / (r[..., 2] - r[..., 0]).clamp(min=1e-6)
+        sh = v_px / (r[..., 3] - r[..., 1]).clamp(min=1e-6)
+        origin = torch.stack([r[..., 0], r[..., 1], r[..., 0], r[..., 1]], -1)[:, :, None]
+        local = (gt[:, None] - origin) * torch.stack([sw, sh, sw, sh], -1)[:, :, None]
+        cx = (local[..., 0] + local[..., 2]) * 0.5
+        cy = (local[..., 1] + local[..., 3]) * 0.5
+        inside = (cx >= 0) & (cx < v_px) & (cy >= 0) & (cy < v_px)
+        clipped = local.clamp(0.0, float(v_px))
+        ok = (t["valid"].bool()[:, None] & inside & (clipped[..., 2] - clipped[..., 0] > 1.0)
+              & (clipped[..., 3] - clipped[..., 1] > 1.0))
+        boxes = torch.where(ok[..., None], clipped / v_px, torch.zeros_like(clipped))
+        out = {"boxes": boxes.reshape(B * R, T, 4), "valid": ok.reshape(B * R, T),
+               "labels": t["labels"][:, None].expand(B, R, T).reshape(B * R, T)}
+        if "masks" in t:
+            m = t["masks"]
+            out["masks"] = m[:, None].expand((B, R) + m.shape[1:]).reshape((B * R,) + m.shape[1:])
+        return out
+
     def _maskrcnn_task(self, header: MaskRCNN, hcfg: Dict, feats: Sequence[Tensor],
-                       img_hw: Tuple[int, int]) -> Dict[str, Tensor]:
-        """Tile-grid inference, projected back to the image frame."""
+                       img_hw: Tuple[int, int], t: Optional[Dict[str, Tensor]] = None):
+        """Pass 1, tile-grid inference projected back to the image frame;
+        with targets ``t``, pass 2, the losses over the annotation ROIs →
+        (losses, outputs)."""
         H, W = img_hw
         amp = float(hcfg.get("amplification", 1.0))
         win = min(int(hcfg.get("roi_size") or min(H, W)), H, W)
@@ -185,19 +243,45 @@ class HNet(nn.Module):
         boxes = o["boxes"].reshape(B, nt, K, 4) * (float(win) / float(v_px)) + shift[None, :, None]
         o = {k: v.reshape((B, nt * K) + v.shape[2:]) for k, v in o.items()}
         o["boxes"] = boxes.reshape(B, nt * K, 4)
-        return o
+
+        losses: Dict[str, Tensor] = {}
+        if t is not None:
+            dev = feats[0].device
+            if "rois" in t:
+                ann = t["rois"].float()
+                roi_valid = t.get("roi_valid")
+                if roi_valid is None:
+                    roi_valid = torch.ones(ann.shape[:2], dtype=torch.bool, device=dev)
+            else:                                      # the whole image as the one ROI
+                ann = torch.tensor([0.0, 0.0, float(W), float(H)], device=dev).expand(B, 1, 4)
+                roi_valid = torch.ones((B, 1), dtype=torch.bool, device=dev)
+            pyr_l, v_l = self._roi_pyramids(feats, ann, win, amp)
+            losses = header.compute_losses(pyr_l, (v_l, v_l),
+                                           self._project_gt_to_rois(t, ann, (H, W), v_l),
+                                           image_weight=roi_valid.reshape(-1).float())
+        return losses, o
 
     # --------------------------------------------------------------- forward
-    @torch.no_grad()
-    def forward(self, x: Tensor, targets: Optional[Dict] = None):
-        """(B, H, W, 3) batch → (losses, outputs), inference only."""
-        if targets is not None:
-            raise NotImplementedError("HNet training (losses, constrain modules, mosaic) is not "
-                                      "ported yet; forward takes no targets")
+    def forward(self, x: Tensor, targets: Optional[Dict] = None, generator=None,
+                compute_masks: bool = True):
+        """(B, H, W, 3) batch [, {task: targets}] → (losses, outputs);
+        without targets under ``torch.no_grad``.  ``compute_masks`` is
+        accepted for the engines and ignored, as in JAX: masks follow each
+        header's ``with_masks``."""
+        if targets is None:
+            with torch.no_grad():
+                return self._forward(x, None, generator)
+        return self._forward(x, targets, generator)
+
+    def losses(self, x: Tensor, targets: Dict, compute_masks: bool = True, generator=None):
+        """The training step's entry: ``forward(x, targets)``."""
+        return self._forward(x, targets, generator)
+
+    def _forward(self, x: Tensor, targets: Optional[Dict], generator):
         H, W = x.shape[1:3]
         if not x.is_floating_point():
             x = x.float() / 255.0
-        raw = self.backbone(x.to(self.dtype))
+        raw = self.backbone(x.to(self.dtype), generator)
         dense_tasks = any(not isinstance(h, MaskRCNN) for h in self.headers.values())
         feats = self.fpn(raw) if (self.fpn_type == "fpn" or dense_tasks) else raw
         det_feats = raw if self.fpn_type == "dynamic" else feats
@@ -205,11 +289,54 @@ class HNet(nn.Module):
         losses: Dict[str, Dict] = {}
         outputs: Dict[str, Dict[str, Tensor]] = {}
         for task, header in self.headers.items():
+            hcfg = self.header_cfg[task]
+            t = targets.get(task) if targets is not None else None
             if isinstance(header, MaskRCNN):
-                outputs[task] = self._maskrcnn_task(header, self.header_cfg[task], det_feats,
-                                                    (H, W))
+                losses[task], outputs[task] = self._maskrcnn_task(header, hcfg, det_feats, (H, W),
+                                                                  t)
             else:
-                amp = float(self.header_cfg[task].get("amplification", 1.0))
-                outputs[task] = header(self.extract_amplified(feats, amp))
-            losses[task] = {}
+                key = "label" if isinstance(header, ClassificationHead) else "seg_map"
+                losses[task], outputs[task] = header(
+                    self.extract_amplified(feats, float(hcfg.get("amplification", 1.0))),
+                    None if t is None else t.get(key))
+
+        if targets is not None:
+            for cid, cm in self.constrains.items():
+                c = self.constrain_cfg[cid]
+                seg_o, det_o = outputs.get(c["seg_task"], {}), outputs.get(c["det_task"], {})
+                if "probs" not in seg_o or "boxes" not in det_o:
+                    continue
+                # the seg probabilities lie at stride0 / amp of the image frame
+                seg_amp = float(self.header_cfg[c["seg_task"]].get("amplification", 1.0))
+                seg_stride = float(self.backbone_strides[0]) / seg_amp
+                n_seg = seg_o["probs"].shape[-1]
+                onehot = (det_o["labels"].clamp(min=0)[..., None]
+                          == torch.arange(n_seg, device=x.device)).float()
+                scores = onehot * det_o["scores"][..., None]
+                if isinstance(cm, DynamicConstrainModule):
+                    masks = det_o.get("masks")
+                    if masks is None:                  # no mask branch: uniform box weight
+                        masks = torch.ones(det_o["valid"].shape + (28, 28), device=x.device)
+                    loss = cm(seg_o["probs"], det_o["boxes"], scores, masks, det_o["valid"],
+                              seg_stride)
+                else:
+                    loss = cm(seg_o["probs"], det_o["boxes"], scores, det_o["valid"], seg_stride)
+                losses.setdefault("constrains", {})[cid] = loss
         return losses, outputs
+
+    def total_loss(self, losses: Dict[str, Dict[str, Tensor]],
+                   mask_weight: float = 1.0) -> Tensor:
+        """Σ of every header and constrain loss: each task's terms times its
+        ``loss_weight`` (default 1), the terms whose key holds "mask" also
+        times ``mask_weight``; each constrain times its own ``loss_weight``."""
+        total = 0.0
+        for task, task_losses in losses.items():
+            if task == "constrains":
+                for cid, v in task_losses.items():
+                    total = total + float(self.constrain_cfg.get(cid, {}).get("loss_weight",
+                                                                              1.0)) * v
+                continue
+            tw = float(self.header_cfg.get(task, {}).get("loss_weight", 1.0))
+            for k, v in task_losses.items():
+                total = total + tw * (mask_weight if "mask" in k else 1.0) * v
+        return total

@@ -1,5 +1,6 @@
-"""Mask R-CNN header, inference (port of ``hd_yolo_tpu/hnet/mask_rcnn.py``):
-RPN proposals, the box head with class-aware NMS, and the mask head.
+"""Mask R-CNN header (port of ``hd_yolo_tpu/hnet/mask_rcnn.py``): RPN
+proposals, the box head with class-aware NMS, the mask head, and the
+training losses.
 
 Static shapes as in the JAX package: ``pre_nms_topk`` anchors per image →
 NMS → ``num_proposals`` padded proposals → box head → class-aware NMS →
@@ -8,7 +9,21 @@ calls go through ``ops/nms.nms_dispatch`` (the NMS kernel on the card), the
 ROI pooling through ``multiscale_roi_align_canvas`` (the canvas ROI-align
 kernel) and the masks through ``fused_mask_probs`` (the mask-head kernel).
 ``infer`` runs the stages ``propose`` (``proposals``), ``classify``,
-``select`` and ``masks``.  The training losses are not ported yet.
+``select`` and ``masks``.
+
+``compute_losses`` is the JAX package's: RPN objectness and box regression
+against the anchors, and the RoI head's classification, box regression and
+mask losses on the proposals with the GT boxes added, each under the
+deterministic expectation of torchvision's random pos/neg sampler
+(``sampler_weights``), so the port's losses are JAX's exactly, not in
+distribution.  Under autograd both the pooling (``RoiAlignBoundedFn``: the
+kernel ``roi_align_bwd`` on the card) and the mask head (the cuDNN chain
+of ``MaskHead.forward``, where inference runs the mask-head kernel, which
+has no backward) are differentiable in the features, also inside ``infer``
+(the detections' scores and masks feed the confliction loss); NMS selects
+indices and the gathers carry the gradients.  The pooling gives the boxes
+no gradient, as JAX's TPU kernels' vjps give none (XLA's would); the
+regression targets of the proposals stay attached to them, as in JAX.
 
 Key layout (``hd_yolo_tpu/utils/import_maskrcnn.py``, torchvision's):
 ``rpn.head.{conv,cls_logits,bbox_pred}``, ``roi_heads.box_head.{fc6,fc7}``,
@@ -20,14 +35,16 @@ reference's (C, 7, 7) flattening.  The mask head is the port's
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+import math
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..models.detect_head import MaskHead
 from ..models.layers import cached
-from ..ops.boxes import clip_boxes, xywh2xyxy, xyxy2xywh
+from ..ops.boxes import box_iou, clip_boxes, xywh2xyxy, xyxy2xywh
 from ..ops.nms import batched_nms_padded, nms_dispatch
 from ..ops.pallas_mask_head import fused_mask_probs
 from ..ops.roi_align import multiscale_roi_align_canvas
@@ -74,6 +91,79 @@ def decode_deltas(anchors: Tensor, deltas: Tensor, clip: float = 4.135,
     w = a[..., 2] * torch.exp((dw / ww).clamp(-clip, clip))
     h = a[..., 3] * torch.exp((dh / wh).clamp(-clip, clip))
     return xywh2xyxy(torch.stack([cx, cy, w, h], -1))
+
+
+def encode_deltas(anchors: Tensor, gt: Tensor,
+                  weights: Tuple[float, ...] = BBOX_REG_WEIGHTS) -> Tensor:
+    """xyxy ``gt`` relative to xyxy ``anchors`` → (dx, dy, dw, dh)·weights."""
+    wx, wy, ww, wh = weights
+    a, g = xyxy2xywh(anchors), xyxy2xywh(gt)
+    eps = 1e-6
+    dx = wx * (g[..., 0] - a[..., 0]) / a[..., 2].clamp(min=eps)
+    dy = wy * (g[..., 1] - a[..., 1]) / a[..., 3].clamp(min=eps)
+    dw = ww * torch.log(g[..., 2].clamp(min=eps) / a[..., 2].clamp(min=eps))
+    dh = wh * torch.log(g[..., 3].clamp(min=eps) / a[..., 3].clamp(min=eps))
+    return torch.stack([dx, dy, dw, dh], -1)
+
+
+def smooth_l1(x: Tensor, beta: float = 1.0 / 9) -> Tensor:
+    ax = x.abs()
+    return torch.where(ax < beta, 0.5 * ax ** 2 / beta, ax - 0.5 * beta)
+
+
+def assign_targets(anchors: Tensor, gt_boxes: Tensor, gt_valid: Tensor, fg_iou: float,
+                   bg_iou: float, anchor_valid: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+    """Per image (leading batch dims shared by all arguments; ``anchors``
+    may lack them): (labels 1 fg / 0 bg / −1 ignore, matched GT index).
+    The best anchor of every valid GT is promoted to fg as torchvision does;
+    ``anchor_valid`` keeps padded rows out of both.  Where GTs share a best
+    anchor, the last GT's validity decides, as XLA's scatter applies them."""
+    iou = box_iou(anchors, gt_boxes)                                  # (..., N, T)
+    neg = torch.full_like(iou, -1.0)
+    iou = torch.where(gt_valid[..., None, :], iou, neg)
+    if anchor_valid is not None:
+        iou = torch.where(anchor_valid[..., :, None], iou, neg)
+    best_iou, best_gt = iou.max(-1)
+    labels = torch.where(best_iou >= fg_iou, 1, torch.where(best_iou < bg_iou, 0, -1))
+    best_anchor = iou.argmax(-2)                                      # (..., T)
+    T = gt_boxes.shape[-2]
+    order = torch.arange(T, device=iou.device).expand(best_anchor.shape)
+    last = torch.full(iou.shape[:-1], -1, dtype=torch.int64, device=iou.device)
+    last = last.scatter_reduce(-1, best_anchor, order, reduce="amax")
+    promote = (last >= 0) & torch.gather(gt_valid, -1, last.clamp(min=0))
+    labels = torch.where(promote, 1, labels)
+    if anchor_valid is not None:
+        labels = torch.where(anchor_valid, labels, -1)
+    return labels, best_gt
+
+
+def sampler_weights(pos: Tensor, neg: Tensor, budget: float, pos_fraction: float):
+    """The expectation of torchvision's BalancedPositiveNegativeSampler over
+    the last axis: each positive / negative row weighs the probability that
+    the sampler draws it.  Returns (weights, positive draw probability,
+    sampled count >= 1), the last two with the last axis reduced."""
+    n_pos, n_neg = pos.sum(-1), neg.sum(-1)
+    n_pos_s = n_pos.clamp(max=budget * pos_fraction)
+    n_neg_s = torch.minimum(n_neg, budget - n_pos_s)
+    p_pos = n_pos_s / n_pos.clamp(min=1.0)
+    w = pos * p_pos[..., None] + neg * (n_neg_s / n_neg.clamp(min=1.0))[..., None]
+    return w, p_pos, (n_pos_s + n_neg_s).clamp(min=1.0)
+
+
+def balanced_bce(logits: Tensor, labels: Tensor, budget: float = 256.0,
+                 pos_fraction: float = 0.5) -> Tensor:
+    """Objectness BCE over the last axis under the expectation sampler."""
+    pos, neg = (labels == 1).float(), (labels == 0).float()
+    w, _, n_sampled = sampler_weights(pos, neg, budget, pos_fraction)
+    bce = -(pos * F.logsigmoid(logits) + neg * F.logsigmoid(-logits))
+    return (bce * w).sum(-1) / n_sampled
+
+
+def _wmean(per_image: Tensor, weight: Optional[Tensor]) -> Tensor:
+    if weight is None:
+        return per_image.mean()
+    w = weight.to(per_image.dtype)
+    return (per_image * w).sum() / w.sum().clamp(min=1.0)
 
 
 def _take(x: Tensor, idx: Tensor) -> Tensor:
@@ -174,11 +264,17 @@ class MaskRCNN(nn.Module):
                                                     ASPECT_RATIOS, device))
         return cache[key]
 
-    def propose(self, feats: Sequence[Tensor], image_size: Tuple[int, int]):
-        """RPN → (proposals (B, num_proposals, 4) xyxy, valid (B, num_proposals))."""
+    def rpn_outputs(self, feats: Sequence[Tensor], image_size: Tuple[int, int]):
+        """RPN → (anchors (N, 4), objectness (B, N), deltas (B, N, 4) in the
+        features' dtype, proposals (B, num_proposals, 4) xyxy, valid)."""
         anchors = self.anchors([tuple(f.shape[1:3]) for f in feats], feats[0].device)
         logits, deltas = self.rpn.head(feats)
-        return self.proposals(logits.float(), deltas.float(), anchors, image_size)
+        return (anchors, logits, deltas,
+                *self.proposals(logits.float(), deltas.float(), anchors, image_size))
+
+    def propose(self, feats: Sequence[Tensor], image_size: Tuple[int, int]):
+        """RPN → (proposals (B, num_proposals, 4) xyxy, valid (B, num_proposals))."""
+        return self.rpn_outputs(feats, image_size)[3:]
 
     def proposals(self, logits: Tensor, deltas: Tensor, anchors: Tensor,
                   image_size: Tuple[int, int]) -> Tuple[Tensor, Tensor]:
@@ -251,7 +347,102 @@ class MaskRCNN(nn.Module):
         (the background channel for label -100), zero where not ``valid``."""
         pooled = self.pool(feats, boxes, 14)
         B, K = boxes.shape[:2]
-        probs = fused_mask_probs(self.roi_heads.mask_head,
-                                 pooled.reshape((B * K,) + pooled.shape[2:]),
-                                 labels.clamp(0, self.num_classes).reshape(-1))
+        flat = pooled.reshape((B * K,) + pooled.shape[2:])
+        ch = labels.clamp(0, self.num_classes).reshape(-1)
+        head = self.roi_heads.mask_head
+        if torch.is_grad_enabled() and flat.requires_grad:
+            # differentiable: the cuDNN chain (the kernel has no backward)
+            logits = torch.gather(head(flat).float(), -1,
+                                  ch[:, None, None, None].expand(-1, 28, 28, 1))[..., 0]
+            probs = torch.sigmoid(logits)
+        else:
+            probs = fused_mask_probs(head, flat, ch)
         return probs.reshape(B, K, *probs.shape[1:]) * valid[..., None, None]
+
+    # ---------------------------------------------------------------- losses
+    def compute_losses(self, feats: Sequence[Tensor], image_size: Tuple[int, int],
+                       targets: Dict[str, Tensor],
+                       image_weight: Optional[Tensor] = None) -> Dict[str, Tensor]:
+        """RPN and RoI-head losses (f32 0-d tensors ``rpn_obj_loss``,
+        ``rpn_reg_loss``, ``roi_cls_loss``, ``roi_reg_loss`` and, with masks
+        and ``targets['masks']``, ``mask_loss``).  ``targets``: ``boxes``
+        (B, T, 4) normalised xyxy, ``labels`` (B, T), ``valid`` (B, T),
+        ``masks`` (B, T, 28, 28) in-box; ``image_weight`` (B,) weighs each
+        image's losses (0 for padded annotation ROIs)."""
+        anchors, logits, deltas, proposals, pvalid = self.rpn_outputs(feats, image_size)
+        h, w = image_size
+        gt_boxes = targets["boxes"].float() * torch.tensor([w, h, w, h], dtype=torch.float32,
+                                                           device=proposals.device)
+        gt_valid = targets["valid"].bool()
+        losses = self._rpn_loss(anchors, logits.float(), deltas.float(), gt_boxes, gt_valid,
+                                image_weight)
+        # the RoI head trains on the proposals with the GT boxes added
+        roi_boxes = torch.cat([proposals, gt_boxes], 1)
+        roi_valid = torch.cat([pvalid, gt_valid], 1)
+        losses.update(self._roi_loss(feats, roi_boxes, roi_valid, gt_boxes, gt_valid, targets,
+                                     image_weight))
+        return losses
+
+    def _rpn_loss(self, anchors, logits, deltas, gt_boxes, gt_valid, image_weight=None):
+        labels, match = assign_targets(anchors, gt_boxes, gt_valid, 0.7, 0.3)
+        obj = balanced_bce(logits, labels)
+        tgt = encode_deltas(anchors, _take(gt_boxes, match), weights=RPN_BOX_WEIGHTS)
+        pos, neg = (labels == 1).float(), (labels == 0).float()
+        # torchvision's smooth-L1 sum over the sampled positives / the sampled count
+        _, p_pos, n_sampled = sampler_weights(pos, neg, 256.0, 0.5)
+        reg = (smooth_l1(deltas - tgt).sum(-1) * pos).sum(-1) * p_pos / n_sampled
+        return {"rpn_obj_loss": _wmean(obj, image_weight),
+                "rpn_reg_loss": _wmean(reg, image_weight)}
+
+    def _roi_loss(self, feats, roi_boxes, roi_valid, gt_boxes, gt_valid, targets,
+                  image_weight=None):
+        pooled = self.pool(feats, roi_boxes, 7)
+        B, R = roi_boxes.shape[:2]
+        nc = self.num_classes
+        x = self.roi_heads.box_head(pooled.reshape((B * R,) + pooled.shape[2:]))
+        pred = self.roi_heads.box_predictor
+        cls_logits = dense(pred.cls_score, x).float().reshape(B, R, -1)
+        box_deltas = dense(pred.bbox_pred, x).float().reshape(B, R, nc + 1, 4)
+
+        labels_m, match = assign_targets(roi_boxes, gt_boxes, gt_valid, 0.5, 0.5,
+                                         anchor_valid=roi_valid)
+        fg = (labels_m == 1) & roi_valid
+        bg = (labels_m == 0) & roi_valid
+        glabels = targets["labels"].long().clamp(0, nc)
+        cls_target = torch.where(fg, torch.gather(glabels, 1, match), 0)   # bg class 0
+        ce = -torch.gather(torch.log_softmax(cls_logits, -1), 2, cls_target[..., None])[..., 0]
+        # torchvision fastrcnn_loss under the expectation sampler (budget 512,
+        # f = 0.25): CE mean over the sample, box smooth-L1 sum over the
+        # sampled fg / the sampled count
+        wts, p_fg, n_sampled = sampler_weights(fg.float(), bg.float(), 512.0, 0.25)
+        cls_l = (ce * wts).sum(-1) / n_sampled
+        tgt = encode_deltas(roi_boxes, _take(gt_boxes, match))
+        d = torch.gather(box_deltas, 2, cls_target[..., None, None].expand(B, R, 1, 4))[:, :, 0]
+        reg_l = (smooth_l1(d - tgt).sum(-1) * fg).sum(-1) * p_fg / n_sampled
+        losses = {"roi_cls_loss": _wmean(cls_l, image_weight),
+                  "roi_reg_loss": _wmean(reg_l, image_weight)}
+
+        if self.with_masks and "masks" in targets:
+            # up to num_detections fg ROIs an image; lax.top_k's order:
+            # descending, ties to the lower index (a stable sort)
+            K = min(self.num_detections, R)
+            score = torch.where(fg, 1.0, -math.inf)
+            sel = torch.sort(score, dim=1, descending=True, stable=True)[1][:, :K]
+            mb = _take(roi_boxes, sel)
+            mv = torch.gather(fg, 1, sel)
+            if image_weight is not None:
+                mv = mv & (image_weight > 0)[:, None]
+            mmatch = torch.gather(match, 1, sel)
+            pooled_m = self.pool(feats, mb, 14)
+            head = self.roi_heads.mask_head
+            mlogits = head(pooled_m.reshape((B * K,) + pooled_m.shape[2:])).float()
+            mlogits = mlogits.reshape(B, K, 28, 28, -1)
+            mcls = torch.gather(glabels, 1, mmatch)
+            sel_log = torch.gather(mlogits, -1,
+                                   mcls[..., None, None, None].expand(B, K, 28, 28, 1))[..., 0]
+            gt_m = _take(targets["masks"], mmatch).float()
+            bce = sel_log.clamp(min=0) - sel_log * gt_m + torch.log1p(torch.exp(-sel_log.abs()))
+            per = bce.mean((-1, -2))
+            mvf = mv.float()
+            losses["mask_loss"] = (per * mvf).sum() / mvf.sum().clamp(min=1.0)
+        return losses

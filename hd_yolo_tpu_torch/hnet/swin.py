@@ -1,4 +1,4 @@
-"""Swin Transformer backbone, inference (port of ``hd_yolo_tpu/hnet/swin.py``).
+"""Swin Transformer backbone (port of ``hd_yolo_tpu/hnet/swin.py``).
 
 NHWC in, four NHWC pyramid levels out at strides 4, 8, 16, 32.  Module and
 parameter names follow the upstream (Microsoft / timm) key layout that
@@ -12,7 +12,17 @@ default, not torch's 1e-5); the MLP's GELU is the tanh approximation
 (``jax.nn.gelu``'s default); window padding happens inside each block on
 the normed tensor and is cropped before the residual add, with the shift
 mask built on the padded grid; the attention softmax runs in f32 and is
-cast back.  Drop-path and dropout are the identity at inference.
+cast back.
+
+In training mode (``module.training``) the block's residual branches take
+stochastic depth (``DropPath``, the rate ramped linearly over the blocks,
+``dpr = drop_path_rate · i / (total − 1)``), its projection and MLP
+dropouts ``drop_rate`` and its attention dropout ``attn_drop_rate``, as
+flax's ``Dropout``: kept with probability 1 − rate, survivors divided by
+it.  Every mask draws from the ``torch.Generator`` handed to ``forward``
+(none: torch's default generator); the JAX package draws its own bits from
+a ``dropout`` key, so the two agree in distribution, not bit for bit.  In
+eval mode, or at rate 0, they are the identity.
 """
 
 from __future__ import annotations
@@ -32,6 +42,31 @@ Tensor = torch.Tensor
 LN_EPS = 1e-6
 MLP_RATIO = 4
 PATCH_SIZE = 4
+
+
+def dropout(x: Tensor, rate: float, training: bool, generator=None, shape=None) -> Tensor:
+    """flax ``Dropout``: each element (or each of ``shape``, broadcast) kept
+    with probability 1 − ``rate`` and divided by it, else 0; the identity in
+    eval mode or at rate 0."""
+    if rate <= 0.0 or not training:
+        return x
+    keep = 1.0 - rate
+    p = torch.full(x.shape if shape is None else shape, keep, device=x.device)
+    mask = torch.bernoulli(p, generator=generator).bool()
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class DropPath(nn.Module):
+    """Stochastic depth: a per-sample Bernoulli mask (keep 1 − ``rate``)
+    zeroes a residual branch, survivors divided by the keep probability."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: Tensor, generator=None) -> Tensor:
+        return dropout(x, self.rate, self.training, generator,
+                       (x.shape[0],) + (1,) * (x.dim() - 1))
 
 
 def window_partition(x: Tensor, ws: int) -> Tensor:
@@ -72,10 +107,13 @@ def shifted_window_mask(H: int, W: int, ws: int, shift: int) -> np.ndarray:
 
 
 class WindowAttention(nn.Module):
-    def __init__(self, dim: int, window_size: int, num_heads: int):
+    def __init__(self, dim: int, window_size: int, num_heads: int, attn_drop: float = 0.0,
+                 proj_drop: float = 0.0):
         super().__init__()
         self.window_size = window_size
         self.num_heads = num_heads
+        self.attn_drop = attn_drop
+        self.proj_drop = proj_drop
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
         self.relative_position_bias_table = nn.Parameter(
@@ -95,7 +133,7 @@ class WindowAttention(nn.Module):
 
         return cached(self, f"bias_{dtype}", (self.relative_position_bias_table,), make)
 
-    def forward(self, x: Tensor, mask: Tensor = None) -> Tensor:
+    def forward(self, x: Tensor, mask: Tensor = None, generator=None) -> Tensor:
         """x: (B·nW, N=ws², C); mask: (nW, N, N) additive, or None."""
         Bn, N, C = x.shape
         h = self.num_heads
@@ -109,29 +147,35 @@ class WindowAttention(nn.Module):
             attn = attn.view(Bn // nW, nW, h, N, N) + mask[None, :, None].to(attn.dtype)
             attn = attn.view(Bn, h, N, N)
         attn = torch.softmax(attn.float(), -1).to(x.dtype)
+        attn = dropout(attn, self.attn_drop, self.training, generator)
         out = (attn @ v).transpose(1, 2).reshape(Bn, N, C)
-        return dense(self.proj, out)
+        return dropout(dense(self.proj, out), self.proj_drop, self.training, generator)
 
 
 class Mlp(nn.Module):
-    def __init__(self, dim: int, hidden: int):
+    def __init__(self, dim: int, hidden: int, drop: float = 0.0):
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
+        self.drop = drop
 
-    def forward(self, x: Tensor) -> Tensor:
-        return dense(self.fc2, F.gelu(dense(self.fc1, x), approximate="tanh"))
+    def forward(self, x: Tensor, generator=None) -> Tensor:
+        y = dropout(F.gelu(dense(self.fc1, x), approximate="tanh"), self.drop, self.training,
+                    generator)
+        return dropout(dense(self.fc2, y), self.drop, self.training, generator)
 
 
 class SwinBlock(nn.Module):
-    def __init__(self, dim: int, num_heads: int, window_size: int = 7, shift_size: int = 0):
+    def __init__(self, dim: int, num_heads: int, window_size: int = 7, shift_size: int = 0,
+                 drop_path: float = 0.0, drop_rate: float = 0.0, attn_drop: float = 0.0):
         super().__init__()
         self.window_size = window_size
         self.shift_size = shift_size
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.attn = WindowAttention(dim, window_size, num_heads)
+        self.attn = WindowAttention(dim, window_size, num_heads, attn_drop, drop_rate)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.mlp = Mlp(dim, dim * MLP_RATIO)
+        self.mlp = Mlp(dim, dim * MLP_RATIO, drop_rate)
+        self.drop_path = DropPath(drop_path)
 
     def shift_mask(self, Hp: int, Wp: int, device) -> Tensor:
         """The padded grid's shift mask, made once per grid size and device."""
@@ -142,7 +186,7 @@ class SwinBlock(nn.Module):
                 shifted_window_mask(Hp, Wp, self.window_size, self.shift_size)).to(device)
         return masks[key]
 
-    def forward(self, x: Tensor) -> Tensor:
+    def forward(self, x: Tensor, generator=None) -> Tensor:
         B, H, W, C = x.shape
         ws, shift = self.window_size, self.shift_size
         ph, pw = (-H) % ws, (-W) % ws
@@ -156,13 +200,13 @@ class SwinBlock(nn.Module):
             x = torch.roll(x, (-shift, -shift), (1, 2))
             mask = self.shift_mask(Hp, Wp, x.device)
         windows = window_partition(x, ws).reshape(-1, ws * ws, C)
-        x = window_reverse(self.attn(windows, mask).reshape(-1, ws, ws, C), ws, Hp, Wp)
+        x = window_reverse(self.attn(windows, mask, generator).reshape(-1, ws, ws, C), ws, Hp, Wp)
         if shift > 0:
             x = torch.roll(x, (shift, shift), (1, 2))
         if ph or pw:
             x = x[:, :H, :W]
-        x = shortcut + x
-        return x + self.mlp(layer_norm(self.norm2, x))
+        x = shortcut + self.drop_path(x, generator)
+        return x + self.drop_path(self.mlp(layer_norm(self.norm2, x), generator), generator)
 
 
 class PatchMerging(nn.Module):
@@ -194,29 +238,40 @@ class PatchEmbed(nn.Module):
 
 
 class BasicLayer(nn.Module):
-    def __init__(self, dim: int, depth: int, num_heads: int, window_size: int, downsample: bool):
+    def __init__(self, dim: int, depth: int, num_heads: int, window_size: int, downsample: bool,
+                 drop_paths: Sequence[float] = (), drop_rate: float = 0.0,
+                 attn_drop: float = 0.0):
         super().__init__()
+        drop_paths = tuple(drop_paths) or (0.0,) * depth
         self.blocks = nn.ModuleList(
-            SwinBlock(dim, num_heads, window_size, 0 if j % 2 == 0 else window_size // 2)
+            SwinBlock(dim, num_heads, window_size, 0 if j % 2 == 0 else window_size // 2,
+                      drop_paths[j], drop_rate, attn_drop)
             for j in range(depth))
         self.downsample = PatchMerging(dim) if downsample else None
 
 
 class SwinTransformer(nn.Module):
     """Swin-T/S/B family backbone; ``forward`` returns the pyramid levels of
-    ``out_indices`` (strides 4-32), each through its output LayerNorm."""
+    ``out_indices`` (strides 4-32), each through its output LayerNorm.  The
+    drop rates act in training mode only (module docstring)."""
 
     def __init__(self, embed_dim: int = 96, depths: Sequence[int] = (2, 2, 6, 2),
                  num_heads: Sequence[int] = (3, 6, 12, 24), window_size: int = 7,
-                 out_indices: Sequence[int] = (0, 1, 2, 3)):
+                 out_indices: Sequence[int] = (0, 1, 2, 3), drop_path_rate: float = 0.0,
+                 drop_rate: float = 0.0, attn_drop_rate: float = 0.0):
         super().__init__()
         self.out_indices = tuple(out_indices)
         self.patch_embed = PatchEmbed(embed_dim)
         self.layers = nn.ModuleList()
+        total = sum(depths)
+        dpr = [drop_path_rate * i / max(total - 1, 1) for i in range(total)]
         dim = embed_dim
         for i, (depth, heads) in enumerate(zip(depths, num_heads)):
+            first = sum(depths[:i])
             self.layers.append(BasicLayer(dim, depth, heads, window_size,
-                                          downsample=i < len(depths) - 1))
+                                          downsample=i < len(depths) - 1,
+                                          drop_paths=dpr[first:first + depth],
+                                          drop_rate=drop_rate, attn_drop=attn_drop_rate))
             if i in self.out_indices:
                 setattr(self, f"norm{i}", nn.LayerNorm(dim, eps=LN_EPS))
             dim *= 2
@@ -225,12 +280,12 @@ class SwinTransformer(nn.Module):
     def channels(self) -> Tuple[int, ...]:
         return tuple(getattr(self, f"norm{i}").normalized_shape[0] for i in self.out_indices)
 
-    def forward(self, x: Tensor) -> List[Tensor]:
+    def forward(self, x: Tensor, generator=None) -> List[Tensor]:
         x = self.patch_embed(x)
         outs = []
         for i, layer in enumerate(self.layers):
             for blk in layer.blocks:
-                x = blk(x)
+                x = blk(x, generator)
             if i in self.out_indices:
                 outs.append(layer_norm(getattr(self, f"norm{i}"), x))
             if layer.downsample is not None:

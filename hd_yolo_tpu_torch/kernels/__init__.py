@@ -49,6 +49,7 @@ KERNELS: Dict[str, list] = {
     "stem_dot108": [],
     "stem_tc": [],
     "roi_align_bwd": [],
+    "roi_align_single_bwd": [],
 }
 
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
@@ -69,6 +70,9 @@ _SIGNATURES = {
     "mask_head": ("mask_head", [_P] * 9 + [_I, _I, _P]),
     "roi_align_levels": ("roi_align_single", [ctypes.c_char_p, _I, _P] + [_I] * 7 + [_P]),
     "roi_align_levels_limits": ("roi_align_single", [_I]),
+    "roi_align_levels_bwd": ("roi_align_single_bwd", [ctypes.c_char_p, _I, _P] + [_I] * 7 + [_P]),
+    "roi_align_levels_bwd_limits": ("roi_align_single_bwd", [_I]),
+    "roi_align_levels_bwd_rois": ("roi_align_single_bwd", [_P] * 5 + [_I] * 12 + [_P]),
     "stem_k108": ("stem_k108", [_P] * 5 + [_I] * 6 + [_P]),
     "stem_dot108": ("stem_dot108", [_P] * 5 + [ctypes.c_longlong, _I, _P]),
     "stem_tc": ("stem_tc", [_P] * 5 + [_I] * 7 + [_P]),

@@ -52,7 +52,7 @@
 #include <climits>
 #include <cstring>
 
-#include "common.cuh"
+#include "roi_single.cuh"
 
 namespace {
 
@@ -72,126 +72,6 @@ struct Levels {
   int start[MAX_L + 1];                // first work item of each level; start[L] = total
   int L;
 };
-
-// 16-byte vectors (8 bf16 or 4 f32 channels) or single elements, as f32.
-template <typename T, int V> struct Vec;
-
-template <> struct Vec<__nv_bfloat16, 8> {
-  using Raw = uint4;
-  static __device__ __forceinline__ void unpack(const Raw u, float* v) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      v[2 * i] = f.x;
-      v[2 * i + 1] = f.y;
-    }
-  }
-  static __device__ __forceinline__ Raw pack(const float* v) {
-    Raw u;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-    return u;
-  }
-  static __device__ __forceinline__ float round(float w) { return hdy::round_bf16(w); }
-};
-
-template <> struct Vec<float, 4> {
-  using Raw = uint4;
-  static __device__ __forceinline__ void unpack(const Raw u, float* v) {
-    v[0] = __uint_as_float(u.x);
-    v[1] = __uint_as_float(u.y);
-    v[2] = __uint_as_float(u.z);
-    v[3] = __uint_as_float(u.w);
-  }
-  static __device__ __forceinline__ Raw pack(const float* v) {
-    return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]), __float_as_uint(v[2]),
-                      __float_as_uint(v[3]));
-  }
-  static __device__ __forceinline__ float round(float w) { return w; }
-};
-
-template <> struct Vec<__nv_bfloat16, 1> {
-  using Raw = __nv_bfloat16;
-  static __device__ __forceinline__ void unpack(const Raw u, float* v) { v[0] = __bfloat162float(u); }
-  static __device__ __forceinline__ Raw pack(const float* v) { return __float2bfloat16_rn(v[0]); }
-  static __device__ __forceinline__ float round(float w) { return hdy::round_bf16(w); }
-};
-
-template <> struct Vec<float, 1> {
-  using Raw = float;
-  static __device__ __forceinline__ void unpack(const Raw u, float* v) { v[0] = u; }
-  static __device__ __forceinline__ Raw pack(const float* v) { return v[0]; }
-  static __device__ __forceinline__ float round(float w) { return w; }
-};
-
-// Sample s of the M·n along an axis that starts at `start`, `bin` apart →
-// its taps on [0, size) and weights, in the op order of `_sample_weights`;
-// two taps on one index (the clamped border) are merged as the plain
-// version's (grid == low) + (grid == high) sum.  Index -1: no contribution.
-__device__ __forceinline__ void sample_taps(float start, float bin, int s, int size, int* idx,
-                                            float* w) {
-  const float c = __fadd_rn(start, __fmul_rn(static_cast<float>(s) + 0.5f, bin));
-  const float fsize = static_cast<float>(size);
-  const bool in_range = (c > -1.f) && (c < fsize);
-  const float cc = fminf(fmaxf(c, 0.f), fsize - 1.f);
-  const float low = floorf(cc);
-  const float lw = __fsub_rn(cc, low);
-  const int i0 = static_cast<int>(low), i1 = min(i0 + 1, size - 1);
-  const float w0 = in_range ? __fsub_rn(1.f, lw) : 0.f, w1 = in_range ? lw : 0.f;
-  idx[0] = in_range ? i0 : -1;
-  if (i1 == i0) {
-    w[0] = __fadd_rn(w0, w1);
-    idx[1] = -1;
-    w[1] = 0.f;
-  } else {
-    w[0] = w0;
-    idx[1] = in_range ? i1 : -1;
-    w[1] = w1;
-  }
-}
-
-// One bin's merged entries: its n samples' taps summed per index in sample
-// order (first appearance order is ascending: floor is monotone), divided by
-// n and rounded to the compute dtype; zero weights dropped.  Returns the
-// entry count; entries go to idx[0..) / w[0..).
-template <typename VV>
-__device__ __forceinline__ int bin_entries(float start, float bin, int p, int n, int size,
-                                           short* idx, float* w) {
-  int cnt = 0;
-  for (int s = p * n; s < (p + 1) * n; ++s) {
-    int ti[2];
-    float tw[2];
-    sample_taps(start, bin, s, size, ti, tw);
-#pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      if (ti[t] < 0) continue;
-      int e = cnt - 1;
-      while (e >= 0 && idx[e] != ti[t]) --e;
-      if (e < 0) {
-        idx[cnt] = static_cast<short>(ti[t]);
-        w[cnt] = tw[t];
-        ++cnt;
-      } else {
-        w[e] = __fadd_rn(w[e], tw[t]);
-      }
-    }
-  }
-  // w / n; for n a power of two the multiply by 1/n is the same rounding
-  const bool pow2 = (n & (n - 1)) == 0;
-  const float inv = 1.f / static_cast<float>(n);
-  int kept = 0;
-  for (int e = 0; e < cnt; ++e) {
-    const float v = VV::round(pow2 ? w[e] * inv : __fdiv_rn(w[e], static_cast<float>(n)));
-    if (v != 0.f) {
-      idx[kept] = idx[e];
-      w[kept] = v;
-      ++kept;
-    }
-  }
-  return kept;
-}
 
 // One row value of a two-entry band row: round(wy0·c0[off] + wy1·c1[off])
 // over a vector, summed in entry order as the generic loop does.
@@ -221,8 +101,9 @@ template <typename T, int V>
 __global__ void __launch_bounds__(NTHREADS, 2)
 roi_align_levels_kernel(const Levels lv, const float4* __restrict__ boxes, int K, int n,
                         int aligned) {
-  using VV = Vec<T, V>;
+  using VV = hdy::Vec<T, V>;
   using Raw = typename VV::Raw;
+  constexpr bool BF16 = sizeof(T) == 2;
   extern __shared__ __align__(16) unsigned char t_smem[];
   T* stage = reinterpret_cast<T*>(t_smem);
   __shared__ short xe_idx[2 * MAX_S];    // [bin * 2n + e]: level column
@@ -274,13 +155,14 @@ roi_align_levels_kernel(const Levels lv, const float4* __restrict__ boxes, int K
     if (warp == 0) {
       int cnt = 0;
       if (lane < bhe) {
-        cnt = bin_entries<VV>(y1, bin_h, p0 + lane, n, H, &ye_idx[lane * ne], &ye_w[lane * ne]);
+        cnt = hdy::bin_entries<BF16>(y1, bin_h, p0 + lane, n, H, &ye_idx[lane * ne],
+                                     &ye_w[lane * ne]);
         ye_cnt[lane] = static_cast<unsigned char>(cnt);
         two = cnt <= 2;
       }
       for (int pl = 32 + lane; pl < bhe; pl += 32) {        // bands taller than a warp
         const int c =
-            bin_entries<VV>(y1, bin_h, p0 + pl, n, H, &ye_idx[pl * ne], &ye_w[pl * ne]);
+            hdy::bin_entries<BF16>(y1, bin_h, p0 + pl, n, H, &ye_idx[pl * ne], &ye_w[pl * ne]);
         ye_cnt[pl] = static_cast<unsigned char>(c);
         two = two && c <= 2;
       }
@@ -317,7 +199,7 @@ roi_align_levels_kernel(const Levels lv, const float4* __restrict__ boxes, int K
     } else {
       int lo = INT_MAX, hi = -1;
       for (int q = tid - 32; q < M; q += NTHREADS - 32) {
-        const int cnt = bin_entries<VV>(x1, bin_w, q, n, W, &xe_idx[q * ne], &xe_w[q * ne]);
+        const int cnt = hdy::bin_entries<BF16>(x1, bin_w, q, n, W, &xe_idx[q * ne], &xe_w[q * ne]);
         xe_cnt[q] = static_cast<unsigned char>(cnt);
         two = two && cnt <= 2;
         if (cnt == 1) {

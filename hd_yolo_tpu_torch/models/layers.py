@@ -45,12 +45,16 @@ def cached(module: nn.Module, name: str, sources, make):
     """``make()``, computed once per state of the ``sources`` tensors: an
     in-place update (``load_state_dict``, ``copy_``) bumps a tensor's version
     and a move to another device changes its address, so either recomputes.
-    The result is kept on the module, outside its ``state_dict``.
+    The result is kept on the module, outside its ``state_dict``.  Under
+    autograd (grad enabled and a source that requires it: a training
+    forward) it is made in the graph on every call and not kept.
 
     Under ``torch.export`` the sources are fake tensors with no address: the
     value of the last eager call is used as it is, and enters the graph as a
     constant (``engines/evaluate.export`` runs one eager call first); with
     none cached yet it is computed in the graph."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in sources):
+        return make()               # autograd needs the graph: made anew each call
     hit = module.__dict__.get("_cached_" + name)
     if torch.compiler.is_compiling():
         if hit is not None:

@@ -53,6 +53,18 @@ on the card (the adjoint: each tap's ``g · wy · wx`` added into f32 level
 gradients, cast to the levels' dtype), and on CPU levels the plain version,
 the autograd of ``roi_align_bounded_plain``.  The coordinates, bounds and
 boxes get no gradient.
+
+Training differentiates the single-level pooling (hnet's ROI pyramids and
+the confliction loss's pooling of the seg probabilities) with respect to
+the maps the same way: under autograd ``roi_align_levels`` and
+``roi_align_single`` go through ``RoiAlignLevelsFn``, whose backward is
+``roi_align_levels_bwd`` — one call of ``kernels/roi_align_single_bwd.cu``
+for every map on the card (each map cell's gradient gathered from the bins
+that touch it, with the plain version's rounding points; bit for bit the
+plain version at hnet's pyramid; one map with many ROIs an image, the
+confliction loss's pooling, as per-ROI patches summed per cell in ROI
+order), the autograd of ``roi_align_levels_plain`` on CPU maps.  The boxes get no gradient, as JAX's TPU kernel's vjp gives
+none.
 """
 
 from __future__ import annotations
@@ -393,21 +405,23 @@ def _plan(features: Sequence[Tensor], rois: Tensor, sizes: Sequence[int],
     return plan
 
 
-def roi_align_levels(features: Sequence[Tensor], rois: Tensor, sizes: Sequence[int],
-                     scales: Sequence[float], sampling_ratio: int = 2,
-                     aligned: bool = False) -> List[Tensor]:
-    """The (B, K, 4) xyxy ROIs pooled from each of several (B, H_l, W_l, C_l)
-    f32|bf16 maps (one dtype) at its own output size ``sizes[l]`` and scale
-    ``scales[l]`` → per map (B, K, M_l, M_l, C_l): one launch of the kernel
-    for CUDA maps, the plain version (one ``roi_align`` each) for CPU maps."""
+def _aligned16(t: Tensor) -> Tensor:
+    """``t`` contiguous and at a 16-byte aligned address (copied if not)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _levels_forward(features: Sequence[Tensor], rois: Tensor, sizes: Sequence[int],
+                    scales: Sequence[float], sampling_ratio: int = 2,
+                    aligned: bool = False) -> List[Tensor]:
+    """``roi_align_levels`` without autograd."""
     f0 = features[0]
     if f0.device.type == "cpu":
         return roi_align_levels_plain(features, rois, sizes, scales, sampling_ratio, aligned)
     n = int(sampling_ratio)
     views, total, vec_rows, scalar_rows = _plan(features, rois, sizes, scales, n)
     features = [f if f.is_contiguous() else f.contiguous() for f in features]
-    if rois.dtype != torch.float32 or not rois.is_contiguous() or rois.data_ptr() % 16:
-        rois = rois.float().contiguous().clone()      # the kernel reads each box as a float4
+    rois = _aligned16(rois.float())                   # the kernel reads each box as a float4
     dev = f0.get_device()
     if dev < 0 or not f0.is_cuda or rois.get_device() != dev or any(
             f.get_device() != dev for f in features):
@@ -431,14 +445,193 @@ def roi_align_levels(features: Sequence[Tensor], rois: Tensor, sizes: Sequence[i
     return outs
 
 
+def roi_align_levels_bwd_plain(grads: Sequence[Tensor], features: Sequence[Tensor], rois: Tensor,
+                               sizes: Sequence[int], scales: Sequence[float],
+                               sampling_ratio: int = 2, aligned: bool = False) -> List[Tensor]:
+    """The plain version of ``roi_align_levels_bwd``: the autograd of
+    ``roi_align_levels_plain`` with respect to the maps (the boxes held
+    constant)."""
+    leaves = [f.detach().requires_grad_() for f in features]
+    with torch.enable_grad():
+        outs = roi_align_levels_plain(leaves, rois.detach(), sizes, scales, sampling_ratio, aligned)
+    got = torch.autograd.grad(outs, leaves, [g.to(o.dtype) for g, o in zip(grads, outs)],
+                              allow_unused=True)
+    return [torch.zeros_like(f) if g is None else g for f, g in zip(features, got)]
+
+
+_BWD_LIMITS: dict = {}
+
+
+def _bwd_limits() -> dict:
+    """The backward kernel's limits (maps, samples per axis, map width, band
+    rows, cells of a block, R bytes), read from its library once."""
+    if not _BWD_LIMITS:
+        f = kernels.fn("roi_align_levels_bwd_limits")
+        _BWD_LIMITS.update(zip(("levels", "samples", "width", "band", "cells", "r_bytes"),
+                               (f(i) for i in range(6))))
+    return _BWD_LIMITS
+
+
+_BWD_PLANS: dict = {}
+
+
+# the per-ROI path: one map with at least this many ROIs an image, and its
+# f32 patch scratch (B·K maps' worth) at most this many bytes
+PER_ROI_MIN_K = 16
+PER_ROI_SCRATCH = 256 << 20
+
+
+def _bwd_plan(features: Sequence[Tensor], rois: Tensor, sizes: Sequence[int], n: int) -> tuple:
+    """The backward's launch plan of one call's shapes, checked and cached:
+    (vector path?, per-ROI path?, per map (H, W, C, M, band rows, channel
+    slab)).  The per-ROI path takes one map with many ROIs an image (the
+    confliction loss's pooling) whose patches fit the scratch; the gather
+    the rest.  A slab is as wide as a block's cells allow with the map's
+    whole width a row (and two bins of R fit its buffer), in equal vector
+    multiples; a band is as tall as the cells allow, but short enough that
+    the items fill the card about four times over."""
+    key = (tuple((f.dtype, f.shape) for f in features), rois.shape, tuple(sizes), n)
+    plan = _BWD_PLANS.get(key)
+    if plan is not None:
+        return plan
+    f0 = features[0]
+    dtype, B = f0.dtype, f0.shape[0]
+    if (dtype not in (torch.float32, torch.bfloat16) or len(sizes) != len(features)
+            or any(f.dim() != 4 or f.dtype != dtype or f.shape[0] != B for f in features)):
+        raise ValueError(f"roi_align_levels_bwd kernel takes (B, H, W, C) f32/bf16 maps of one "
+                         f"dtype and batch, one size each, got "
+                         f"{[(f.dtype, tuple(f.shape)) for f in features]} and sizes {sizes}")
+    if rois.dim() != 3 or rois.shape[0] != B or rois.shape[2] != 4:
+        raise ValueError(f"roi_align_levels_bwd kernel takes ({B}, K, 4) boxes, got "
+                         f"{tuple(rois.shape)}")
+    lim = _bwd_limits()
+    if not 1 <= len(features) <= lim["levels"]:
+        raise ValueError(f"roi_align_levels_bwd kernel takes 1 to {lim['levels']} maps, "
+                         f"got {len(features)}")
+    vec = 16 // f0.element_size()
+    use_vec = all(f.shape[-1] % vec == 0 for f in features)
+    v = vec if use_vec else 1
+    sms = torch.cuda.get_device_properties(f0.device).multi_processor_count
+    rows = []
+    for f, M in zip(features, sizes):
+        H, W, C = f.shape[1:]
+        if not (1 <= H <= 32767 and 1 <= W <= lim["width"] and n >= 1
+                and 1 <= int(M) * n <= lim["samples"]):
+            raise ValueError(f"roi_align_levels_bwd kernel takes maps of 1 to 32767 rows and 1 to "
+                             f"{lim['width']} columns and 1 to {lim['samples']} samples per axis, "
+                             f"got {tuple(f.shape)} at output {M}, sampling {n}")
+        nvec = C // v
+        per_slab = max(1, min(lim["cells"] // W, lim["r_bytes"] // (2 * W * 4 * v)))
+        nslab = -(-nvec // per_slab)
+        ncv = -(-nvec // nslab)
+        bh = max(1, min(lim["band"], lim["cells"] // (W * ncv), H, B * H * nslab // (4 * sms)))
+        rows.append((H, W, C, int(M), bh, ncv * v))
+    H, W, C = f0.shape[1:]
+    K = rois.shape[1]
+    per_roi = (len(features) == 1 and K >= PER_ROI_MIN_K and H <= lim["width"]
+               and W * C * 4 <= lim["r_bytes"] and B * K * H * W * C * 4 <= PER_ROI_SCRATCH)
+    plan = (use_vec, per_roi, rows)
+    _BWD_PLANS[key] = plan
+    return plan
+
+
+def roi_align_levels_bwd(grads: Sequence[Tensor], features: Sequence[Tensor], rois: Tensor,
+                         sizes: Sequence[int], scales: Sequence[float], sampling_ratio: int = 2,
+                         aligned: bool = False) -> List[Tensor]:
+    """The gradient of ``roi_align_levels``' outputs with respect to each
+    map: grads (per map (B, K, M_l, M_l, C_l)), the forward's arguments →
+    per map a (B, H_l, W_l, C_l) gradient in the maps' dtype, in one call
+    of the kernel for CUDA maps (reads only the maps' shapes and dtype), the
+    plain version for CPU maps.  The boxes get no gradient."""
+    f0 = features[0]
+    if f0.device.type == "cpu":
+        return roi_align_levels_bwd_plain(grads, features, rois, sizes, scales, sampling_ratio,
+                                          aligned)
+    n = int(sampling_ratio)
+    use_vec, per_roi, rows = _bwd_plan(features, rois, sizes, n)
+    dtype = f0.dtype
+    B, K = rois.shape[:2]
+    for g, (H, W, C, M, _, _) in zip(grads, rows):
+        if g.shape != (B, K, M, M, C):
+            raise ValueError(f"roi_align_levels_bwd kernel takes ({B}, {K}, {M}, {M}, {C}) output "
+                             f"gradients, got {tuple(g.shape)}")
+    grads = [_aligned16(g if g.dtype == dtype else g.to(dtype)) for g in grads]
+    rois = _aligned16(rois.detach().float())
+    dev = f0.get_device()
+    if dev < 0 or any(t.get_device() != dev for t in (rois, *grads)):
+        raise ValueError("roi_align_levels_bwd kernel inputs must share one CUDA device")
+    outs = [torch.empty(f.shape, dtype=dtype, device=f0.device) for f in features]
+    _, stream = kernels.device_and_stream(f0)
+    if per_roi:
+        H, W, C, M = rows[0][:4]
+        patch = torch.empty((B * K, H, W, C), dtype=torch.float32, device=f0.device)
+        reach = torch.empty((B * K, 4), dtype=torch.int32, device=f0.device)
+        code = kernels.fn("roi_align_levels_bwd_rois")(
+            grads[0].data_ptr(), outs[0].data_ptr(), patch.data_ptr(), reach.data_ptr(),
+            rois.data_ptr(), B, K, H, W, C, M, n,
+            struct.unpack("<i", struct.pack("<f", float(scales[0])))[0], 1 if aligned else 0,
+            1 if dtype == torch.bfloat16 else 0, 1 if use_vec else 0, dev, stream)
+        kernels.check(code, "roi_align_levels_bwd_rois")
+        kernels.LAUNCHES["roi_align_single_bwd"] += 1
+        return outs
+    table = struct.pack(f"<{10 * len(outs)}q", *[
+        v for g, o, r, sc in zip(grads, outs, rows, scales)
+        for v in (g.data_ptr(), o.data_ptr(), *r,
+                  struct.unpack("<I", struct.pack("<f", float(sc)))[0], 0)])
+    code = kernels.fn("roi_align_levels_bwd")(
+        table, len(outs), rois.data_ptr(), B, K, n, 1 if aligned else 0,
+        1 if dtype == torch.bfloat16 else 0, 1 if use_vec else 0, dev, stream)
+    kernels.check(code, "roi_align_levels_bwd")
+    kernels.LAUNCHES["roi_align_single_bwd"] += 1
+    return outs
+
+
+class RoiAlignLevelsFn(torch.autograd.Function):
+    """``roi_align_levels`` differentiable in the maps:
+    ``apply(rois, sizes, scales, sampling_ratio, aligned, *features)`` → a
+    tuple of per-map outputs.  The forward is the single-level kernel, the
+    backward ``roi_align_levels_bwd`` (both the plain versions on CPU maps).
+    The boxes get no gradient, as JAX's TPU kernel's vjp gives none."""
+
+    @staticmethod
+    def forward(ctx, rois, sizes, scales, sampling_ratio, aligned, *features):
+        ctx.args = (tuple(sizes), tuple(scales), sampling_ratio, aligned)
+        ctx.save_for_backward(rois, *features)
+        return tuple(_levels_forward(features, rois, sizes, scales, sampling_ratio, aligned))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        rois, *features = ctx.saved_tensors
+        sizes, scales, n, aligned = ctx.args
+        B, K = rois.shape[:2]
+        grads = [torch.zeros((B, K, M, M, f.shape[-1]), dtype=f.dtype, device=f.device)
+                 if g is None else g for g, f, M in zip(grads, features, sizes)]
+        return (None,) * 5 + tuple(roi_align_levels_bwd(grads, features, rois, sizes, scales, n,
+                                                        aligned))
+
+
+def roi_align_levels(features: Sequence[Tensor], rois: Tensor, sizes: Sequence[int],
+                     scales: Sequence[float], sampling_ratio: int = 2,
+                     aligned: bool = False) -> List[Tensor]:
+    """The (B, K, 4) xyxy ROIs pooled from each of several (B, H_l, W_l, C_l)
+    f32|bf16 maps (one dtype) at its own output size ``sizes[l]`` and scale
+    ``scales[l]`` → per map (B, K, M_l, M_l, C_l): one launch of the kernel
+    for CUDA maps, the plain version (one ``roi_align`` each) for CPU maps.
+    The boxes are detached; when autograd needs the maps' gradient the call
+    goes through ``RoiAlignLevelsFn``."""
+    rois = rois.detach()
+    if torch.is_grad_enabled() and any(f.requires_grad for f in features):
+        return list(RoiAlignLevelsFn.apply(rois, tuple(int(M) for M in sizes),
+                                           tuple(float(s) for s in scales), int(sampling_ratio),
+                                           bool(aligned), *features))
+    return _levels_forward(features, rois, sizes, scales, sampling_ratio, aligned)
+
+
 def roi_align_single(features: Tensor, boxes: Tensor, output_size: int,
                      spatial_scale: float = 1.0, sampling_ratio: int = 2,
                      aligned: bool = False) -> Tensor:
     """features (B, H, W, C) f32|bf16, any C; boxes (B, K, 4) xyxy in image
     coordinates → (B, K, M, M, C) in the features' dtype: the single-map
-    entry of ``roi_align_levels`` (the kernel with a one-row level table on
-    CUDA, ``ops/roi_align.roi_align`` on the CPU)."""
-    if features.device.type == "cpu":
-        return roi_align(features, boxes, output_size, spatial_scale, sampling_ratio, aligned)
+    entry of ``roi_align_levels``."""
     return roi_align_levels([features], boxes, [output_size], [spatial_scale], sampling_ratio,
                             aligned)[0]

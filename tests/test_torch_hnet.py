@@ -270,8 +270,9 @@ def test_hnet_from_cfg_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 
 def test_hnet_raises_for_what_is_not_ported():
+    det = {**CFG["headers"]["det40x"], "num_keypoints": 5}
     with pytest.raises(NotImplementedError):
-        HNet.from_cfg(CFG, device="cpu")(torch.zeros(X_SHAPE), targets={})
+        HNet({**CFG, "headers": {"det40x": det}}, device="cpu")
     with pytest.raises(NotImplementedError):
         HNet({**CFG, "backbone": {"type": "darknet"}}, device="cpu")
     with pytest.raises(NotImplementedError):

@@ -584,3 +584,62 @@ def test_roi_align_function_gradient_through_model_losses(cuda):
         grads[dev] = {n: p.grad.cpu() for n, p in m.named_parameters() if "seg." in n}
     for n, g in grads["cpu"].items():
         assert float((grads["cuda"][n] - g).abs().max()) <= 2e-2 * float(g.abs().max()), n
+
+
+@pytest.mark.parametrize("sizes,C,dtype", [((64, 32, 16, 8), 256, torch.bfloat16),
+                                           ((20, 10), 24, torch.bfloat16),
+                                           ((33, 17), 12, torch.float32)])
+def test_roi_align_levels_bwd_kernel_pyramid(cuda, sizes, C, dtype):
+    """hnet's ROI pyramid (one whole-image ROI an image, each level at its
+    own size, one launch): bit for bit the plain version's autograd at bf16
+    (each level cell sums two exact terms a step); f32 within 1e-5·max|g|
+    of the CPU's plain version."""
+    B = 3
+    feats = [torch.randn((B, s, s, C), generator=cuda, device="cuda").to(dtype) for s in sizes]
+    rois = torch.tensor([0.0, 0.0, 4.0 * sizes[0], 4.0 * sizes[0]], device="cuda").expand(B, 1, 4)
+    scales = [1.0 / (4.0 * 2 ** i) for i in range(len(sizes))]
+    gs = [torch.randn((B, 1, s, s, C), generator=cuda, device="cuda").to(dtype) for s in sizes]
+    n0 = kernels.LAUNCHES["roi_align_single_bwd"]
+    got = pallas_roi_align.roi_align_levels_bwd(gs, feats, rois, sizes, scales, 2)
+    assert kernels.LAUNCHES["roi_align_single_bwd"] == n0 + 1
+    if dtype == torch.bfloat16:
+        want = pallas_roi_align.roi_align_levels_bwd_plain(gs, feats, rois, sizes, scales, 2)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    else:
+        want = pallas_roi_align.roi_align_levels_bwd_plain(
+            [g.cpu() for g in gs], [f.cpu() for f in feats], rois.cpu(), sizes, scales, 2)
+        for a, b in zip(got, want):
+            assert float((a.cpu() - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("C,dtype,K,M,span", [(5, torch.float32, 100, 28, 40),
+                                              (16, torch.float32, 9, 7, 40),
+                                              (8, torch.bfloat16, 13, 14, 40),
+                                              (8, torch.bfloat16, 20, 14, 40),
+                                              (16, torch.float32, 32, 28, 600)])
+def test_roi_align_levels_bwd_kernel_many_boxes(cuda, C, dtype, K, M, span):
+    """Many overlapping boxes an image (the confliction loss: 5 channels,
+    output 28, scale 1/16; from 16 boxes an image the per-ROI path, with
+    boxes up to ``span`` px: at 600 its R runs in chunks of bins), boxes
+    partly off the map or of zero area, against the CPU's plain version
+    (f32 1e-5·max|g|; bf16 2^-7·max|g|, the row gradient's bf16 rounding in
+    another summation order); deterministic (two launches bit-identical)
+    and the boxes get no gradient through the autograd function."""
+    B, H, W = 2, 40, 37
+    f = torch.rand((B, H, W, C), generator=cuda, device="cuda").to(dtype)
+    xy = torch.rand((B, K, 2), generator=cuda, device="cuda") * 700 - 40
+    boxes = torch.cat([xy, xy + torch.rand((B, K, 2), generator=cuda, device="cuda") * span], -1)
+    boxes[:, 0, 2:] = boxes[:, 0, :2]
+    g = torch.randn((B, K, M, M, C), generator=cuda, device="cuda").to(dtype)
+    got = pallas_roi_align.roi_align_levels_bwd([g], [f], boxes, [M], [1 / 16.0], 2)[0]
+    again = pallas_roi_align.roi_align_levels_bwd([g], [f], boxes, [M], [1 / 16.0], 2)[0]
+    assert torch.equal(got, again)
+    want = pallas_roi_align.roi_align_levels_bwd_plain([g.cpu()], [f.cpu()], boxes.cpu(), [M],
+                                                       [1 / 16.0], 2)[0]
+    rel = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    assert float((got.cpu().float() - want.float()).abs().max()) <= rel * float(
+        want.float().abs().max())
+    fr, br = f.detach().requires_grad_(), boxes.detach().requires_grad_()
+    out = pallas_roi_align.roi_align_single(fr, br, M, 1 / 16.0, 2)
+    gf, gb = torch.autograd.grad(out, [fr, br], g, allow_unused=True)
+    assert gb is None and torch.equal(gf, got)

@@ -328,3 +328,41 @@ def test_optimizer_schedules_and_updates_match_optax(kind, k, clip):
         got = tiny_flax(m)
         for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(params)):
             np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6)
+
+
+class Noisy(Tiny):
+    """``Tiny`` as a stochastic model: its loss scales the output by a draw
+    from the step's generator, and it keeps the generator's first draw."""
+
+    stochastic = True
+
+    def losses(self, images, targets, compute_masks=True, generator=None):
+        u = torch.rand((), generator=generator)
+        self.draws.append(float(u))
+        return {"t": {"l": (self.bn(self.conv(images)) * u).square().mean()}}, None
+
+    def total_loss(self, losses, mask_weight=1.0):
+        return losses["t"]["l"]
+
+
+def test_stochastic_step_seeds_from_the_host_count():
+    """A stochastic model's generator is seeded from (seed, step) with the
+    state's host count: the device count is never read (here it lies on the
+    meta device, where reading it raises), and setting ``state.step`` (as a
+    resume does) moves the host count with it."""
+    from hd_yolo_tpu_torch.engines.train_step import step_generator
+
+    torch.manual_seed(0)
+    m = Noisy()
+    m.draws = []
+    state = TrainState.create(m, toptim.build_optimizer(m, {"lr0": 0.01}, 1, 8))
+    state.step = torch.tensor(5)
+    assert state.count == 5
+    state._step = torch.zeros((), dtype=torch.int64, device="meta")
+    step = make_train_step(seed=7)
+    batch = {"image": torch.randn((2, 3, 8, 8)), "targets": {}}
+    for _ in range(2):
+        step(state, batch)
+    assert state.count == 7 and state.step.device.type == "meta"
+    want = [float(torch.rand((), generator=step_generator(7, s, "cpu"))) for s in (5, 6)]
+    assert m.draws == want

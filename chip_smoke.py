@@ -7,7 +7,11 @@ Run from the repo root on a machine with one NVIDIA GPU:
 
 (``--only``: build, run only the named kernels' phase-3 checks and timings
 — for ``roi_align_bwd`` also phases 14 and 14b, for ``roi_align_single_bwd``
-also phases 15 and 15b — and stop without the result lines.)
+also phases 15 and 15b — and stop without the result lines.
+``--hnet-loss-trials N``: phase 15's loss check N times, from the fresh
+model and 15 micro-steps in; ``--step-calls PATH``: both backwards timed at
+hnet training calls saved in PATH, captured first where it is absent, so
+that two trees time the same inputs.  Both stop without the result lines.)
 
 Phases (any failure raises and the script exits non-zero):
   1. the card: ``nvidia-smi`` name and power limit, ``torch.cuda`` name;
@@ -117,13 +121,20 @@ Phases (any failure raises and the script exits non-zero):
      loads into ``Detector``.  Then the step on one fixed batch: the
      launches of one micro-step (ROI-align forward and backward one each,
      no stem, NMS or mask-head kernel), median / min / max of 10 timed
-     micro-steps after 3 warm-ups, img/s, peak memory, a profiled step; 8
-     more updates on the batch, every loss item finite and the batch's loss
-     after them below the loss before them;
+     micro-steps after 3 warm-ups, img/s, peak memory, a profiled step;
+     before those, 8 updates on the batch from the fresh model through the
+     kernel, each of its calls held against the plain version
+     (``shadow_backwards``), the batch's loss after them below the loss
+     before them and within a tenth of that fall of the loss after the same
+     updates through the plain backward (``loss_runs``); every loss item
+     finite;
      the ROI-align forward at the step's own 1024 whole-canvas bf16 ROIs bit
      for bit its plain version, the backward kernel within 2e-2 x max|g| a
      level of the plain version's autograd there and within 1e-5 on a
-     ragged f32 case against the CPU's plain version, its times and bound;
+     ragged f32 case against the CPU's plain version, two launches
+     bit-identical in both, at most two device launches a call (profiler
+     kernel and memset events), its times and bound, and its time without
+     passing over the ROIs whose output gradient is all zero;
  14b. training reference: one step of ``yolov5s-test`` at 256 px in f32 on
      the card and on the CPU from the same state (loss items, gradients of
      four tensors);
@@ -137,10 +148,18 @@ Phases (any failure raises and the script exits non-zero):
      canvas ROI-align forward and backward 4 each, NMS 3, no mask-head or
      stem kernel), median / min / max of 10 timed micro-steps after 3
      warm-ups, img/s, peak memory, a profiled step (device busy, idle
-     share); 8 updates with every loss item finite and the batch's loss in
-     eval mode below its loss before them; the backward kernel on the
-     step's own inputs (both pyramids bit for bit the plain autograd, the
-     constrain's pooling within 1e-5 x max|g| of the CPU's plain version);
+     share); before those, from the fresh model, 8 updates as phase 14's
+     (the batch's loss in eval mode, every backward call held, the kernels
+     within a tenth of the fall of the plain backwards) with every loss
+     item finite; the micro-step median and the
+     profiled step's device launches printed beside those recorded before
+     the two ROI-align backwards' redesign; the backward
+     kernels on the step's own inputs (the canvas one at its four calls
+     within 2e-2 x max|plain|, two launches bit-identical, at most two
+     device launches a call, its time without the zero skip; both pyramids
+     bit for bit the plain autograd, one device launch; the constrain's
+     pooling within 1e-5 x max|g| of the CPU's plain version,
+     deterministic, one device launch);
  15b. hnet training reference: the small hnet of ``tests/test_torch_hnet.py``
      in f32, one training forward and backward on the card and on the CPU
      from the same weights and batch (loss items, gradients by parameter
@@ -148,9 +167,11 @@ Phases (any failure raises and the script exits non-zero):
 
 Phase 3 also holds the single-level ROI-align's backward kernel
 (``roi_align_levels_bwd``) against its plain version at its two call sites:
-hnet's pyramid (the four levels, bf16, one launch, bit for bit) and the
-confliction loss's pooling (f32, 5 channels, 100 boxes an image, output 28,
-against the CPU), with its times and bound; and it holds the single-level
+hnet's pyramid (the four levels, bf16, one device launch, bit for bit) and
+the confliction loss's pooling (f32, 5 channels, 100 boxes an image, output
+28, against the CPU, one device launch by either path), with its times and
+bound; it times the direct stem's f32 form beside cuDNN's f32 conv + bias +
+SiLU (TF32 off); and it holds the single-level
 ROI-align kernel bit for bit against
 its plain version at the four hnet-nucls level shapes in one launch
 (``roi_align_levels``; device time and wrapper host time, in turns with
@@ -246,6 +267,14 @@ HNET_LEVELS = ((160, 4.0), (80, 8.0), (40, 16.0), (20, 32.0))
 HNET_TRAIN_LAUNCHES = {"stem": 0, "stem_tc": 0, "nms": 3, "roi_align": 4, "roi_align_bwd": 4,
                        "mask_head": 0, "roi_align_single": 3, "roi_align_single_bwd": 3,
                        "stem_k108": 0, "stem_dot108": 0}
+# device launches a call the two ROI-align backward kernels may take (the
+# canvas one: its tables and gather, whatever the number of levels; the
+# single-level one: one for every map at once, one at the constrain)
+BWD_LAUNCHES = {"roi_align_bwd": 2, "roi_align_single_bwd": 1}
+# the hnet-nucls training micro-step recorded before the two ROI-align
+# backwards were redesigned (NVIDIA H100 80GB HBM3, 700 W): median ms and
+# device launches of a profiled step
+EARLIER_HNET_STEP = {"median_ms": 146.26, "device_launches": 4842}
 # hnet training recipe of tools/hnet_train_check.py (lr, warmup, clip; 48
 # tiles at batch 4 for 80 epochs)
 HNET_HYP = {"lr0": 0.005, "warmup_epochs": 3.0, "clip_grad_norm": 10.0}
@@ -333,6 +362,48 @@ def device_ms(fn, n: int = 10, tries: int = 3) -> float:
                          f"{tries} windows")
 
 
+def device_launches(fn, n: int = 5, tries: int = 3) -> dict:
+    """Device launches of one call of ``fn`` by name: the kernel and memset
+    events the profiler records on the card over ``n`` calls (copies not
+    counted), divided by ``n``, after a warm-up call.  The profiler can lose a window's
+    device events, so a window whose count of some kernel is not a multiple
+    of ``n`` is taken again, up to ``tries`` times; after that each kernel
+    counts ``ceil(count / n)`` in the fullest window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        counts = {e.key: e.count for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and not e.key.startswith("Memcpy")}
+        if counts and all(c % n == 0 for c in counts.values()):
+            return {k: c // n for k, c in counts.items()}
+        seen.append(counts)
+    counts = max(seen, key=lambda c: sum(c.values()))
+    need(bool(counts), f"the profiler recorded no device event over {n} calls in {tries} windows")
+    log(f"  (the profiler lost device events in {tries} windows; counted as ceil(count / {n}) "
+        f"per kernel: {counts})")
+    return {k: -(-c // n) for k, c in counts.items()}
+
+
+def bwd_launches(kernel: str, fn, what: str) -> int:
+    """A backward kernel's device launches for one call of ``fn`` (every
+    kernel and memset its wrapper starts), held to ``BWD_LAUNCHES``."""
+    counts = device_launches(fn)
+    n = sum(counts.values())
+    log(f"  {kernel} {what}: {n} device launches a call (at most {BWD_LAUNCHES[kernel]}): "
+        f"{({k[:60]: c for k, c in counts.items()})}")
+    need(n <= BWD_LAUNCHES[kernel], f"{kernel} {what}: {n} device launches a call, more than "
+                                    f"{BWD_LAUNCHES[kernel]}")
+    return n
+
+
 def bound(nbytes: float, flops: float, peak_flops: float):
     tb, tf = nbytes / HBM_BPS * 1e3, flops / peak_flops * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
@@ -401,9 +472,12 @@ def phase_stem(gen, iters):
     got32 = pallas_stem.stem_conv(x, w, scale, bias, **kw32)
     t32 = kernel_ms(lambda: pallas_stem.stem_conv(x, w, scale, bias, **kw32), iters)
     t32["bound_ms"], t32["bound_by"] = bound(nbytes(x, w, scale, bias, got32), flops, F32_FLOPS)
+    # its yardstick: cuDNN's f32 conv + bias, then SiLU, TF32 off (main sets it)
+    need(not torch.backends.cudnn.allow_tf32, "the f32 stem's yardstick runs with TF32 off")
+    t32["library_ms"] = cuda_ms(stem_library(x, w, scale, bias, torch.float32), iters)
     log(f"  stem (direct, f32) (16, 640, 640, 3): {t32['ms']:.4f} ms a call "
-        f"({t32['ms_back_to_back']:.4f} back to back) | bound {t32['bound_ms']:.4f} ms "
-        f"({t32['bound_by']})")
+        f"({t32['ms_back_to_back']:.4f} back to back) | cuDNN f32 {t32['library_ms']:.4f} ms | "
+        f"bound {t32['bound_ms']:.4f} ms ({t32['bound_by']})")
     return dict(max_abs_err=err, **t, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
                 library_ms=stem_library_ms(x, w, scale, bias, iters), f32=t32)
 
@@ -887,6 +961,8 @@ def constrain_bwd_paths(cargs, iters: int, what: str) -> dict:
                  f"roi_align_single_bwd ({path} path): two launches differ")
             t = kernel_ms(lambda: bwd(*cargs), iters)
             t["device_ms"] = device_ms(lambda: bwd(*cargs))
+            t["device_launches"] = bwd_launches("roi_align_single_bwd", lambda: bwd(*cargs),
+                                                f"({path} path), {what}")
         res[path] = dict(t, max_abs_err=err)
     return dict(res.pop("per_roi"), **res)
 
@@ -918,6 +994,8 @@ def phase_roi_single_bwd(gen, iters):
               for f, g, w in zip(feats, got, plain(*args)))
     t = kernel_ms(lambda: bwd(*args), iters)
     t["device_ms"] = device_ms(lambda: bwd(*args))
+    t["device_launches"] = bwd_launches("roi_align_single_bwd", lambda: bwd(*args),
+                                        "at the pyramid's four levels")
     plain_ms = cuda_ms(lambda: plain(*args), 5)
     b_ms, by = levels_bwd_bound(gs, got, tile)
     log(f"  roi_align_single_bwd, the four hnet levels: {t['ms']:.4f} ms a call "
@@ -937,8 +1015,8 @@ def phase_roi_single_bwd(gen, iters):
         f"{tc['gather']['device_ms']:.4f}) | plain {tc['plain_ms']:.4f} ms | bound "
         f"{tc['bound_ms']:.4f} ms ({tc['bound_by']})")
     return dict(max_abs_err=err, ms=t["ms"], ms_back_to_back=t["ms_back_to_back"],
-                device_ms=t["device_ms"], plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-                library_ms=None, constrain=tc)
+                device_ms=t["device_ms"], device_launches=t["device_launches"],
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, library_ms=None, constrain=tc)
 
 
 def check_hnet_shapes(gen, iters):
@@ -1023,11 +1101,12 @@ def stem_inputs(gen):
     return x, w, scale, bias
 
 
-def stem_library(x, w, scale, bias):
-    """cuDNN bf16 conv with the scale folded into the weights + bias, then SiLU."""
-    xl = x.to(torch.bfloat16).permute(0, 3, 1, 2)
-    wl = (w.permute(3, 2, 0, 1) * scale[:, None, None, None]).to(torch.bfloat16)
-    bl = bias.to(torch.bfloat16)
+def stem_library(x, w, scale, bias, dtype=torch.bfloat16):
+    """cuDNN conv in ``dtype`` (bf16, or f32 with TF32 as the caller set it)
+    with the scale folded into the weights + bias, then SiLU."""
+    xl = x.to(dtype).permute(0, 3, 1, 2)
+    wl = (w.permute(3, 2, 0, 1) * scale[:, None, None, None]).to(dtype)
+    bl = bias.to(dtype)
     return lambda: F.silu(F.conv2d(xl, wl, bl, 2, 2))
 
 
@@ -2317,6 +2396,161 @@ def capture_step_calls(step, state, batch) -> dict:
     return calls
 
 
+def whole_canvas(bargs) -> bool:
+    """Whether a ``roi_align_bounded_bwd`` call pools whole canvases (the
+    window the stacked levels, every origin 0, no active count): the form
+    ``canvas_bwd_plain`` takes."""
+    levels, meta, window = bargs[1], bargs[2], bargs[6]
+    return ((len(bargs) < 10 or bargs[9] is None)
+            and tuple(window) == (sum(f.shape[1] for f in levels), max(f.shape[2] for f in levels))
+            and not bool(meta[:, 1:3].any()))
+
+
+def bounded_bwd_reference(bargs) -> list:
+    """The plain level gradients of a ``roi_align_bounded_bwd`` call: the
+    per-image canvas form's autograd (f32) for whole-canvas calls, else
+    ``roi_align_bounded_bwd_plain``."""
+    if whole_canvas(bargs):
+        return canvas_bwd_plain(bargs)
+    return pallas_roi_align.roi_align_bounded_bwd_plain(*bargs)
+
+
+def bwd_rel_err(got, want) -> float:
+    """The largest over the levels of max|got - want| / max|want|."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        err = float((a.float() - b.float()).abs().max())
+        worst = max(worst, err / max(float(b.float().abs().max()), 1e-30)
+                    if math.isfinite(err) else math.inf)
+    return worst
+
+
+class shadow_backwards:
+    """``with shadow_backwards() as worst:`` every call of the two ROI-align
+    backward wrappers (the kernels) also runs the plain version on the same
+    inputs and is held to it as the step's captured calls are held: the
+    canvas one within 2e-2 x max|plain| a level, a single-level call over
+    several maps (the pyramid) bit for bit the plain version on the card, one
+    over a single map (the constrain's pooling) within 1e-5 x max|plain| of
+    the CPU's plain version.  ``worst`` keeps each one's largest relative
+    error (bit for bit: 0) and the number of calls held."""
+
+    TOL = {"roi_align_bwd": 2e-2, "pyramid": 0.0, "constrain": 1e-5}
+
+    def __enter__(self):
+        self.orig = (pallas_roi_align.roi_align_bounded_bwd, pallas_roi_align.roi_align_levels_bwd)
+        kb, kl = self.orig
+        self.worst = dict.fromkeys(self.TOL, 0.0)
+        self.worst["calls"] = 0
+
+        def bounded(*a):
+            got = kb(*a)
+            with torch.no_grad():
+                self.hold("roi_align_bwd", bwd_rel_err(got, bounded_bwd_reference(a)))
+            return got
+
+        def levels(*a):
+            got = kl(*a)
+            plain = pallas_roi_align.roi_align_levels_bwd_plain
+            with torch.no_grad():
+                if len(a[1]) == 1:
+                    self.hold("constrain", bwd_rel_err([x.cpu() for x in got], plain(*cpu_tree(a))))
+                else:
+                    same = all(torch.equal(x, y) for x, y in zip(got, plain(*a)))
+                    self.hold("pyramid", 0.0 if same else math.inf)
+            return got
+
+        pallas_roi_align.roi_align_bounded_bwd, pallas_roi_align.roi_align_levels_bwd = bounded, levels
+        return self.worst
+
+    def hold(self, name: str, rel: float) -> None:
+        self.worst[name] = max(self.worst[name], rel)
+        self.worst["calls"] += 1
+        need(rel <= self.TOL[name], f"{name} at a training call: |kernel - plain| / max|plain| "
+                                    f"{rel:.3g}, over its tolerance {self.TOL[name]}")
+
+    def __exit__(self, *exc):
+        pallas_roi_align.roi_align_bounded_bwd, pallas_roi_align.roi_align_levels_bwd = self.orig
+        return False
+
+
+class plain_backwards:
+    """``with plain_backwards():`` the two ROI-align backward wrappers run
+    their plain versions on the card (the canvas one as
+    ``bounded_bwd_reference``, cast to the levels' dtype): the reference
+    a training run through the kernels is compared with."""
+
+    def __enter__(self):
+        self.orig = (pallas_roi_align.roi_align_bounded_bwd, pallas_roi_align.roi_align_levels_bwd)
+        pallas_roi_align.roi_align_bounded_bwd = lambda *a: [
+            x.to(f.dtype) for x, f in zip(bounded_bwd_reference(a), a[1])]
+        pallas_roi_align.roi_align_levels_bwd = pallas_roi_align.roi_align_levels_bwd_plain
+
+    def __exit__(self, *exc):
+        pallas_roi_align.roi_align_bounded_bwd, pallas_roi_align.roi_align_levels_bwd = self.orig
+        return False
+
+
+def train_snapshot(state) -> tuple:
+    """A copy of a train state's model (parameters and buffers), optimizer
+    state and step count, for ``train_restore``."""
+    clone = lambda v: v.detach().clone() if torch.is_tensor(v) else [clone(t) for t in v]
+    return ({k: clone(v) for k, v in state.model.state_dict().items()},
+            {k: clone(v) for k, v in state.opt.state_dict().items()}, state.step.clone())
+
+
+def train_restore(state, snap) -> None:
+    model_sd, opt_sd, count = snap
+    state.model.load_state_dict(model_sd)
+    state.opt.load_state_dict(opt_sd)
+    state.step = count.clone()
+
+
+def loss_runs(step, state, batch, batch_loss, micro: int = 1, updates: int = 8) -> dict:
+    """From the state as it is: the batch's loss (``batch_loss()``), then
+    ``updates`` updates of ``micro`` micro-steps through the kernels, each
+    backward call held against its plain version (``shadow_backwards``),
+    and the loss after them; then, from the same state, the same updates
+    through the plain backwards (``plain_backwards``) and through the
+    kernels again (how far two runs through the same code drift apart: the
+    step's other kernels are not deterministic).  The state is left after
+    the first run's updates.  Returns the losses before and after each run,
+    each run's mean micro-step loss per update and the held errors."""
+    before = batch_loss()
+    snap = train_snapshot(state)
+
+    def run():
+        per, ms = [], []
+        for _ in range(updates):
+            m = [step(state, batch)[1] for _ in range(micro)]
+            ms += m
+            per.append(float(torch.stack([x["loss"] for x in m]).mean()))
+        return batch_loss(), per, ms
+
+    res = {"before": before}
+    for name, ctx in (("plain", plain_backwards), ("kernel_again", shadow_backwards),
+                      ("kernel", shadow_backwards)):
+        train_restore(state, snap)
+        with ctx() as worst:
+            res[name], res[f"{name}_per_update"], ms = run()
+        if name == "kernel":
+            res["held"], res["metrics"] = worst, ms
+    return res
+
+
+def bwd_skips(bargs) -> dict:
+    """``roi_align_bwd`` at a call with and without the ROIs its gather
+    passes over (those whose output gradient is all zero): their number,
+    its device time as it is and with every zero of the output gradient
+    set to the dtype's least normal value (nothing to pass over)."""
+    bk = pallas_roi_align.roi_align_bounded_bwd
+    g = bargs[0]
+    dense = (torch.where(g == 0, torch.finfo(g.dtype).tiny, g),) + tuple(bargs[1:])
+    return {"zero_output_gradient": int((g.flatten(1) == 0).all(1).sum()),
+            "device_ms": device_ms(lambda: bk(*bargs)),
+            "device_ms_no_zero_skip": device_ms(lambda: bk(*dense))}
+
+
 def bwd_bound(bargs, grads):
     """The backward's bound: the output gradient read once, each level's
     gradient written once, the coordinates read; M²·n² samples of 4 taps a
@@ -2375,7 +2609,32 @@ def phase_train(iters: int):
         # every run trains on the same batch
         batch = to_device(next(iter(DataLoader(ds, 16, workers=1))), "cuda")
         n_obj = int(batch["targets"]["detSC"]["valid"].sum())
-        losses = []
+        # 8 updates (32 micro-steps) on the batch from the fresh model: the
+        # loss after them (one more forward, no update) is below the loss
+        # before them, and within a tenth of that fall of the loss after the
+        # same updates through the plain backward.  (A few updates later the
+        # warmup's bias learning rate, 0.1, holds the loss on a plateau where
+        # the sign of its 8-update change follows rounding-level differences
+        # in the gradient, whichever backward computes it.)
+        def batch_loss():
+            with torch.no_grad():
+                losses_, _ = state.model.losses(batch["image"], batch["targets"])
+                return float(state.model.total_loss(losses_))
+
+        r = loss_runs(step, state, batch, batch_loss, micro=4)
+        losses = r.pop("metrics")
+        log(f"  loss on the batch before 8 updates (the fresh model) {r['before']:.4f}; after "
+            f"them through the kernel {r['kernel']:.4f} (its {r['held']['calls']} calls each "
+            f"held against the plain version: worst |d| / max|plain| "
+            f"{r['held']['roi_align_bwd']:.3g}), through the plain backward {r['plain']:.4f}, "
+            f"through the kernel again {r['kernel_again']:.4f}; mean loss of each update's "
+            f"micro-steps {[round(v, 4) for v in r['kernel_per_update']]}")
+        need(r["kernel"] < r["before"], "the loss did not fall over 8 updates")
+        fall = r["before"] - r["plain"]
+        need(fall > 0 and abs(r["kernel"] - r["plain"]) <= 0.1 * fall,
+             f"the loss after 8 updates through the kernel, {r['kernel']:.4f}, is not within a "
+             f"tenth of the fall of the plain backward's {r['plain']:.4f}")
+        info["loss_runs"] = r
         for _ in range(3):
             losses.append(step(state, batch)[1])
         torch.cuda.synchronize()
@@ -2408,31 +2667,11 @@ def phase_train(iters: int):
                         "max_ms": max(times) * 1e3, "img_per_s": 16 / med, "peak_gib": peak,
                         "objects": n_obj}
 
-        # 8 more updates (32 micro-steps) on the same batch: the loss after
-        # them (one more forward, no update) is below the loss before them
-        def batch_loss():
-            with torch.no_grad():
-                losses_, _ = state.model.losses(batch["image"], batch["targets"])
-                return float(state.model.total_loss(losses_))
-
-        for _ in range((4 - int(opt.state["mini_step"])) % 4):   # finish the open update
-            losses.append(step(state, batch)[1])
-        before = batch_loss()
-        per_update = []
-        for _ in range(8):
-            ms = [step(state, batch)[1] for _ in range(4)]
-            losses += ms
-            per_update.append(float(torch.stack([x["loss"] for x in ms]).mean()))
-        after = batch_loss()
         items = {k: torch.stack([x[k] for x in losses]).float().cpu() for k in losses[0]}
         for k, v in items.items():
             need(bool(torch.isfinite(v).all()), f"non-finite {k} in a training step")
-        log(f"  loss on the batch before 8 updates {before:.4f}, after {after:.4f}; mean loss "
-            f"of each update's micro-steps {[round(v, 4) for v in per_update]}; last items "
+        log(f"  every loss item finite over {len(losses)} micro-steps; last items "
             f"{({k: round(float(v[-1]), 4) for k, v in items.items()})}")
-        need(after < before, "the loss did not fall over 8 updates")
-        info["loss_before_after"] = [before, after]
-        info["loss_per_update"] = per_update
 
         # the kernels of this path at its shapes
         calls = capture_step_calls(step, state, batch)
@@ -2451,16 +2690,25 @@ def phase_train(iters: int):
         torch.cuda.synchronize()
         err = check_bwd(f"roi_align_bwd at the training shapes ({K} ROIs, bf16) vs the plain "
                         f"version's autograd", got, bp(*bargs), 2e-2)
+        need(all(torch.equal(a, b) for a, b in zip(got, bk(*bargs))),
+             "roi_align_bwd at the training shapes: two launches differ")
+        log("  roi_align_bwd at the training shapes: two launches bit-identical")
         ragged = ragged_bwd_case()
         t = kernel_ms(lambda: bk(*bargs), 20)
-        t["device_ms"] = device_ms(lambda: bk(*bargs))
+        t["device_launches"] = bwd_launches("roi_align_bwd", lambda: bk(*bargs),
+                                            f"at the training shapes ({K} ROIs)")
+        t["skips"] = bwd_skips(bargs)
+        t["device_ms"] = t["skips"]["device_ms"]
+        log(f"  roi_align_bwd at the training shapes, the ROIs its gather passes over: "
+            f"{t['skips']}")
         plain_ms = cuda_ms(lambda: bp(*bargs), 5)
         b_ms, by = bwd_bound(bargs, got)
         log(f"  roi_align_bwd: {t['ms']:.4f} ms a call ({t['ms_back_to_back']:.4f} back to back, "
             f"device {t['device_ms']:.4f}) | plain {plain_ms:.4f} ms | bound {b_ms:.4f} ms ({by})")
         result = dict(max_abs_err=err, ms=t["ms"], ms_back_to_back=t["ms_back_to_back"],
-                      device_ms=t["device_ms"], plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-                      library_ms=None, ragged_f32_max_abs_err=ragged)
+                      device_ms=t["device_ms"], device_launches=t["device_launches"],
+                      plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, library_ms=None,
+                      ragged_f32_max_abs_err=ragged)
     del model, state, opt, batch
     torch.cuda.empty_cache()
     return launches, result, info
@@ -2490,7 +2738,10 @@ def ragged_bwd_case() -> float:
     want = pallas_roi_align.roi_align_bounded_bwd_plain(*args)
     cuda = lambda t: t.cuda() if torch.is_tensor(t) else [x.cuda() for x in t] \
         if isinstance(t, list) else t
-    got = pallas_roi_align.roi_align_bounded_bwd(*[cuda(a) for a in args])
+    cargs = [cuda(a) for a in args]
+    got = pallas_roi_align.roi_align_bounded_bwd(*cargs)
+    need(all(torch.equal(a, b) for a, b in zip(got, pallas_roi_align.roi_align_bounded_bwd(*cargs))),
+         "roi_align_bwd, ragged f32: two launches differ")
     return check_bwd("roi_align_bwd, ragged f32 (card vs the CPU's plain version)",
                      [x.cpu() for x in got], want, 1e-5)
 
@@ -2644,8 +2895,9 @@ def check_step_canvas(calls) -> dict:
     and the mask head's pooling of pass 1 and pass 2), each on its own
     captured inputs: the forward bit for bit the plain canvas form, the
     backward (``roi_align_bwd``) within 2e-2 x max|plain| of each level's
-    gradient by that form's autograd, as phase 14 holds it; times and
-    bounds of each."""
+    gradient by that form's autograd, as phase 14 holds it, two launches
+    bit-identical and at most two device launches a call; times and bounds
+    of each."""
     rab, bk = pallas_roi_align.roi_align_bounded, pallas_roi_align.roi_align_bounded_bwd
     res = {}
     for i, fa in enumerate(calls["roi_align_bounded"]):
@@ -2662,12 +2914,47 @@ def check_step_canvas(calls) -> dict:
         check_bwd(f"roi_align_bwd at the hnet step's call {i} ({K} ROIs at {M}x{M}, "
                   f"{ba[0].dtype}) vs the plain version's autograd", got,
                   canvas_bwd_plain(ba), 2e-2)
+        need(all(torch.equal(a, b) for a, b in zip(got, bk(*ba))),
+             f"roi_align_bwd at the hnet step's call {i}: two launches differ")
         t = kernel_ms(lambda: bk(*ba), 20)
-        t["device_ms"] = device_ms(lambda: bk(*ba))
+        t["device_launches"] = bwd_launches("roi_align_bwd", lambda: bk(*ba),
+                                            f"at the hnet step's call {i} ({K} ROIs at {M}x{M})")
+        t["skips"] = bwd_skips(ba)
+        t["device_ms"] = t["skips"]["device_ms"]
         t["bound_ms"], t["bound_by"] = bwd_bound(ba, got)
         res[f"bwd_{i}_{K}x{M}"] = t
     log(f"  the canvas ROI-align on the hnet step's inputs: {json.dumps(res)}")
     return res
+
+
+def hnet_train_state():
+    """Phase 15's model (hnet-nucls, bf16, seeded weights), its train state
+    and step."""
+    from hd_yolo_tpu_torch.engines.optim import build_optimizer
+    from hd_yolo_tpu_torch.engines.train_step import TrainState, make_train_step
+
+    model = HNet.from_cfg(load_cfg("hnet-nucls"), dtype=torch.bfloat16, seed=0)
+    need(model.stochastic, "hnet-nucls trains with drop path on")
+    return model, TrainState.create(model, build_optimizer(model, HNET_HYP, 80, 12)), \
+        make_train_step()
+
+
+def hnet_train_batch():
+    """Phase 15's batch on the card (``hnet_batch(0)``) and its object count."""
+    from hd_yolo_tpu_torch.engines.train_step import to_device
+
+    x, t = hnet_batch(0)
+    return to_device({"image": x, "targets": t}, "cuda"), int(t["det40x"]["valid"].sum())
+
+
+def hnet_batch_loss(model, batch):
+    """The batch's hnet loss in eval mode (no drop path), as a function."""
+    def batch_loss():
+        model.eval()
+        with torch.no_grad():
+            losses, _ = model(batch["image"], batch["targets"])
+        return float(model.total_loss(losses))
+    return batch_loss
 
 
 def phase_hnet_train(iters: int):
@@ -2675,19 +2962,30 @@ def phase_hnet_train(iters: int):
     0.2, FPN 256, Mask R-CNN, panoptic, cl and the mask-weighted
     constrain), bf16, batch 4 x 640, through ``build_optimizer`` and
     ``make_train_step``."""
-    from hd_yolo_tpu_torch.engines.optim import build_optimizer
-    from hd_yolo_tpu_torch.engines.train_step import TrainState, make_train_step, to_device
-
     torch.cuda.empty_cache()
-    model = HNet.from_cfg(load_cfg("hnet-nucls"), dtype=torch.bfloat16, seed=0)
-    need(model.stochastic, "hnet-nucls trains with drop path on")
-    opt = build_optimizer(model, HNET_HYP, 80, 12)
-    state = TrainState.create(model, opt)
-    step = make_train_step()
-    x, t = hnet_batch(0)
-    batch = to_device({"image": x, "targets": t}, "cuda")
-    n_obj = int(t["det40x"]["valid"].sum())
-    metrics = [step(state, batch)[1] for _ in range(3)]
+    model, state, step = hnet_train_state()
+    batch, n_obj = hnet_train_batch()
+    # 8 updates on the fixed batch from the fresh model: the batch's loss in
+    # eval mode (no drop path) after them is below the loss before them, and
+    # within a tenth of that fall of the loss after the same updates through
+    # the plain backwards (as phase 14).  (Fifteen micro-steps in, the 8
+    # updates' change of this loss is within the spread of two runs through
+    # the same code, and the check failed by chance through every backward:
+    # ``--hnet-loss-trials``.)
+    r = loss_runs(step, state, batch, hnet_batch_loss(model, batch))
+    metrics = r.pop("metrics")
+    log(f"  loss on the batch (eval mode) before 8 updates (the fresh model) {r['before']:.4f}; "
+        f"after them through the kernels {r['kernel']:.4f} (their {r['held']['calls']} calls "
+        f"each held against the plain version, worst |d| / max|plain|: {r['held']}), through "
+        f"the plain backwards {r['plain']:.4f}, through the kernels again "
+        f"{r['kernel_again']:.4f}; the updates' losses "
+        f"{[round(v, 4) for v in r['kernel_per_update']]}")
+    need(r["kernel"] < r["before"], "the hnet loss did not fall over 8 updates")
+    fall = r["before"] - r["plain"]
+    need(fall > 0 and abs(r["kernel"] - r["plain"]) <= 0.1 * fall,
+         f"the hnet loss after 8 updates through the kernels, {r['kernel']:.4f}, is not within a "
+         f"tenth of the fall of the plain backwards' {r['plain']:.4f}")
+    metrics += [step(state, batch)[1] for _ in range(3)]
     torch.cuda.synchronize()
     kernels.reset_launches()
     _, m = step(state, batch)
@@ -2714,33 +3012,18 @@ def phase_hnet_train(iters: int):
         f"{max(times) * 1e3:.2f}); {4 / med:.1f} img/s; peak memory {peak:.2f} GiB")
     busy = profile_step(lambda: step(state, batch))
     info = {"median_ms": med * 1e3, "min_ms": min(times) * 1e3, "max_ms": max(times) * 1e3,
-            "img_per_s": 4 / med, "peak_gib": peak, "objects": n_obj, **busy}
+            "img_per_s": 4 / med, "peak_gib": peak, "objects": n_obj, **busy,
+            "before_redesign": EARLIER_HNET_STEP}
+    log(f"  hnet micro-step median {med * 1e3:.2f} ms, {busy['device_launches']} device launches "
+        f"a profiled step (before the backwards' redesign: {EARLIER_HNET_STEP['median_ms']} ms, "
+        f"{EARLIER_HNET_STEP['device_launches']} launches, another call: host speed differs)")
 
-    # 8 updates on the fixed batch: the loss of the batch in eval mode (no
-    # drop path) after them is below the loss before them
-    def batch_loss():
-        model.eval()
-        losses, _ = model(batch["image"], batch["targets"])
-        return float(model.total_loss(losses))
-
-    with torch.no_grad():
-        before = batch_loss()
-    per_update = []
-    for _ in range(8):
-        _, m = step(state, batch)
-        metrics.append(m)
-        per_update.append(float(m["loss"]))
-    with torch.no_grad():
-        after = batch_loss()
     items = {k: torch.stack([mm[k] for mm in metrics]).float().cpu() for k in metrics[0]}
     for k, v in items.items():
         need(bool(torch.isfinite(v).all()), f"non-finite {k} in an hnet training step")
-    log(f"  loss on the batch (eval mode) before 8 updates {before:.4f}, after {after:.4f}; "
-        f"the updates' losses {[round(v, 4) for v in per_update]}; last items "
+    log(f"  every loss item finite over {len(metrics)} micro-steps; last items "
         f"{({k: round(float(v[-1]), 4) for k, v in items.items()})}")
-    need(after < before, "the hnet loss did not fall over 8 updates")
-    info.update(loss_before_after=[before, after], loss_per_update=per_update,
-                last_items={k: float(v[-1]) for k, v in items.items()})
+    info.update(loss_runs=r, last_items={k: float(v[-1]) for k, v in items.items()})
 
     # the step's ROI-align kernels on the step's own inputs: the canvas
     # ROI-align bit for bit and its backward (phase 14's kernel) within
@@ -2763,6 +3046,9 @@ def phase_hnet_train(iters: int):
                 check_equal(f"roi_align_single_bwd at the step's pyramid {i} {tuple(f.shape)} "
                             f"{f.dtype}", g, w)
             step_bwd[f"pyramid_{i}"] = kernel_ms(lambda: bwd(*args), 20)
+            step_bwd[f"pyramid_{i}"]["device_ms"] = device_ms(lambda: bwd(*args))
+            step_bwd[f"pyramid_{i}"]["device_launches"] = bwd_launches(
+                "roi_align_single_bwd", lambda: bwd(*args), f"at the step's pyramid {i}")
         else:
             step_bwd["constrain"] = constrain_bwd_paths(
                 args, 20, f"the step's constrain pooling {tuple(args[1][0].shape)}, "
@@ -2771,9 +3057,85 @@ def phase_hnet_train(iters: int):
             step_bwd["constrain_box_side_px_median"] = float(wh.median())
     log(f"  roi_align_single_bwd on the step's inputs: {json.dumps(step_bwd)}")
     info["roi_align_single_bwd_at_step"] = step_bwd
-    del model, state, opt, batch
+    del model, state, batch
     torch.cuda.empty_cache()
     return launches, info
+
+
+def hnet_loss_trials(n: int) -> None:
+    """``--hnet-loss-trials N``: phase 15's loss check N times, each on a
+    fresh seeded model and phase 15's batch: ``loss_runs`` from the fresh
+    model, then, 15 micro-steps in (where phase 15 takes it), again.  One
+    JSON line a trial, then the number of runs whose loss did not fall, by
+    start and backward."""
+    batch, _ = hnet_train_batch()
+    rose = {}
+    for i in range(n):
+        model, state, step = hnet_train_state()
+        bl = hnet_batch_loss(model, batch)
+        rec = {}
+        for start in ("fresh", "15 in"):
+            if start == "15 in":
+                for _ in range(15 - state.count):
+                    step(state, batch)
+            r = loss_runs(step, state, batch, bl)
+            rec[start] = {k: r[k] for k in ("before", "kernel", "plain", "kernel_again", "held")}
+            for k in ("kernel", "plain", "kernel_again"):
+                rose.setdefault(f"{start}/{k}", 0)
+                rose[f"{start}/{k}"] += r[k] >= r["before"]
+        log(f"  trial {i}: {json.dumps(rec)}")
+        del model, state
+        torch.cuda.empty_cache()
+    log(f"  runs whose loss did not fall over 8 updates, of {n} each: {json.dumps(rose)}")
+
+
+def step_call_times(path: str) -> None:
+    """``--step-calls PATH``: the two backwards timed (profiler device time)
+    at hnet training calls saved in PATH, captured there first where it does
+    not exist, so that two trees time the same inputs: one step's calls 15
+    micro-steps into phase 15's training, and the constrain's pooling every
+    third micro-step of that run up to 36 (its detections, and so its
+    boxes, change as it trains).  For each canvas call also its time
+    without the ROIs its gather passes over (``bwd_skips``); for the
+    pyramids their output gradients' strides; for each constrain call its
+    boxes of 150 px or more by image, and the kernel held within 1e-5 x
+    max|plain| of the CPU's plain version."""
+    if not os.path.exists(path):
+        model, state, step = hnet_train_state()
+        batch, _ = hnet_train_batch()
+        calls, constrains = {}, []
+        for i in range(1, 37):
+            step(state, batch)
+            if i % 3 == 0:
+                c = capture_step_calls(step, state, batch)
+                constrains += [a for a in c["roi_align_levels_bwd"] if len(a[1]) == 1]
+                if i == 15:
+                    calls = c
+        calls["constrains"] = constrains
+        torch.save(calls, path)
+        del model, state
+        torch.cuda.empty_cache()
+    calls = torch.load(path, map_location="cuda", weights_only=False)
+    bl = pallas_roi_align.roi_align_levels_bwd
+    res = {}
+    for i, ba in enumerate(calls["roi_align_bounded_bwd"]):
+        res[f"canvas_{i}_{ba[2].shape[0]}x{ba[7]}"] = bwd_skips(ba)
+    for i, la in enumerate(calls["roi_align_levels_bwd"]):
+        if len(la[1]) > 1:
+            res[f"pyramid_{i}"] = {"device_ms": device_ms(lambda: bl(*la)),
+                                   "grad_strides": [list(g.stride()) for g in la[0]],
+                                   "grad_shapes": [list(g.shape) for g in la[0]]}
+    res["constrain_along_the_run"] = []
+    for la in calls["constrains"]:
+        side = (la[2][..., 2:] - la[2][..., :2]).amax(-1)
+        err = bwd_rel_err([x.cpu() for x in bl(*la)],
+                          pallas_roi_align.roi_align_levels_bwd_plain(*cpu_tree(la)))
+        need(err <= 1e-5, f"roi_align_single_bwd at a captured constrain call: |kernel - plain| "
+                          f"/ max|plain| {err:.3g} > 1e-5")
+        res["constrain_along_the_run"].append({
+            "device_ms": device_ms(lambda: bl(*la)), "rel_err": err,
+            "boxes_150px_or_more": (side >= 150).sum(1).tolist()})
+    log(f"  step calls ({path}): {json.dumps(res)}")
 
 
 # tests/test_torch_hnet.py's small hnet, with hnet-nucls' mask-weighted
@@ -2847,7 +3209,13 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default="",
                     help="comma-separated phase-3 kernel names: build, run only their phases "
                          "and stop (no result lines); without it, every phase")
-    only = {k for k in ap.parse_args(argv).only.split(",") if k}
+    ap.add_argument("--hnet-loss-trials", type=int, default=0, metavar="N",
+                    help="build, run phase 15's loss check N times (hnet_loss_trials) and stop")
+    ap.add_argument("--step-calls", default="", metavar="PATH",
+                    help="build, time the two ROI-align backwards at one hnet step's calls "
+                         "saved in PATH (captured first where it does not exist) and stop")
+    args = ap.parse_args(argv)
+    only = {k for k in args.only.split(",") if k}
     if only - set(TPU_KERNEL):
         ap.error(f"unknown kernels {sorted(only - set(TPU_KERNEL))}; choose from {list(TPU_KERNEL)}")
     if not torch.cuda.is_available():
@@ -2862,6 +3230,14 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     secs = kernels.build_all()
+    if args.hnet_loss_trials or args.step_calls:
+        log(f"[2] built {sorted(kernels.KERNELS)} in {secs:.1f} s")
+        if args.hnet_loss_trials:
+            log(f"[15] hnet-nucls loss check, {args.hnet_loss_trials} trials")
+            hnet_loss_trials(args.hnet_loss_trials)
+        if args.step_calls:
+            step_call_times(args.step_calls)
+        return 0
     log(f"[2] built {sorted(kernels.KERNELS)} in {secs:.1f} s; ptxas of the redesigned kernels:")
     for k in REDESIGNED + ("roi_align_bwd", "roi_align_single_bwd"):
         for line in kernels.ptxas_report(k).splitlines():

@@ -194,6 +194,16 @@ class HNet(nn.Module):
             cache[key] = torch.cat([origins, origins + float(win)], -1).to(device)
         return cache[key]
 
+    def _tile_rois(self, H: int, W: int, win: int, B: int, device) -> Tensor:
+        """(B, Nt, 4) the tile grid's windows for each image, contiguous (the
+        ROI-align kernels read boxes packed: an expanded view would cost a
+        copy a call), made once per image size, batch and device."""
+        cache = self.__dict__.setdefault("_tile_cache", {})
+        key = (H, W, win, B, str(device))
+        if key not in cache:
+            cache[key] = self._tiles(H, W, win, device)[None].expand(B, -1, 4).contiguous()
+        return cache[key]
+
     def _project_gt_to_rois(self, t: Dict[str, Tensor], rois_px: Tensor,
                             img_hw: Tuple[int, int], v_px: int) -> Dict[str, Tensor]:
         """Image-frame GT → per-ROI virtual-frame targets of the (B·R) ROI
@@ -236,7 +246,8 @@ class HNet(nn.Module):
         B = feats[0].shape[0]
         tiles = self._tiles(H, W, win, feats[0].device)
         nt = tiles.shape[0]
-        pyr, v_px = self._roi_pyramids(feats, tiles[None].expand(B, nt, 4), win, amp)
+        pyr, v_px = self._roi_pyramids(feats, self._tile_rois(H, W, win, B, tiles.device), win,
+                                       amp)
         o = header.infer(pyr, (v_px, v_px))
         K = o["boxes"].shape[1]
         shift = tiles[:, :2].repeat(1, 2)                      # (Nt, 4) x, y, x, y origin
@@ -253,7 +264,7 @@ class HNet(nn.Module):
                 if roi_valid is None:
                     roi_valid = torch.ones(ann.shape[:2], dtype=torch.bool, device=dev)
             else:                                      # the whole image as the one ROI
-                ann = torch.tensor([0.0, 0.0, float(W), float(H)], device=dev).expand(B, 1, 4)
+                ann = torch.tensor([[[0.0, 0.0, float(W), float(H)]]] * B, device=dev)
                 roi_valid = torch.ones((B, 1), dtype=torch.bool, device=dev)
             pyr_l, v_l = self._roi_pyramids(feats, ann, win, amp)
             losses = header.compute_losses(pyr_l, (v_l, v_l),

@@ -9,7 +9,9 @@ and flags, so a changed source is rebuilt and an unchanged one is reused.
 Every C entry point launches on the caller's CUDA stream, allocates nothing,
 and returns ``cudaGetLastError()``; :func:`check` raises on a non-zero code.
 
-``LAUNCHES`` counts, per kernel, the wrapper calls that launched it.  Nothing
+``LAUNCHES`` counts, per kernel, the wrapper calls that launched it.
+:func:`constants` reads a source's ``constexpr int`` limits without building
+it, so that a wrapper plans by the kernel's own numbers.  Nothing
 here imports torch's CUDA runtime or runs ``nvcc`` at import time: the CPU
 tests import every module.
 
@@ -21,9 +23,12 @@ call in its graph.
 
 from __future__ import annotations
 
+import ast
 import ctypes
 import hashlib
+import operator
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -66,13 +71,12 @@ _SIGNATURES = {
     "stem_conv": ("stem", [_P] * 5 + [_I] * 13 + [_P]),
     "nms_keep": ("nms", [_P] * 5 + [_I, _I, _I, _F, _I, _P]),
     "roi_align_bounded": ("roi_align", [_P, _I] + [_P] * 6 + [_I] * 8 + [_P]),
-    "roi_align_bounded_bwd": ("roi_align_bwd", [_P, _I] + [_P] * 6 + [_I] * 8 + [_P]),
+    "roi_align_bounded_bwd": ("roi_align_bwd", [ctypes.c_char_p, _I] + [_P] * 7 + [_I] * 9 + [_P]),
     "mask_head": ("mask_head", [_P] * 9 + [_I, _I, _P]),
     "roi_align_levels": ("roi_align_single", [ctypes.c_char_p, _I, _P] + [_I] * 7 + [_P]),
     "roi_align_levels_limits": ("roi_align_single", [_I]),
     "roi_align_levels_bwd": ("roi_align_single_bwd", [ctypes.c_char_p, _I, _P] + [_I] * 7 + [_P]),
-    "roi_align_levels_bwd_limits": ("roi_align_single_bwd", [_I]),
-    "roi_align_levels_bwd_rois": ("roi_align_single_bwd", [_P] * 5 + [_I] * 12 + [_P]),
+    "roi_align_levels_bwd_rois": ("roi_align_single_bwd", [_P] * 3 + [_I] * 11 + [_P]),
     "stem_k108": ("stem_k108", [_P] * 5 + [_I] * 6 + [_P]),
     "stem_dot108": ("stem_dot108", [_P] * 5 + [ctypes.c_longlong, _I, _P]),
     "stem_tc": ("stem_tc", [_P] * 5 + [_I] * 7 + [_P]),
@@ -99,6 +103,41 @@ def register_op(name: str, schema: str, launch, fake):
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+_CONSTANTS: Dict[str, Dict[str, int]] = {}
+_CONSTEXPR = re.compile(r"^constexpr int (\w+) = ([^;]+);", re.M)
+_INT_OPS = {ast.Add: operator.add, ast.Sub: operator.sub, ast.Mult: operator.mul,
+            ast.Div: operator.floordiv, ast.LShift: operator.lshift}
+
+
+def constants(name: str) -> Dict[str, int]:
+    """The namespace-scope ``constexpr int`` constants of ``<name>.cu`` that
+    are a literal or integer arithmetic on earlier ones (one built on a
+    macro is left out), read from the source: no build, so the CPU tests
+    plan by them too."""
+    if name not in _CONSTANTS:
+        with open(os.path.join(_DIR, name + ".cu")) as f:
+            src = f.read()
+        vals: Dict[str, int] = {}
+
+        def ev(node):
+            if isinstance(node, ast.Constant) and type(node.value) is int:
+                return node.value
+            if isinstance(node, ast.Name) and node.id in vals:
+                return vals[node.id]
+            if isinstance(node, ast.BinOp) and type(node.op) in _INT_OPS:
+                left, right = ev(node.left), ev(node.right)
+                return None if left is None or right is None else \
+                    _INT_OPS[type(node.op)](left, right)
+            return None
+
+        for key, expr in _CONSTEXPR.findall(src):
+            v = ev(ast.parse(expr.strip(), mode="eval").body)
+            if v is not None:
+                vals[key] = v
+        _CONSTANTS[name] = vals
+    return _CONSTANTS[name]
 
 
 def nvcc() -> str:

@@ -49,22 +49,25 @@ Training differentiates the bounded pooling with respect to the level maps:
 ``RoiAlignBoundedFn`` runs ``roi_align_bounded`` forward and
 ``roi_align_bounded_bwd`` backward, the op
 ``hd_yolo_tpu_torch::roi_align_bounded_bwd`` of ``kernels/roi_align_bwd.cu``
-on the card (the adjoint: each tap's ``g · wy · wx`` added into f32 level
-gradients, cast to the levels' dtype), and on CPU levels the plain version,
-the autograd of ``roi_align_bounded_plain``.  The coordinates, bounds and
-boxes get no gradient.
+on the card (the adjoint, gathered: two launches, one building each ROI's
+tables and listing the ROIs of each image and level, one writing each
+level-gradient tile once in the levels' dtype from the ROIs that reach it,
+in ROI order; tiled as ``_bounded_bwd_plan`` says), and on CPU levels the
+plain version, the autograd of ``roi_align_bounded_plain``.  The
+coordinates, bounds and boxes get no gradient.
 
 Training differentiates the single-level pooling (hnet's ROI pyramids and
 the confliction loss's pooling of the seg probabilities) with respect to
 the maps the same way: under autograd ``roi_align_levels`` and
 ``roi_align_single`` go through ``RoiAlignLevelsFn``, whose backward is
-``roi_align_levels_bwd`` — one call of ``kernels/roi_align_single_bwd.cu``
+``roi_align_levels_bwd`` — one launch of ``kernels/roi_align_single_bwd.cu``
 for every map on the card (each map cell's gradient gathered from the bins
 that touch it, with the plain version's rounding points; bit for bit the
 plain version at hnet's pyramid; one map with many ROIs an image, the
-confliction loss's pooling, as per-ROI patches summed per cell in ROI
-order), the autograd of ``roi_align_levels_plain`` on CPU maps.  The boxes get no gradient, as JAX's TPU kernel's vjp gives
-none.
+confliction loss's pooling, by a thread-block cluster an image whose warps
+form the ROIs' adjoint patches and sum them in a fixed order), the
+autograd of ``roi_align_levels_plain`` on CPU maps.  The boxes get no
+gradient, as JAX's TPU kernel's vjp gives none.
 """
 
 from __future__ import annotations
@@ -229,9 +232,10 @@ def roi_align_bounded_bwd(grad_out: Tensor, levels: Sequence[Tensor], meta: Tens
                    for f in levels)):
         raise ValueError(f"roi_align_bwd kernel takes (B, H, W, C) f32/bf16 levels of one dtype, "
                          f"batch and C, got {[(f.dtype, tuple(f.shape)) for f in levels]}")
-    if not 1 <= len(levels) <= MAX_LEVELS or M * n > 64:
-        raise ValueError(f"roi_align_bwd kernel takes 1 to {MAX_LEVELS} levels and at most 64 "
-                         f"samples per axis, got {len(levels)} and {M * n}")
+    lim = kernels.constants("roi_align_bwd")
+    if not 1 <= len(levels) <= lim["MAX_L"] or M * n > lim["MAX_S"]:
+        raise ValueError(f"roi_align_bwd kernel takes 1 to {lim['MAX_L']} levels and at most "
+                         f"{lim['MAX_S']} samples per axis, got {len(levels)} and {M * n}")
     if grad_out.shape != (K, M, M, C) or meta.shape != (K, 4) or bounds.shape != (K, 4) \
             or ys.shape != (K, M * n) or xs.shape != (K, M * n):
         raise ValueError(f"roi_align_bwd kernel takes grad ({K}, {M}, {M}, {C}), meta/bounds "
@@ -252,23 +256,61 @@ def roi_align_bounded_bwd(grad_out: Tensor, levels: Sequence[Tensor], meta: Tens
                                     int(window[1]), int(M), int(n), active)
 
 
+_BOUNDED_BWD_PLANS: dict = {}
+
+
+def _bounded_bwd_plan(shapes: Sequence[Tuple[int, int]], B: int, C: int, vec: int, M: int,
+                      n: int) -> tuple:
+    """The tiling of ``roi_align_bwd.cu``'s gather for level shapes ``(H_l,
+    W_l)``, batch B, C channels in vectors of ``vec``, M x M bins of n x n
+    samples: (plan row, per level (tiles down, tiles across, slabs), record
+    bytes of one ROI's tables).  A slab is up to 32 channel vectors, a lane
+    each in groups of ``lpc`` lanes (a power of two); a tile is the kernel's
+    ``NWARPS`` x ``32 / lpc`` rows (a lane group each) by its ``TW`` columns
+    (the cells a lane owns; ``kernels.constants``).  A
+    ROI's record holds its footprint, both axes' entries (at most 2·M·n
+    each: a weight and a bin) and one run start per index of the largest
+    level side, in 16-byte multiples."""
+    key = (tuple(shapes), B, C, vec, M, n)
+    plan = _BOUNDED_BWD_PLANS.get(key)
+    if plan is not None:
+        return plan
+    k = kernels.constants("roi_align_bwd")
+    ncv = C // vec
+    cvs = min(ncv, 32)
+    lpc_log2 = (cvs - 1).bit_length()
+    th = k["NWARPS"] * (32 >> lpc_log2)
+    e_max = 2 * M * n
+    rs = max(max(h, w) for h, w in shapes) + 1
+    rec = -(-(16 + 10 * e_max + 2 * rs) // 16) * 16
+    tiles = [(-(-h // th), -(-w // k["TW"]), -(-ncv // cvs)) for h, w in shapes]
+    plan = ((th, cvs, lpc_log2, rec, e_max, rs, B, 0), tiles, rec)
+    _BOUNDED_BWD_PLANS[key] = plan
+    return plan
+
+
 def _launch_bounded_bwd(grad_out, levels, meta, ys, xs, bounds, win_h: int, win_w: int, M: int,
                         n: int, active: Optional[Tensor]) -> List[Tensor]:
     f0 = levels[0]
-    K, C, dtype = meta.shape[0], f0.shape[-1], f0.dtype
+    K, B, C, dtype = meta.shape[0], f0.shape[0], f0.shape[-1], f0.dtype
     outs = [torch.empty(f.shape, dtype=dtype, device=f0.device) for f in levels]
-    # bf16 levels: the scatter sums into f32 buffers, cast into the outputs
-    accs = outs if dtype == torch.float32 else \
-        [torch.empty(f.shape, dtype=torch.float32, device=f0.device) for f in levels]
-    table = (ctypes.c_longlong * (6 * len(levels)))(*[
-        v for a, o, f, off in zip(accs, outs, levels, level_offsets(levels))
-        for v in (a.data_ptr(), o.data_ptr(), f.shape[1], f.shape[2], off, f.numel())])
+    width = 8 if dtype == torch.bfloat16 else 4
+    vec = width if C % width == 0 and grad_out.data_ptr() % 16 == 0 else 1
+    head, tiles, rec = _bounded_bwd_plan([tuple(f.shape[1:3]) for f in levels], B, C, vec, M, n)
+    # footprints (K x 16 bytes), list counts and the ROIs of each (image,
+    # level) (B·L ints, B·L x K ints), records (K x rec), each at a 16-byte
+    # multiple
+    nkey = B * len(levels)
+    work = torch.empty(K * (16 + rec) + 16 * (-(-nkey // 4) + -(-nkey * K // 4)),
+                       dtype=torch.uint8, device=f0.device)
+    table = struct.pack(f"<{8 * (len(levels) + 1)}q", *head, *[
+        v for o, f, off, t in zip(outs, levels, level_offsets(levels), tiles)
+        for v in (o.data_ptr(), f.shape[1], f.shape[2], off, *t, 0)])
     dev, stream = kernels.device_and_stream(f0)
     code = kernels.fn("roi_align_bounded_bwd")(
-        ctypes.addressof(table), len(levels), grad_out.data_ptr(), meta.data_ptr(),
-        ys.data_ptr(), xs.data_ptr(), bounds.data_ptr(),
-        None if active is None else active.data_ptr(), K, C, win_h, win_w, M, n,
-        1 if dtype == torch.bfloat16 else 0, dev, stream)
+        table, len(levels), grad_out.data_ptr(), meta.data_ptr(), ys.data_ptr(), xs.data_ptr(),
+        bounds.data_ptr(), None if active is None else active.data_ptr(), work.data_ptr(), K, C,
+        win_h, win_w, M, n, 1 if dtype == torch.bfloat16 else 0, 1 if vec > 1 else 0, dev, stream)
     kernels.check(code, "roi_align_bounded_bwd")
     kernels.LAUNCHES["roi_align_bwd"] += 1
     return outs
@@ -459,37 +501,29 @@ def roi_align_levels_bwd_plain(grads: Sequence[Tensor], features: Sequence[Tenso
     return [torch.zeros_like(f) if g is None else g for f, g in zip(features, got)]
 
 
-_BWD_LIMITS: dict = {}
-
-
-def _bwd_limits() -> dict:
-    """The backward kernel's limits (maps, samples per axis, map width, band
-    rows, cells of a block, R bytes), read from its library once."""
-    if not _BWD_LIMITS:
-        f = kernels.fn("roi_align_levels_bwd_limits")
-        _BWD_LIMITS.update(zip(("levels", "samples", "width", "band", "cells", "r_bytes"),
-                               (f(i) for i in range(6))))
-    return _BWD_LIMITS
-
+# channel vectors a slab of the single-level backward's gather (a plan choice;
+# the kernel's limits are read from its source by ``kernels.constants``)
+BWD_SLAB_VECTORS = 8
 
 _BWD_PLANS: dict = {}
 
 
-# the per-ROI path: one map with at least this many ROIs an image, and its
-# f32 patch scratch (B·K maps' worth) at most this many bytes
+# the per-ROI path: one map with at least this many ROIs an image, whose f32
+# gradient fits a block's shared memory
 PER_ROI_MIN_K = 16
-PER_ROI_SCRATCH = 256 << 20
 
 
 def _bwd_plan(features: Sequence[Tensor], rois: Tensor, sizes: Sequence[int], n: int) -> tuple:
     """The backward's launch plan of one call's shapes, checked and cached:
-    (vector path?, per-ROI path?, per map (H, W, C, M, band rows, channel
-    slab)).  The per-ROI path takes one map with many ROIs an image (the
-    confliction loss's pooling) whose patches fit the scratch; the gather
-    the rest.  A slab is as wide as a block's cells allow with the map's
-    whole width a row (and two bins of R fit its buffer), in equal vector
-    multiples; a band is as tall as the cells allow, but short enough that
-    the items fill the card about four times over."""
+    (vector path?, per-ROI path?, per map (H, W, C, M, bands, column blocks,
+    columns a block, slabs, channels a slab, log2 of the lanes a column)).
+    The per-ROI path takes one map with many ROIs an image (the confliction
+    loss's pooling) whose buffers fit; the gather the rest.  A gather item is
+    the kernel's ``BH`` rows by a block of columns by a slab of up to
+    ``BWD_SLAB_VECTORS`` channel vectors, a thread per (column, vector): the
+    lanes of a column are the slab's vectors rounded up to a power of two,
+    the columns a block's ``NTHREADS`` worth of them (at most ``MAX_CB``).
+    The limits are the kernel's (``kernels.constants``)."""
     key = (tuple((f.dtype, f.shape) for f in features), rois.shape, tuple(sizes), n)
     plan = _BWD_PLANS.get(key)
     if plan is not None:
@@ -504,32 +538,34 @@ def _bwd_plan(features: Sequence[Tensor], rois: Tensor, sizes: Sequence[int], n:
     if rois.dim() != 3 or rois.shape[0] != B or rois.shape[2] != 4:
         raise ValueError(f"roi_align_levels_bwd kernel takes ({B}, K, 4) boxes, got "
                          f"{tuple(rois.shape)}")
-    lim = _bwd_limits()
-    if not 1 <= len(features) <= lim["levels"]:
-        raise ValueError(f"roi_align_levels_bwd kernel takes 1 to {lim['levels']} maps, "
+    k = kernels.constants("roi_align_single_bwd")
+    if not 1 <= len(features) <= k["MAX_L"]:
+        raise ValueError(f"roi_align_levels_bwd kernel takes 1 to {k['MAX_L']} maps, "
                          f"got {len(features)}")
-    vec = 16 // f0.element_size()
+    esz = f0.element_size()
+    vec = 16 // esz
     use_vec = all(f.shape[-1] % vec == 0 for f in features)
     v = vec if use_vec else 1
-    sms = torch.cuda.get_device_properties(f0.device).multi_processor_count
     rows = []
     for f, M in zip(features, sizes):
         H, W, C = f.shape[1:]
-        if not (1 <= H <= 32767 and 1 <= W <= lim["width"] and n >= 1
-                and 1 <= int(M) * n <= lim["samples"]):
-            raise ValueError(f"roi_align_levels_bwd kernel takes maps of 1 to 32767 rows and 1 to "
-                             f"{lim['width']} columns and 1 to {lim['samples']} samples per axis, "
-                             f"got {tuple(f.shape)} at output {M}, sampling {n}")
-        nvec = C // v
-        per_slab = max(1, min(lim["cells"] // W, lim["r_bytes"] // (2 * W * 4 * v)))
-        nslab = -(-nvec // per_slab)
-        ncv = -(-nvec // nslab)
-        bh = max(1, min(lim["band"], lim["cells"] // (W * ncv), H, B * H * nslab // (4 * sms)))
-        rows.append((H, W, C, int(M), bh, ncv * v))
+        if not (1 <= H <= k["GATHER_SIDE"] and 1 <= W <= k["GATHER_SIDE"] and C >= 1
+                and n >= 1 and 1 <= int(M) * n <= k["MAX_S"]):
+            raise ValueError(f"roi_align_levels_bwd kernel takes maps of 1 to {k['GATHER_SIDE']} "
+                             f"rows and columns and 1 to {k['MAX_S']} samples per axis, got "
+                             f"{tuple(f.shape)} at output {M}, sampling {n}")
+        nv = min(C // v, BWD_SLAB_VECTORS)
+        lpc_log2 = (nv - 1).bit_length()
+        cb = min(k["MAX_CB"], k["NTHREADS"] >> lpc_log2)
+        cs = nv * v
+        rows.append((H, W, C, int(M), -(-H // k["BH"]), -(-W // cb), cb, -(-C // cs), cs,
+                     lpc_log2))
     H, W, C = f0.shape[1:]
-    K = rois.shape[1]
-    per_roi = (len(features) == 1 and K >= PER_ROI_MIN_K and H <= lim["width"]
-               and W * C * 4 <= lim["r_bytes"] and B * K * H * W * C * 4 <= PER_ROI_SCRATCH)
+    M = int(sizes[0])
+    per_roi = (len(features) == 1 and rois.shape[1] >= PER_ROI_MIN_K
+               and H * W * C * 4 <= k["MAP_BYTES"] and M * n <= k["ROI_MAX_S"]
+               and M * C * esz <= k["ROW_CAP"] and max(H, W) <= k["MAX_SIDE"]
+               and W * C <= k["BIG_FLOATS"] and M * (H + W) <= k["DENSE_FLOATS"])
     plan = (use_vec, per_roi, rows)
     _BWD_PLANS[key] = plan
     return plan
@@ -540,7 +576,7 @@ def roi_align_levels_bwd(grads: Sequence[Tensor], features: Sequence[Tensor], ro
                          aligned: bool = False) -> List[Tensor]:
     """The gradient of ``roi_align_levels``' outputs with respect to each
     map: grads (per map (B, K, M_l, M_l, C_l)), the forward's arguments →
-    per map a (B, H_l, W_l, C_l) gradient in the maps' dtype, in one call
+    per map a (B, H_l, W_l, C_l) gradient in the maps' dtype, in one launch
     of the kernel for CUDA maps (reads only the maps' shapes and dtype), the
     plain version for CPU maps.  The boxes get no gradient."""
     f0 = features[0]
@@ -551,7 +587,7 @@ def roi_align_levels_bwd(grads: Sequence[Tensor], features: Sequence[Tensor], ro
     use_vec, per_roi, rows = _bwd_plan(features, rois, sizes, n)
     dtype = f0.dtype
     B, K = rois.shape[:2]
-    for g, (H, W, C, M, _, _) in zip(grads, rows):
+    for g, (H, W, C, M) in zip(grads, (r[:4] for r in rows)):
         if g.shape != (B, K, M, M, C):
             raise ValueError(f"roi_align_levels_bwd kernel takes ({B}, {K}, {M}, {M}, {C}) output "
                              f"gradients, got {tuple(g.shape)}")
@@ -562,22 +598,18 @@ def roi_align_levels_bwd(grads: Sequence[Tensor], features: Sequence[Tensor], ro
         raise ValueError("roi_align_levels_bwd kernel inputs must share one CUDA device")
     outs = [torch.empty(f.shape, dtype=dtype, device=f0.device) for f in features]
     _, stream = kernels.device_and_stream(f0)
+    bits = [struct.unpack("<i", struct.pack("<f", float(sc)))[0] for sc in scales]
     if per_roi:
         H, W, C, M = rows[0][:4]
-        patch = torch.empty((B * K, H, W, C), dtype=torch.float32, device=f0.device)
-        reach = torch.empty((B * K, 4), dtype=torch.int32, device=f0.device)
         code = kernels.fn("roi_align_levels_bwd_rois")(
-            grads[0].data_ptr(), outs[0].data_ptr(), patch.data_ptr(), reach.data_ptr(),
-            rois.data_ptr(), B, K, H, W, C, M, n,
-            struct.unpack("<i", struct.pack("<f", float(scales[0])))[0], 1 if aligned else 0,
-            1 if dtype == torch.bfloat16 else 0, 1 if use_vec else 0, dev, stream)
+            grads[0].data_ptr(), outs[0].data_ptr(), rois.data_ptr(), B, K, H, W, C, M, n,
+            bits[0], 1 if aligned else 0, 1 if dtype == torch.bfloat16 else 0, dev, stream)
         kernels.check(code, "roi_align_levels_bwd_rois")
         kernels.LAUNCHES["roi_align_single_bwd"] += 1
         return outs
-    table = struct.pack(f"<{10 * len(outs)}q", *[
-        v for g, o, r, sc in zip(grads, outs, rows, scales)
-        for v in (g.data_ptr(), o.data_ptr(), *r,
-                  struct.unpack("<I", struct.pack("<f", float(sc)))[0], 0)])
+    table = struct.pack(f"<{16 * len(outs)}q", *[
+        v for g, o, r, sb in zip(grads, outs, rows, bits)
+        for v in (g.data_ptr(), o.data_ptr(), *r, sb, 0, 0, 0)])
     code = kernels.fn("roi_align_levels_bwd")(
         table, len(outs), rois.data_ptr(), B, K, n, 1 if aligned else 0,
         1 if dtype == torch.bfloat16 else 0, 1 if use_vec else 0, dev, stream)

@@ -549,6 +549,90 @@ def test_roi_align_bwd_kernel_matches_plain_autograd(cuda, B, K, sizes, C, dtype
         assert float((a.float() - b.float()).abs().max()) <= 1e-5 * max(float(b.float().abs().max()), 1)
 
 
+def test_roi_align_bwd_kernel_is_deterministic(cuda):
+    """Two launches on the same inputs give bit-identical level gradients at
+    the training call's form (each cell written once, its sums in ROI
+    order: no atomics)."""
+    args = _bwd_case(cuda, 16, 64, ((80, 80), (40, 40), (20, 20), (10, 10)), 256, torch.bfloat16)
+    first = pallas_roi_align.roi_align_bounded_bwd(*args)
+    again = pallas_roi_align.roi_align_bounded_bwd(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("dtype,C", [(torch.float32, 12), (torch.bfloat16, 16),
+                                     (torch.bfloat16, 6)])
+def test_roi_align_bwd_kernel_clustered_rois(cuda, dtype, C):
+    """1200 ROIs (more than one list round of a tile), most of them piled on
+    one small level of a ragged pyramid, with an active prefix of 1100:
+    against the plain version's autograd (f32 within 1e-5·max|g| of the
+    CPU's; bf16 within 2e-2·max|g| on the card, as above), the ROIs past the
+    prefix adding nothing (bit for bit the call on the prefix alone), two
+    launches bit-identical.  C = 6 at bf16 takes
+    the single-element path."""
+    from hd_yolo_tpu_torch.ops.roi_align import level_meta, sample_coords
+
+    B, K, M, n = 2, 1200, 7, 2
+    sizes = ((23, 17), (12, 9), (6, 5))
+    strides = [8.0, 16.0, 32.0]
+    feats = [torch.randn((B, h, w, C), generator=cuda, device="cuda").to(dtype) for h, w in sizes]
+    xy = torch.rand((K, 2), generator=cuda, device="cuda") * 40 + 60
+    boxes = torch.cat([xy, xy + torch.rand((K, 2), generator=cuda, device="cuda") * 60 + 1], -1)
+    lv = torch.where(torch.rand(K, generator=cuda, device="cuda") < 0.8, 2,
+                     torch.randint(0, 2, (K,), generator=cuda, device="cuda")).to(torch.int32)
+    meta = level_meta(feats, strides)
+    ys, xs, moff, mh, mw = sample_coords(boxes, lv, meta, M * n, False)
+    bounds = torch.stack([moff, moff + mh, torch.zeros_like(mw), mw], -1)
+    b = torch.randint(0, B, (K,), generator=cuda, device="cuda").to(torch.int32)
+    z = torch.zeros_like(b)
+    g = torch.randn((K, M, M, C), generator=cuda, device="cuda").to(dtype)
+    args = (g, feats, torch.stack([b, z, z, lv], -1), ys, xs, bounds,
+            (sum(h for h, _ in sizes), sizes[0][1]), M, n)
+    active = torch.tensor(1100, device="cuda")
+    got = pallas_roi_align.roi_align_bounded_bwd(*args, active)
+    assert all(torch.equal(a, c) for a, c in
+               zip(got, pallas_roi_align.roi_align_bounded_bwd(*args, active)))
+    if dtype == torch.float32:
+        want = pallas_roi_align.roi_align_bounded_bwd_plain(
+            *[t.cpu() if torch.is_tensor(t) else [x.cpu() for x in t] if isinstance(t, list)
+              else t for t in args], active.cpu())
+        rel = 1e-5
+    else:
+        want = pallas_roi_align.roi_align_bounded_bwd_plain(*args, active)
+        rel = 2e-2
+    for a, w in zip(got, want):
+        assert a.dtype == dtype and a.shape == w.shape
+        scale = float(w.float().abs().max())
+        assert scale > 0 and float((a.cpu().float() - w.cpu().float()).abs().max()) <= rel * scale
+    first = pallas_roi_align.roi_align_bounded_bwd(g[:1100], feats, *[a[:1100] for a in args[2:6]],
+                                                   *args[6:])
+    assert all(torch.equal(a, c) for a, c in zip(got, first))
+
+
+@pytest.mark.parametrize("dtype,C", [(torch.float32, 12), (torch.bfloat16, 16),
+                                     (torch.bfloat16, 6)])
+def test_roi_align_bwd_kernel_passes_over_zero_gradient_rois(cuda, dtype, C):
+    """ROIs whose output gradient is all zero (some of them -0.0, as a loss
+    that passes over them gives) add nothing: the level gradients are bit
+    for bit those of the call on the other ROIs alone, in their order, and
+    within tolerance of the plain version's autograd.  C = 6 at bf16 takes
+    the single-element path (the zero test by 2-byte halves)."""
+    args = _bwd_case(cuda, 2, 40, ((23, 17), (12, 9), (6, 5)), C, dtype, M=7)
+    g = args[0].clone()
+    zero = torch.arange(g.shape[0], device="cuda") % 3 != 1
+    g[zero] = 0.0
+    g[::6] = -0.0
+    keep = (~zero).nonzero()[:, 0]
+    got = pallas_roi_align.roi_align_bounded_bwd(g, *args[1:])
+    rest = pallas_roi_align.roi_align_bounded_bwd(g[keep], args[1], *[a[keep] for a in args[2:6]],
+                                                  *args[6:])
+    assert all(torch.equal(a, b) for a, b in zip(got, rest))
+    want = pallas_roi_align.roi_align_bounded_bwd_plain(g, *args[1:])
+    rel = 1e-5 if dtype == torch.float32 else 2e-2
+    for a, w in zip(got, want):
+        scale = float(w.float().abs().max())
+        assert float((a.float() - w.float()).abs().max()) <= rel * max(scale, 1e-30)
+
+
 def test_roi_align_function_gradient_through_model_losses(cuda):
     """``Model.losses`` on the card (yolov5s-test, 128 px, f32): the level
     gradient goes through ``RoiAlignBoundedFn`` to the kernel (one launch

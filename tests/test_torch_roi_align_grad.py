@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from hd_yolo_tpu.ops.roi_align import _multiscale_roi_align_canvas, _multiscale_roi_align_windows
+from hd_yolo_tpu_torch import kernels
 from hd_yolo_tpu_torch.ops import pallas_roi_align
 from hd_yolo_tpu_torch.ops.roi_align import (multiscale_roi_align_canvas,
                                              multiscale_roi_align_packed)
@@ -95,3 +96,52 @@ def test_bounded_backward_plain_active_rows_add_nothing():
     for a, b in zip(part, first):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
     assert any(float(a.abs().max()) > 0 for a in part)
+
+
+@pytest.mark.parametrize("shapes,B,C,dtype", [
+    (((80, 80), (40, 40), (20, 20), (10, 10)), 16, 256, torch.bfloat16),   # yolo training
+    (((160, 160), (80, 80), (40, 40), (20, 20)), 4, 256, torch.bfloat16),  # hnet training
+    (((37, 29), (19, 15), (10, 8)), 2, 12, torch.float32),                 # ragged, 3 vectors
+    (((23, 17), (12, 9)), 3, 6, torch.bfloat16),                           # single elements
+    (((9, 300),), 1, 1000, torch.float32),                                 # wide, many slabs
+])
+def test_bounded_bwd_plan_covers_every_cell_once(shapes, B, C, dtype):
+    """``roi_align_bwd.cu``'s tiling from ``_bounded_bwd_plan``, on meta
+    tensors: decoded as the gather decodes its blocks, the tiles cover every
+    (image, row, column, channel) of every level exactly once, and the plan
+    keeps the kernel's limits (a lane group per tile row, at most 32 channel
+    vectors a slab, tile indices below 2^16, a record that holds a ROI's
+    entries and one run start per index of the largest side)."""
+    levels = [torch.empty((B, h, w, C), dtype=dtype, device="meta") for h, w in shapes]
+    width = 8 if dtype == torch.bfloat16 else 4
+    vec = width if C % width == 0 else 1
+    M, n = 14, 2
+    head, tiles, rec = pallas_roi_align._bounded_bwd_plan(
+        [tuple(f.shape[1:3]) for f in levels], B, C, vec, M, n)
+    th, cvs, lpc_log2, rec_h, e_max, rs, batch, _ = head
+    k = kernels.constants("roi_align_bwd")
+    ncv = C // vec
+    assert rec == rec_h and rec % 16 == 0 and batch == B
+    assert 1 <= cvs <= min(32, ncv) and cvs <= 1 << lpc_log2 <= 32 and (cvs - 1) < 1 << lpc_log2
+    assert th == k["NWARPS"] * (32 >> lpc_log2)
+    assert e_max == 2 * M * n and rs >= max(max(s) for s in shapes) + 1
+    assert rec >= 16 + 10 * e_max + 2 * rs
+    tw = k["TW"]
+    for (h, w), (nty, ntx, nslab) in zip(shapes, tiles):
+        assert nty < 1 << 16 and ntx < 1 << 16
+        seen = np.zeros((B, h, w, ncv), np.int32)
+        for unit in range(B * nty * ntx * nslab):       # the kernel's decode
+            slab, u = unit % nslab, unit // nslab
+            tx, u = u % ntx, u // ntx
+            ty, b = u % nty, u // nty
+            lanes = np.arange(BWD_LANES := 32)
+            for warp in range(k["NWARPS"]):
+                cv = lanes & ((1 << lpc_log2) - 1)
+                y = ty * th + warp * (32 >> lpc_log2) + (lanes >> lpc_log2)
+                c = slab * cvs + cv
+                live = (cv < min(cvs, ncv - slab * cvs)) & (y < h)
+                for j in range(tw):
+                    x = tx * tw + j
+                    if x < w:
+                        np.add.at(seen, (b, y[live], x, c[live]), 1)
+        assert (seen == 1).all()

@@ -19,6 +19,9 @@ orders).  The boxes get no gradient (JAX's TPU kernel's vjp gives them
 zeros).
 """
 
+import os
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -120,3 +123,68 @@ def test_roi_align_levels_bwd_raises_off_the_cpu_on_bad_shapes():
     feats = [torch.empty((2, 8, 8, 16), device="meta"), torch.empty((3, 4, 4, 16), device="meta")]
     with pytest.raises(ValueError):
         pallas_roi_align._bwd_plan(feats, torch.empty((2, 1, 4), device="meta"), [8, 4], 2)
+
+
+@pytest.mark.parametrize("shapes,K,sizes,C,dtype,per_roi", [
+    (((160, 160), (80, 80), (40, 40), (20, 20)), 1, (160, 80, 40, 20), 256, torch.bfloat16,
+     False),                                                        # hnet's pyramid
+    (((40, 40),), 100, (28,), 5, torch.float32, True),              # the confliction loss
+    (((40, 37),), 20, (14,), 8, torch.bfloat16, True),
+    (((19, 23), (10, 12)), 5, (7, 5), 8, torch.float32, False),     # ragged
+    (((33, 17),), 3, (33,), 12, torch.float32, False),
+    (((40, 40),), 100, (28,), 5000, torch.float32, False),          # too wide for the per-ROI path
+])
+def test_bwd_plan_covers_every_cell_once(shapes, K, sizes, C, dtype, per_roi):
+    """``roi_align_single_bwd.cu``'s gather items from ``_bwd_plan``, on meta
+    tensors: decoded as the kernel decodes its blocks, they cover every
+    (image, row, column, channel) of every map exactly once and keep the
+    kernel's limits (at most 256 threads a block, a thread per (column,
+    channel vector), a slab's vectors within a column's lanes); the per-ROI
+    path is taken exactly where its buffers fit."""
+    B = 2
+    feats = [torch.empty((B, h, w, C), dtype=dtype, device="meta") for h, w in shapes]
+    use_vec, roi_path, rows = pallas_roi_align._bwd_plan(
+        feats, torch.empty((B, K, 4), device="meta"), sizes, 2)
+    assert roi_path == per_roi
+    v = 16 // feats[0].element_size() if use_vec else 1
+    k = kernels.constants("roi_align_single_bwd")
+    band = k["BH"]
+    for (h, w), (H, W, CC, M, nband, ncb, cb, nslab, cs, lpc_log2) in zip(shapes, rows):
+        assert (H, W, CC) == (h, w, C) and cs % v == 0 and C % v == 0
+        assert cs // v <= 1 << lpc_log2 and cb * (1 << lpc_log2) <= 256
+        assert cb <= k["MAX_CB"]
+        seen = np.zeros((B, h, w, C), np.int32)
+        for item in range(B * nband * ncb * nslab):     # the kernel's decode
+            slab, u = item % nslab, item // nslab
+            blk, u = u % ncb, u // ncb
+            bnd, b = u % nband, u // nband
+            h0, x0, c0 = bnd * band, blk * cb, slab * cs
+            ncv = (min(C, c0 + cs) - c0) // v
+            for t in range(256):
+                cv, xi = t & ((1 << lpc_log2) - 1), t >> lpc_log2
+                if xi < min(cb, w - x0) and cv < ncv:
+                    c = c0 + cv * v
+                    seen[b, h0:min(h, h0 + band), x0 + xi, c:c + v] += 1
+        assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("name,keys", [
+    ("roi_align_bwd", ("MAX_L", "MAX_S", "NWARPS", "TW")),
+    ("roi_align_single_bwd", ("MAX_L", "MAX_S", "GATHER_SIDE", "BH", "MAX_CB", "NTHREADS",
+                              "MAP_BYTES", "ROI_MAX_S", "ROW_CAP", "MAX_SIDE", "BIG_FLOATS",
+                              "DENSE_FLOATS")),
+])
+def test_bwd_plans_read_the_kernel_limits_from_the_source(name, keys):
+    """The two backward wrappers plan by their kernels' own ``constexpr``
+    limits, read from the ``.cu`` source (``kernels.constants``): every one
+    they read is there, each literal one has the source's value, and the
+    derived ones (``2 * MAX_S``, ``NTHREADS / 32``) are evaluated."""
+    k = kernels.constants(name)
+    assert set(keys) <= set(k)
+    with open(os.path.join(os.path.dirname(kernels.__file__), name + ".cu")) as f:
+        src = f.read()
+    literal = re.findall(r"^constexpr int (\w+) = (\d+);", src, re.M)
+    assert literal and all(k[key] == int(v) for key, v in literal)
+    assert k["MAX_E"] == 2 * k["MAX_S"] and k["NTHREADS"] % 32 == 0
+    if "NWARPS" in k:
+        assert k["NWARPS"] == k["NTHREADS"] // 32

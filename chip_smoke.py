@@ -7,7 +7,8 @@ Run from the repo root on a machine with one NVIDIA GPU:
 
 (``--only``: build, run only the named kernels' phase-3 checks and timings
 — for ``roi_align_bwd`` also phases 14 and 14b, for ``roi_align_single_bwd``
-also phases 15 and 15b — and stop without the result lines.
+also phases 15 and 15b; ``device_augment`` runs phase 16 with its own
+host-loader CLI — and stop without the result lines.
 ``--hnet-loss-trials N``: phase 15's loss check N times, from the fresh
 model and 15 micro-steps in; ``--step-calls PATH``: both backwards timed at
 hnet training calls saved in PATH, captured first where it is absent, so
@@ -164,6 +165,22 @@ Phases (any failure raises and the script exits non-zero):
      in f32, one training forward and backward on the card and on the CPU
      from the same weights and batch (loss items, gradients by parameter
      group).
+ 16. device augmentation: ``yolov5l6-mask`` + ``hyp-nuclei`` at full width,
+     bf16, batch 16 x 640, 256 targets with masks, on phase 14's 64-tile set
+     in raw mode (``DetectionDataset(host_augment=False)``): the recipe
+     (``data/device_augment.apply_augment``) on the card and on the CPU on the
+     same draws at ``k_mosaic`` 2 and 1 and with mixup 0.5 and photometric
+     1.0 (images and masks within 1e-4, boxes within 1e-3 px, labels and
+     valid flags equal but where a box lies within 1e-3 of a cut); the
+     recipe's time alone (draws, upload and recipe: CUDA events, median of
+     20; profiler device time, launches and time by kernel; host enqueue
+     time); the
+     micro-step with the recipe inside in turns with phase 14's step on a
+     host-augmented batch (launches, a profiled step); ``train.main
+     --cache-device`` 2 epochs and ``--resume`` to a third (phase 14's checks,
+     the upload's MB and seconds, img/s of each epoch's steps beside phase
+     14's host-loader CLI); ``--batch-size -1``'s batch and fitted MiB an
+     image.
 
 Phase 3 also holds the single-level ROI-align's backward kernel
 (``roi_align_levels_bwd``) against its plain version at its two call sites:
@@ -2308,15 +2325,47 @@ def make_train_set(root: str, n: int = 64, size: int = 640, per_tile: int = 80,
     return data
 
 
-def phase_train_cli(data: str, save_dir: str) -> dict:
-    """``engines/train.main`` at full width and depth in bf16, 2 epochs (4
-    micro-steps an update, 2 updates); then a ``--resume`` to a third epoch
-    (the restored step, parameters and EMA are the saved ones); then
-    ``final.pt`` in a ``Detector``."""
+class EpochClock:
+    """Training callbacks that time each epoch's steps: from
+    ``on_train_epoch_start`` to ``on_train_epoch_end`` (which follows the
+    epoch's one fetch of its metrics, so the card has finished its steps),
+    and count them (``on_train_batch_end``)."""
+
+    def __init__(self, batch: int):
+        from hd_yolo_tpu_torch.engines.callbacks import Callbacks
+
+        self.batch, self.img_per_s = batch, []
+        self.callbacks = Callbacks()
+        self.callbacks.register_action("on_train_epoch_start", "clock", self.start)
+        self.callbacks.register_action("on_train_batch_end", "clock", self.step)
+        self.callbacks.register_action("on_train_epoch_end", "clock", self.end)
+
+    def start(self):
+        self.t0, self.steps = time.perf_counter(), 0
+
+    def step(self):
+        self.steps += 1
+
+    def end(self, epoch):
+        self.img_per_s.append(self.steps * self.batch / (time.perf_counter() - self.t0))
+
+
+def phase_train_cli(data: str, save_dir: str, extra=()) -> dict:
+    """``engines/train.main``'s flags (``extra`` added) at full width and
+    depth in bf16, 2 epochs (4 micro-steps an update, 2 updates); then a
+    ``--resume`` to a third epoch (the restored step, parameters and EMA
+    are the saved ones); then ``final.pt`` in a ``Detector``.  Each
+    epoch's steps are timed (``EpochClock``)."""
     from hd_yolo_tpu_torch.engines import train as train_mod
 
+    def run(*argv):
+        clock = EpochClock(16)
+        res = train_mod.train(train_mod.argument_parser().parse_args(
+            ["--data", data, "--save-dir", save_dir, *argv, *TRAIN_CLI, *extra]), clock.callbacks)
+        return res, clock.img_per_s
+
     t0 = time.perf_counter()
-    res = train_mod.main(["--data", data, "--save-dir", save_dir, "--epochs", "2", *TRAIN_CLI])
+    res, img_per_s = run("--epochs", "2")
     t_cli = time.perf_counter() - t0
     for name in ("last.pt", "last.json", "best.pt", "best.json", "final.pt"):
         need(os.path.isfile(os.path.join(save_dir, name)), f"train did not write {name}")
@@ -2327,8 +2376,10 @@ def phase_train_cli(data: str, save_dir: str) -> dict:
     need(int(saved["step"]) == 8 and int(saved["opt"]["count"]) == 2,
          f"2 epochs of 4 steps at accumulate 4: step {int(saved['step'])}, updates "
          f"{int(saved['opt']['count'])}")
-    log(f"  train.main 2 epochs: {t_cli:.1f} s; loss by epoch "
-        f"{[round(r['loss'], 4) for r in rows]}, fitness {[round(r['fitness'], 4) for r in rows]}")
+    log(f"  train.main{''.join(' ' + x for x in extra)} 2 epochs: {t_cli:.1f} s; loss by epoch "
+        f"{[round(r['loss'], 4) for r in rows]}, fitness {[round(r['fitness'], 4) for r in rows]}; "
+        f"img/s of each epoch's steps {[round(v, 2) for v in img_per_s]}"
+        + (f"; resident upload {res['resident_upload']}" if "resident_upload" in res else ""))
     seen = {}
     orig = train_mod.restore_train_state
 
@@ -2342,8 +2393,7 @@ def phase_train_cli(data: str, save_dir: str) -> dict:
     train_mod.restore_train_state = spy
     try:
         t0 = time.perf_counter()
-        train_mod.main(["--data", data, "--save-dir", save_dir, "--epochs", "3", "--resume",
-                        *TRAIN_CLI])
+        _, resumed_img_per_s = run("--epochs", "3", "--resume")
         t_resume = time.perf_counter() - t0
     finally:
         train_mod.restore_train_state = orig
@@ -2360,10 +2410,16 @@ def phase_train_cli(data: str, save_dir: str) -> dict:
     out = det.tiles(x)["detSC"]
     need(out["boxes"].shape == (4, 300, 4) and bool(torch.isfinite(out["boxes"]).all()),
          "final.pt: bad Detector outputs")
-    log(f"  --resume to epoch 3: {t_resume:.1f} s, step/params/EMA as saved; final.pt in "
-        f"Detector: {int(out['valid'].sum())} detections on 4 tiles")
-    return {"cli_2_epochs_s": t_cli, "resume_epoch_s": t_resume,
-            "loss_by_epoch": [r["loss"] for r in rows], "fitness_by_epoch": [r["fitness"] for r in rows]}
+    log(f"  --resume to epoch 3: {t_resume:.1f} s (its steps {resumed_img_per_s[0]:.2f} img/s), "
+        f"step/params/EMA as saved; final.pt in Detector: {int(out['valid'].sum())} detections "
+        f"on 4 tiles")
+    info = {"cli_2_epochs_s": t_cli, "resume_epoch_s": t_resume,
+            "img_per_s_by_epoch": img_per_s + resumed_img_per_s,
+            "loss_by_epoch": [r["loss"] for r in rows],
+            "fitness_by_epoch": [r["fitness"] for r in rows]}
+    if "resident_upload" in res:
+        info["resident_upload"] = res["resident_upload"]
+    return info
 
 
 # the ROI-align wrappers a training step calls, by name in ops/pallas_roi_align
@@ -3202,6 +3258,188 @@ def phase_hnet_train_reference():
         f"{res['cpu']}; worst gradient |d| / max|g| by group {worst}")
 
 
+# ---------------------------------------------------------- device augmentation
+AUG_TOL = {"image": 1e-4, "masks": 1e-4, "boxes_px": 1e-3}
+
+
+def near_threshold(boxes_px: torch.Tensor, tol: float) -> torch.Tensor:
+    """Boxes whose width, height or aspect ratio lies within ``tol`` of one of
+    the recipe's cuts (the 10 px small-object rule, the 2 px candidate and
+    visibility rules, the aspect ratio 20)."""
+    w, h = boxes_px[:, 2] - boxes_px[:, 0], boxes_px[:, 3] - boxes_px[:, 1]
+    ar = torch.maximum(w / (h + 1e-16), h / (w + 1e-16))
+    near = lambda v, c: (v - c).abs() <= tol                             # noqa: E731
+    return near(w, 10) | near(h, 10) | near(w, 2) | near(h, 2) | near(ar, 20)
+
+
+def compare_recipe(name: str, got: dict, want: dict, S: int) -> dict:
+    """The recipe's output on the card against the CPU's on the same draws:
+    images and masks within ``AUG_TOL``, boxes within 1e-3 px, labels and
+    valid flags equal.  An image whose valid flags differ is accepted only
+    where each box valid on one side alone lies within 1e-3 of a cut
+    (``near_threshold``); its slots are not compared further."""
+    img_err = float((got["image"].cpu() - want["image"]).abs().max())
+    need(img_err <= AUG_TOL["image"] and bool(torch.isfinite(got["image"]).all()),
+         f"device recipe {name}: image max |card - cpu| {img_err:.3g} > {AUG_TOL['image']}")
+    res = {"image_max_abs_err": img_err}
+    for task, tw in want["targets"].items():
+        tg = {k: v.cpu() for k, v in got["targets"][task].items()}
+        flips = (tg["valid"] != tw["valid"]).any(1)
+        for b in flips.nonzero().flatten().tolist():
+            gb = tg["boxes"][b][tg["valid"][b]] * S
+            cb = tw["boxes"][b][tw["valid"][b]] * S
+            d = (gb[:, None] - cb[None]).abs().amax(-1) <= AUG_TOL["boxes_px"]
+            lone = torch.cat([gb[~d.any(1)], cb[~d.any(0)]])
+            need(bool(near_threshold(lone, AUG_TOL["boxes_px"]).all()),
+                 f"device recipe {name}: image {b}'s valid flags differ card vs cpu at boxes "
+                 f"{lone.tolist()} not within 1e-3 of a cut")
+        same = ~flips
+        maxabs = lambda x: float(x.abs().max()) if x.numel() else 0.0        # noqa: E731
+        box_err = maxabs(((tg["boxes"] - tw["boxes"]) * S)[same])
+        mask_err = maxabs((tg["masks"] - tw["masks"])[same])
+        need(box_err <= AUG_TOL["boxes_px"] and mask_err <= AUG_TOL["masks"]
+             and torch.equal(tg["labels"][same], tw["labels"][same]),
+             f"device recipe {name}: boxes {box_err:.3g} px, masks {mask_err:.3g}, or labels "
+             f"differ card vs cpu")
+        res[task] = {"valid_card": int(tg["valid"].sum()), "valid_cpu": int(tw["valid"].sum()),
+                     "images_with_flag_flips": int(flips.sum()), "boxes_px_max_abs_err": box_err,
+                     "masks_max_abs_err": mask_err}
+    log(f"  recipe {name}, card vs CPU on the same draws: {res}")
+    return res
+
+
+def step_turns(steps: dict, iters: int) -> dict:
+    """Median / min / max milliseconds of each ``steps[name]()``, ending in a
+    synchronise, the steps taken in turns after 2 warm-ups each."""
+    for fn in steps.values():
+        for _ in range(2):
+            fn()
+    times = {k: [] for k in steps}
+    for _ in range(iters):
+        for k, fn in steps.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[k].append((time.perf_counter() - t0) * 1e3)
+    return {k: {"median_ms": statistics.median(v), "min_ms": min(v), "max_ms": max(v)}
+            for k, v in times.items()}
+
+
+def phase_device_augment(iters: int, host_cli=None):
+    """Phase 16: the device recipe at full width: yolov5l6-mask + hyp-nuclei,
+    bf16, batch 16 x 640, 256 targets with masks, on the 64-tile set in raw
+    mode."""
+    import tempfile
+
+    from hd_yolo_tpu_torch.data.dataset import DataLoader, DetectionDataset, collate_padded
+    from hd_yolo_tpu_torch.data.device_augment import (apply_augment, draw_augment,
+                                                       make_device_augment, upload_draws)
+    from hd_yolo_tpu_torch.engines import train as train_mod
+    from hd_yolo_tpu_torch.engines.optim import build_optimizer
+    from hd_yolo_tpu_torch.engines.train_step import TrainState, make_train_step, to_device
+    from hd_yolo_tpu_torch.models.builder import parse_model_cfg
+    from hd_yolo_tpu_torch.models.yolo import Model
+
+    torch.cuda.empty_cache()
+    info = {}
+    hyp = train_mod.scale_task_hyp(load_cfg("hyp-nuclei"),
+                                   parse_model_cfg("yolov5l6-mask", "hyp-nuclei"), 640)
+    with tempfile.TemporaryDirectory() as tmp:
+        data = make_train_set(tmp)
+        csv = os.path.join(tmp, "index.csv")
+        raw_ds = DetectionDataset(csv, {**hyp, "img_size": 640}, train=True, max_targets=256,
+                                  host_augment=False, cache_images=True)
+        raw = collate_padded([raw_ds[i] for i in range(16)])
+        batch, batch_cpu = to_device(raw, "cuda"), to_device(raw, "cpu")
+
+        # the card against the CPU on the same draws
+        info["card_vs_cpu"] = {}
+        for seed, (name, k, h) in enumerate((
+                ("k_mosaic 2", 2, hyp), ("k_mosaic 1", 1, hyp),
+                ("k_mosaic 2 + mixup 0.5 + photometric 1.0", 2,
+                 {**hyp, "mixup": 0.5, "photometric": 1.0}))):
+            draws = draw_augment(np.random.default_rng(seed), 16, 640, h, k)
+            got = apply_augment(batch, upload_draws(draws, "cuda"))
+            want = apply_augment(batch_cpu, upload_draws(draws, "cpu"))
+            need(got["image"].shape == (16, 640, 640, 3)
+                 and got["targets"]["detSC"]["masks"].shape == (16, 256, 28, 28),
+                 f"device recipe {name}: shapes {got['image'].shape}")
+            info["card_vs_cpu"][name] = compare_recipe(name, got, want, 640)
+        del got, want, batch_cpu
+
+        # the recipe's cost alone: host draws, one upload, the recipe on the card
+        aug = make_device_augment(hyp, k_mosaic=2)
+        rng = np.random.default_rng(0)
+        recipe = lambda: aug(batch, aug.draw(rng, 16, 640))                  # noqa: E731
+        launches = device_launches(recipe)
+        info["recipe"] = {"ms": cuda_ms(recipe, 20), "device_ms": device_ms(recipe),
+                          "host_ms": host_us(recipe, 20) / 1e3,
+                          "device_launches": sum(launches.values())}
+        log(f"  recipe alone (k_mosaic 2, batch 16 x 640): {info['recipe']}")
+        info["recipe"]["profile"] = profile_step(recipe)
+
+        # the micro-step with the recipe inside next to phase 14's step on a
+        # host-augmented batch, in turns on one state
+        model = Model.from_cfg("yolov5l6-mask", hyp, dtype=torch.bfloat16, mask_rois=64)
+        model.init_weights(torch.Generator().manual_seed(0))
+        model.cuda()
+        state = TrainState.create(model, build_optimizer(model, hyp, 2, 4, accumulate=4))
+        host_ds = DetectionDataset(csv, {**hyp, "img_size": 640}, train=True, max_targets=256,
+                                   seed=1)
+        host_batch = to_device(next(iter(DataLoader(host_ds, 16, workers=1))), "cuda")
+        step_host, step_aug = make_train_step(), make_train_step(augment_fn=aug)
+        turns = step_turns({"host_augmented": lambda: step_host(state, host_batch),
+                            "device_recipe": lambda: step_aug(state, batch)}, iters)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        _, m = step_aug(state, batch)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        need(launches["roi_align"] == 1 and launches["roi_align_bwd"] == 1
+             and bool(torch.isfinite(m["loss"])),
+             f"a micro-step with the recipe: launches {launches}, loss {float(m['loss'])}")
+        for k, v in turns.items():
+            v["img_per_s"] = 16e3 / v["median_ms"]
+        info["step"] = turns
+        log(f"  micro-step in turns (batch 16 x 640, bf16, masks): {turns}; launches of the "
+            f"step with the recipe {launches}")
+        info["step"]["device_recipe"].update(profile_step(lambda: step_aug(state, batch)))
+        del model, state, step_host, step_aug, host_batch
+        torch.cuda.empty_cache()
+
+        # the CLI with the set resident on the card, and the host loader's
+        if host_cli is None:
+            host_cli = phase_train_cli(data, os.path.join(tmp, "run_host"))
+        info["cli_cache_device"] = phase_train_cli(data, os.path.join(tmp, "run_resident"),
+                                                   ["--cache-device"])
+        up = info["cli_cache_device"]["resident_upload"]
+        need(up["images"] == 64, f"the resident set holds {up['images']} images, not 64")
+        info["cli_host_img_per_s_by_epoch"] = host_cli["img_per_s_by_epoch"]
+        log(f"  CLI img/s by epoch: --cache-device "
+            f"{[round(v, 2) for v in info['cli_cache_device']['img_per_s_by_epoch']]} (upload "
+            f"{up['mb']:.1f} MB in {up['s']:.2f} s) | host loader "
+            f"{[round(v, 2) for v in host_cli['img_per_s_by_epoch']]}")
+        torch.cuda.empty_cache()
+
+        # --batch-size -1 on the card
+        opt = train_mod.argument_parser().parse_args(["--data", data, *TRAIN_CLI,
+                                                      "--batch-size", "-1"])
+        model = Model.from_cfg("yolov5l6-mask", hyp, dtype=torch.bfloat16, mask_rois=64)
+        model.init_weights(torch.Generator().manual_seed(0))
+        model.cuda()
+        fit = {}
+        b = train_mod.autobatch_size(model, hyp, opt, torch.device("cuda"), fit)
+        need(b >= 16 and fit["per_image"] > 0,
+             f"autobatch picked {b} (fit {fit}) where batch 16 runs")
+        info["autobatch"] = {"batch": b, "mib_per_image": fit["per_image"] / 2 ** 20,
+                             "base_gib": fit["base"] / 2 ** 30, "limit_gib": fit["limit"] / 2 ** 30}
+        log(f"  --batch-size -1: autobatch picks {b} ({info['autobatch']})")
+        del model
+    torch.cuda.empty_cache()
+    return launches, info
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3216,8 +3454,9 @@ def main(argv=None) -> int:
                          "saved in PATH (captured first where it does not exist) and stop")
     args = ap.parse_args(argv)
     only = {k for k in args.only.split(",") if k}
-    if only - set(TPU_KERNEL):
-        ap.error(f"unknown kernels {sorted(only - set(TPU_KERNEL))}; choose from {list(TPU_KERNEL)}")
+    if only - set(TPU_KERNEL) - {"device_augment"}:
+        ap.error(f"unknown kernels {sorted(only - set(TPU_KERNEL))}; choose from "
+                 f"{list(TPU_KERNEL)} or device_augment")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
         return 2
@@ -3273,6 +3512,9 @@ def main(argv=None) -> int:
         phase_hnet_train(10)
         log("[15b] hnet training reference: the small hnet in f32, the card against the CPU")
         phase_hnet_train_reference()
+    if "device_augment" in only:
+        log("[16] device augmentation: yolov5l6-mask, batch 16 x 640, bf16, masks, raw mode")
+        log("  " + json.dumps({"device_augment": phase_device_augment(10)[1]}))
     if only:
         log(f"  --only {','.join(sorted(only))}: the other phases and the result lines skipped")
         return 0
@@ -3315,11 +3557,15 @@ def main(argv=None) -> int:
     log("[15b] hnet training reference: the small hnet in f32, the card against the CPU")
     phase_hnet_train_reference()
     log("  " + json.dumps({"hnet_train": hnet_train_info}))
+    log("[16] device augmentation: yolov5l6-mask, batch 16 x 640, bf16, masks, raw mode")
+    aug_launches, aug_info = phase_device_augment(10, train_info["cli"])
+    log("  " + json.dumps({"device_augment": aug_info}))
 
     paths = {"flagship": launches, "defaults": default_launches, "hnet": hnet_launches,
              "lab": lab_launches, "slide": slide_launches, "val": val_launches,
              "loader": loader_launches, "export": export_launches, "serving": serving_launches,
-             "train": train_launches, "hnet_train": hnet_train_launches}
+             "train": train_launches, "hnet_train": hnet_train_launches,
+             "device_augment": aug_launches}
     main_path = {k: "flagship" for k in FLAGSHIP_KERNELS}
     main_path.update(roi_align_single="hnet", stem_k108="lab", stem_dot108="lab", stem="lab",
                      roi_align_bwd="train", roi_align_single_bwd="hnet_train")

@@ -9,7 +9,9 @@ that factor and center padded / cropped).  A training sample is a k x k
 mosaic of the image and random partners, each tile through the host
 augmentation chain (``data/augment.py``), cropped at random to
 ``img_size``, optionally mixed up with a second mosaic (``hyp['mixup']``);
-``host_augment=False`` serves the resized tile with no augmentation instead.
+``host_augment=False`` serves the resized tile with no augmentation instead
+(the raw mode the device recipe, ``data/device_augment.py``, takes; with
+``cache_images`` the padded raw sample itself is cached).
 Every task's targets are padded to ``max_targets`` under a validity mask:
 normalized xyxy boxes, labels and 28x28 in-box masks.  Batches are plain
 stacked numpy arrays; images stay uint8 and the model divides by 255 on the
@@ -74,6 +76,7 @@ class DetectionDataset:
         self.host_augment = bool(host_augment)
         self.rng = AugRng(seed)
         self._img_cache: Optional[Dict[int, np.ndarray]] = {} if cache_images else None
+        self._sample_cache: Dict[int, Dict[str, object]] = {}
 
         self.root = root or "./"
         if isinstance(data, str):
@@ -243,8 +246,14 @@ class DetectionDataset:
 
     def _raw_sample(self, idx: int) -> Dict[str, object]:
         """A training sample with no augmentation: the resized tile and its
-        padded targets, with no small-object filter."""
-        return self._to_padded(*self._fixed_tile(idx), small_filter=False)
+        padded targets, with no small-object filter (the device recipe
+        applies it after its warp); cached whole with ``cache_images``."""
+        sample = self._sample_cache.get(idx)
+        if sample is None:
+            sample = self._to_padded(*self._fixed_tile(idx), small_filter=False)
+            if self._img_cache is not None:
+                self._sample_cache[idx] = sample
+        return sample
 
     def _train_sample(self, idx: int):
         """A k x k mosaic of ``idx`` and k²−1 random partners, each tile
@@ -331,7 +340,8 @@ def _merge_anns(a: Ann, b: Ann) -> Ann:
 
 
 def collate_padded(samples: Sequence[Dict[str, object]]) -> Dict[str, object]:
-    """Stack padded samples into one batch of the same schema."""
+    """Stack padded samples into one batch of the same schema (also the
+    whole raw-mode set at once, for a device-resident upload)."""
     batch = {"image": np.stack([s["image"] for s in samples])}
     tasks = samples[0]["targets"].keys()
     batch["targets"] = {

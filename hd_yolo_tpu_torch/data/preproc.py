@@ -1,5 +1,6 @@
 """Batched preprocessing (port of ``hd_yolo_tpu/data/preproc.py``: the
-inference part).  NHWC batches, on whatever device they lie on."""
+inference part and the HSV jitter of the device recipe).  NHWC batches, on
+whatever device they lie on."""
 
 from __future__ import annotations
 
@@ -60,3 +61,49 @@ def model_input(images, size: Optional[int], device) -> Tensor:
     y = F.interpolate(x.permute(0, 3, 1, 2), size=(size, size), mode="bilinear",
                       align_corners=False, antialias=size < H or size < W)
     return y.permute(0, 2, 3, 1).contiguous()
+
+
+def _rgb2hsv(x: Tensor) -> Tensor:
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    mx = x.amax(-1)
+    mn = x.amin(-1)
+    df = mx - mn
+    dfs = torch.where(df == 0, 1.0, df)
+    h = torch.where(mx == r, torch.remainder((g - b) / dfs, 6.0),
+                    torch.where(mx == g, (b - r) / dfs + 2.0, (r - g) / dfs + 4.0))
+    h = torch.where(df == 0, 0.0, h) / 6.0
+    s = torch.where(mx == 0, 0.0, df / torch.where(mx == 0, 1.0, mx))
+    return torch.stack([h, s, mx], -1)
+
+
+def _hsv2rgb(x: Tensor) -> Tensor:
+    h, s, v = x[..., 0] * 6.0, x[..., 1], x[..., 2]
+    i = torch.floor(h)
+    f = h - i
+    p = v * (1 - s)
+    q = v * (1 - s * f)
+    t = v * (1 - s * (1 - f))
+    i = torch.remainder(i.to(torch.int32), 6)
+
+    def pick(c0, c1, c2, c3, c4, c5):
+        return torch.where(i == 0, c0, torch.where(i == 1, c1, torch.where(
+            i == 2, c2, torch.where(i == 3, c3, torch.where(i == 4, c4, c5)))))
+
+    r = pick(v, q, p, p, t, v)
+    g = pick(t, v, v, q, p, p)
+    b = pick(p, p, t, v, v, q)
+    return torch.stack([r, g, b], -1)
+
+
+def hsv_jitter(images: Tensor, rh: Tensor, rs: Tensor, rv: Tensor) -> Tensor:
+    """Per-image HSV gains on a (B, H, W, 3) float batch in [0, 1]: hue
+    shifted by ``rh`` (mod 1), saturation and value scaled by ``rs`` and
+    ``rv`` and clipped.  The (B,) gains are drawn by the caller (JAX's
+    ``hsv_jitter`` draws them from its key: rh in ±h_gain, rs and rv in
+    1 ± their gains)."""
+    hsv = _rgb2hsv(images.clamp(0.0, 1.0))
+    rh, rs, rv = (g.to(images.dtype)[:, None, None] for g in (rh, rs, rv))
+    h = torch.remainder(hsv[..., 0] + rh, 1.0)      # a floor modulo: rh may be negative
+    s = (hsv[..., 1] * rs).clamp(0.0, 1.0)
+    v = (hsv[..., 2] * rv).clamp(0.0, 1.0)
+    return _hsv2rgb(torch.stack([h, s, v], -1))

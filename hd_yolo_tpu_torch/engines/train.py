@@ -16,11 +16,19 @@ with the live BatchNorm statistics.  Checkpoints: ``last`` / ``best``
 (``.pt`` + ``.json``, the whole train state) and ``final.pt`` (the EMA
 inference weights).
 
-Flags whose modules are not ported raise ``NotImplementedError`` naming
-their ROADMAP item: ``--device-augment`` / ``--cache-device`` (A.4a),
-``--multi-scale``, ``--batch-size -1``, ``--autoanchor``, ``--evolve``
-(A.4c), ``--plots`` (A.4d), and a reference training ``.pt`` as
-``--weights`` (A.4f).
+``--device-augment`` runs the augmentation recipe on the card inside the
+step (``data/device_augment.py``); the loader serves raw tiles.
+``--cache-device`` uploads the whole raw-mode set to the card once (it
+turns on ``--cache-images`` and ``--device-augment``) and each step gathers
+its rows there.  ``--multi-scale`` resizes each streamed batch to a size
+drawn from 0.5-1.5x ``--img-size`` (dropped under ``--cache-device``).
+``--batch-size -1`` fits the batch to the card's memory
+(``engines/autobatch.py``), ``--autoanchor`` reports the anchors' fit
+(``engines/autoanchor.py``) and ``--evolve N`` evolves the hyperparameters
+over N trainings (``engines/evolve.py``).
+
+Still not ported, raising ``NotImplementedError`` naming ROADMAP A.5:
+``--plots`` and a reference training ``.pt`` as ``--weights``.
 """
 
 from __future__ import annotations
@@ -35,7 +43,8 @@ import torch
 
 from .. import LOGGER
 from ..config import load_cfg, load_dataset_info, save_cfg
-from ..data.dataset import DataLoader, DetectionDataset
+from ..data.dataset import DataLoader, DetectionDataset, collate_padded
+from ..data.preproc import model_input
 from ..detector import resolve_device
 from ..models.builder import parse_model_cfg
 from ..models.yolo import Model
@@ -88,19 +97,36 @@ class EarlyStopping:
 
 def _deferred(opt) -> None:
     """Raise for the flags whose modules are not ported yet."""
-    waits = [("device_augment", "--device-augment (on-device augmentation)", "A.4a"),
-             ("cache_device", "--cache-device (a device-resident dataset)", "A.4a"),
-             ("multi_scale", "--multi-scale", "A.4c"),
-             ("autoanchor", "--autoanchor", "A.4c"),
-             ("evolve", "--evolve", "A.4c"),
-             ("plots", "--plots (training plots need matplotlib)", "A.4d")]
-    for attr, flag, item in waits:
-        if getattr(opt, attr, False):
-            raise NotImplementedError(f"{flag} is not ported to hd_yolo_tpu_torch yet "
-                                      f"(ROADMAP {item})")
-    if opt.batch_size == -1:
-        raise NotImplementedError("--batch-size -1 (autobatch) is not ported to "
-                                  "hd_yolo_tpu_torch yet (ROADMAP A.4c)")
+    if getattr(opt, "plots", False):
+        raise NotImplementedError("--plots (training plots need matplotlib) is not ported to "
+                                  "hd_yolo_tpu_torch yet (ROADMAP A.5)")
+
+
+def autobatch_size(model: Model, hyp: dict, opt, device, info: Optional[Dict] = None) -> int:
+    """``--batch-size -1``: the batch that fills 0.8 of the card's memory,
+    fitted over the real train step (a throwaway optimizer and EMA) on
+    all-zero batches of 1, 2 and 4 images; the model's parameters and
+    buffers are restored after.  Off the card: ``--nominal-batch-size``."""
+    from .autobatch import autobatch
+
+    T = opt.max_targets
+
+    def probe(b):
+        z = lambda *shape, dtype=torch.float32: torch.zeros(shape, dtype=dtype,  # noqa: E731
+                                                            device=device)
+        batch = {"image": z(b, opt.img_size, opt.img_size, 3),
+                 "targets": {h.tag: {"boxes": z(b, T, 4), "labels": z(b, T, dtype=torch.int64),
+                                     "masks": z(b, T, 28, 28), "valid": z(b, T, dtype=torch.bool)}
+                             for h in model.spec.headers}}
+        state = TrainState.create(model, build_optimizer(model, hyp, 1, 1))
+        make_train_step(mask_weight=1.0 if opt.masks else 0.0)(state, batch)
+        torch.cuda.synchronize(device)
+
+    saved = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    try:
+        return autobatch(probe, fallback=opt.nominal_batch_size, device=device, info=info)
+    finally:
+        model.load_state_dict(saved)
 
 
 def load_pretrained(model: Model, path: str) -> int:
@@ -117,7 +143,7 @@ def load_pretrained(model: Model, path: str) -> int:
         if not isinstance(sd, dict) or not all(torch.is_tensor(v) for v in sd.values()):
             raise NotImplementedError(
                 f"{path} is not a state_dict of this package; importing reference training "
-                f"checkpoints (utils/import_torch.py) is not ported yet (ROADMAP A.4f)")
+                f"checkpoints (utils/import_torch.py) is not ported yet (ROADMAP A.5)")
     else:
         import pickle
 
@@ -173,14 +199,31 @@ def train(opt, callbacks: Optional[Callbacks] = None) -> Dict[str, float]:
                     f"({load_pretrained(model, opt.weights)} tensors)")
     model.to(device)
     LOGGER.info(f"model params: {sum(p.numel() for p in model.parameters()):,} on {device}")
+    if opt.batch_size == -1:
+        opt.batch_size = autobatch_size(model, hyp, opt, device)
+        LOGGER.info(f"autobatch: batch_size={opt.batch_size}")
 
+    cache_device = bool(opt.cache_device)
+    if cache_device:                 # the resident set is served raw; the step augments
+        opt.cache_images = opt.device_augment = True
+    dev_aug = bool(opt.device_augment)
     train_ds = DetectionDataset(
         data_info["train"], {**hyp, "img_size": opt.img_size, "patch_size": opt.patch_size,
                              "k_mosaic": opt.k_mosaic, "keep_res": opt.keep_res},
         train=True, max_targets=opt.max_targets, seed=opt.seed,
-        cache_images=opt.cache_images)
+        cache_images=opt.cache_images, host_augment=not dev_aug)
     val_ds = DetectionDataset(data_info["val"], {"img_size": opt.img_size}, train=False,
                               max_targets=opt.max_targets, cache_images=opt.cache_images)
+    if opt.autoanchor:
+        from .autoanchor import check_anchors, dataset_wh
+
+        wh = dataset_wh(val_ds, img_size=opt.img_size, max_images=64)
+        if len(wh):
+            for h in spec0.headers:
+                if any(a for row in h.anchors for a in row):
+                    check_anchors(wh, h.anchors, h.strides,
+                                  anchor_t=float(dict(h.loss_hyp).get("anchor_t", 4.0)),
+                                  imgsz=opt.img_size)
     train_dl = DataLoader(train_ds, opt.batch_size, workers=opt.workers, infinite=True,
                           shuffle=True, seed=opt.seed)
     val_dl = DataLoader(val_ds, opt.batch_size, workers=opt.workers, drop_last=False)
@@ -198,9 +241,39 @@ def train(opt, callbacks: Optional[Callbacks] = None) -> Dict[str, float]:
         start_epoch = int(meta.get("epoch", -1)) + 1
         best_fitness = float(meta.get("best_fitness", 0.0))
         LOGGER.info(f"resumed from epoch {start_epoch}")
-    step_fn = make_train_step(mask_weight=1.0 if opt.masks else 0.0)
+    augment_fn = None
+    if dev_aug:
+        from ..data.device_augment import make_device_augment
+
+        augment_fn = make_device_augment(hyp, k_mosaic=opt.k_mosaic)
+        LOGGER.info("device augmentation: the recipe runs inside the train step")
+    step_fn = make_train_step(mask_weight=1.0 if opt.masks else 0.0, seed=opt.seed,
+                              augment_fn=augment_fn, resident_data=cache_device)
+    resident, upload = None, {}
+    if cache_device:
+        # one upload of the first n_keep raw samples; each step gathers its rows
+        n_keep = (len(train_ds) // opt.batch_size) * opt.batch_size
+        t0 = time.time()
+        host_tree = collate_padded([train_ds[i] for i in range(n_keep)])
+        resident = to_device(host_tree, device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        n_bytes = sum(v.nbytes for v in _leaves(host_tree))
+        steps_per_epoch = max(n_keep // opt.batch_size, 1)
+        upload = {"images": n_keep, "mb": n_bytes / 1e6, "s": time.time() - t0}
+        LOGGER.info(f"device-resident dataset: {n_keep} images / {upload['mb']:.0f} MB uploaded "
+                    f"in {upload['s']:.1f}s; {steps_per_epoch} steps/epoch")
     stopper = EarlyStopping(opt.patience)
     meta_info = data_info.get("meta_info", {})
+
+    scale_sizes = []
+    if opt.multi_scale and cache_device:
+        LOGGER.warning("--multi-scale resizes streamed batches; ignored with --cache-device "
+                       "(the device recipe already jitters the scale)")
+        opt.multi_scale = False
+    if opt.multi_scale:
+        scale_sizes = multi_scale_sizes(opt.img_size, gs)
+        LOGGER.info(f"multi-scale buckets: {scale_sizes}")
 
     def validate():
         with swap_ema(state):
@@ -210,7 +283,7 @@ def train(opt, callbacks: Optional[Callbacks] = None) -> Dict[str, float]:
                                   input_size=opt.img_size, verbose=opt.verbose)
 
     callbacks.run("on_train_start")
-    train_iter = iter(train_dl)
+    train_iter = None if cache_device else iter(train_dl)
     final_stats: Dict[str, float] = {}
     if opt.pretrain_val:
         fit0, _, _ = validate()
@@ -221,13 +294,26 @@ def train(opt, callbacks: Optional[Callbacks] = None) -> Dict[str, float]:
         t_epoch = time.time()
         mloss: Dict[str, float] = {}
         step_metrics = []              # 0-d device tensors: one host fetch an epoch
-        for _ in range(steps_per_epoch):
+        if cache_device:
+            epoch_perm = np.random.default_rng(opt.seed + epoch).permutation(n_keep)
+        for i in range(steps_per_epoch):
+            if cache_device:
+                idx = epoch_perm[i * opt.batch_size:(i + 1) * opt.batch_size]
+                state, metrics = step_fn(state, resident, idx)
+                step_metrics.append(metrics)
+                callbacks.run("on_train_batch_end")
+                continue
             if opt.bench_loop and bench_batch is not None:
                 batch = bench_batch    # --bench-loop: the loader taken out
             else:
                 batch = to_device(next(train_iter), device)
                 if opt.bench_loop:
                     bench_batch = batch
+            if scale_sizes:            # seeded by the global step
+                sz = scale_sizes[np.random.default_rng(opt.seed + epoch * steps_per_epoch + i)
+                                 .integers(len(scale_sizes))]
+                if sz != batch["image"].shape[1]:   # the targets are normalized
+                    batch = {**batch, "image": model_input(batch["image"], sz, device)}
             state, metrics = step_fn(state, batch)
             step_metrics.append(metrics)
             callbacks.run("on_train_batch_end")
@@ -269,12 +355,28 @@ def train(opt, callbacks: Optional[Callbacks] = None) -> Dict[str, float]:
         if do_val and stopper(epoch, fit):
             break
 
-    train_iter.close()             # stops the loader's producer thread
+    if train_iter is not None:
+        train_iter.close()         # stops the loader's producer thread
     wait_for_saves()
     with swap_ema(state):
         save_inference(os.path.join(save_dir, "final.pt"), model)
     callbacks.run("on_train_end")
-    return {"best_fitness": best_fitness, "save_dir": save_dir, **final_stats}
+    out = {"best_fitness": best_fitness, "save_dir": save_dir, **final_stats}
+    if upload:
+        out["resident_upload"] = upload
+    return out
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (np.asarray(v),))
+
+
+def multi_scale_sizes(img_size: int, gs: int) -> list:
+    """``--multi-scale``'s image sizes: multiples of the grid ``gs`` over
+    0.5-1.5x ``img_size``."""
+    lo, hi = int(img_size * 0.5), int(img_size * 1.5)
+    return sorted({max(gs, (s // gs) * gs) for s in range(lo, hi + 1, gs)})
 
 
 def argument_parser() -> argparse.ArgumentParser:
@@ -287,9 +389,9 @@ def argument_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--epochs", type=int, default=100)
     p.add_argument("--batch-size", dest="batch_size", type=int, default=32,
-                   help="batch size; -1 = autobatch (not ported)")
+                   help="batch size; -1 = fit it to the card's memory (autobatch)")
     p.add_argument("--multi-scale", dest="multi_scale", action="store_true",
-                   help="bucketized 0.5-1.5x image-size jitter per step (not ported)")
+                   help="bucketized 0.5-1.5x image-size jitter per step")
     p.add_argument("--pretrain-val", dest="pretrain_val", action="store_true",
                    help="validate the EMA before epoch 0")
     p.add_argument("--nominal-batch-size", dest="nominal_batch_size", type=int, default=64)
@@ -311,11 +413,13 @@ def argument_parser() -> argparse.ArgumentParser:
                    help="validate every N epochs (the final epoch always validates)")
     p.add_argument("--workers", type=int, default=8)
     p.add_argument("--device-augment", dest="device_augment", action="store_true",
-                   help="the augmentation recipe on the device (not ported)")
+                   help="run the augmentation recipe on the device inside the train step; "
+                        "the loader serves raw tiles")
     p.add_argument("--cache-images", dest="cache_images", action="store_true",
                    help="keep decoded images in RAM")
     p.add_argument("--cache-device", dest="cache_device", action="store_true",
-                   help="a device-resident dataset (not ported)")
+                   help="upload the raw train set to the device once and gather each batch "
+                        "there by index (implies --cache-images and --device-augment)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--bench-loop", dest="bench_loop", action="store_true",
                    help="reuse the first (device-resident) batch every step: the step's "
@@ -329,16 +433,47 @@ def argument_parser() -> argparse.ArgumentParser:
     p.add_argument("--optimizer", choices=["sgd", "adam", "adamw"], default="sgd")
     p.add_argument("--verbose", action="store_true")
     p.add_argument("--plots", action="store_true", help="training plots (not ported)")
-    p.add_argument("--autoanchor", action="store_true", help="anchor fit report (not ported)")
+    p.add_argument("--autoanchor", action="store_true",
+                   help="report the anchors' best possible recall on the val set")
     p.add_argument("--freeze", nargs="*", default=[],
                    help="parameter-name substrings to freeze, e.g. backbone.0. headers.")
     p.add_argument("--evolve", type=int, default=0, metavar="GENERATIONS",
-                   help="hyperparameter evolution (not ported)")
+                   help="GA hyperparameter evolution: one training a generation")
     return p
 
 
+def evolve_hyp(opt) -> Dict[str, float]:
+    """``--evolve N``: N trainings, each on a mutation of the best
+    hyperparameters so far (the first on ``--hyp`` itself) under
+    ``<save-dir>/gen_<i>``; ``<save-dir>/evolve/evolve.csv`` a row a
+    generation and the best in ``<save-dir>/hyp_evolved.yaml``."""
+    import copy
+
+    from .evolve import evolve
+
+    base_hyp = load_cfg(opt.hyp)
+
+    def train_fn(hyp_flat):
+        o = copy.deepcopy(opt)
+        o.evolve = 0
+        o.hyp = {**base_hyp, **{k: v for k, v in hyp_flat.items() if not isinstance(v, dict)}}
+        n = len(os.listdir(opt.save_dir)) if os.path.isdir(opt.save_dir) else 0
+        o.save_dir = os.path.join(opt.save_dir, f"gen_{n}")
+        return train(o).get("best_fitness", 0.0)
+
+    flat0 = {k: v for k, v in base_hyp.items() if isinstance(v, (int, float))}
+    best_hyp, best_fit = evolve(train_fn, flat0, generations=opt.evolve,
+                                save_dir=os.path.join(opt.save_dir, "evolve"))
+    save_cfg({**base_hyp, **best_hyp}, os.path.join(opt.save_dir, "hyp_evolved.yaml"))
+    LOGGER.info(f"evolution done: best fitness {best_fit:.4f}")
+    return best_hyp
+
+
 def main(argv=None):
-    return train(argument_parser().parse_args(argv))
+    opt = argument_parser().parse_args(argv)
+    if opt.evolve:
+        return evolve_hyp(opt)
+    return train(opt)
 
 
 if __name__ == "__main__":

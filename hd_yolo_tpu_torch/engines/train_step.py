@@ -12,6 +12,13 @@ card.  A model with drop path or dropout (``model.stochastic``: an
 from ``(seed, step)``, as JAX folds the step into its dropout key; the step
 reads the state's host copy of the count for that.
 
+With ``augment_fn`` (``--device-augment``) the training recipe runs on
+the step's device before the losses (``data/device_augment.py``), on
+draws made on the host from the generator of ``(seed, step)``.  With
+``resident_data`` (``--cache-device``) the step takes the whole raw-mode
+set resident on the device and a (B,) row index, and gathers its batch
+there: only the index and the draws go up each step.
+
 The step takes the flagship ``Model`` and ``hnet.HNet`` alike: both have
 ``losses(images, targets, compute_masks)`` and ``total_loss(losses,
 mask_weight)``.  The metrics follow JAX's rule: a task's ``loss_items``
@@ -27,6 +34,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..data.device_augment import gather_rows
 from .optim import EMA, Optimizer
 
 Tensor = torch.Tensor
@@ -77,6 +85,11 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(state)
 
 
+def augment_rng(seed: int, step: int) -> np.random.Generator:
+    """The host generator of micro-step ``step``'s augmentation draws."""
+    return np.random.default_rng(np.random.SeedSequence([seed, step, 0x5EED]))
+
+
 def loss_items(losses: Dict) -> Dict[str, Tensor]:
     """``'<task>/<item>'`` → detached 0-d loss: each task's ``loss_items``
     where it has them, else its flat 0-d entries."""
@@ -89,16 +102,25 @@ def loss_items(losses: Dict) -> Dict[str, Tensor]:
     return items
 
 
-def make_train_step(mask_weight: float = 1.0, ema_decay: float = 0.9999, seed: int = 0):
+def make_train_step(mask_weight: float = 1.0, ema_decay: float = 0.9999, seed: int = 0,
+                    augment_fn=None, resident_data: bool = False):
     """``step(state, batch) → (state, metrics)``.  ``batch``: {'image': (B,
     H, W, 3) uint8 or float, 'targets': {task: {...}}} as tensors on the
     model's device (yolo: boxes, labels, masks, valid[, active]; hnet: each
     header's targets, ``loss_items``' rule above).  Metrics: the loss items
-    and the total ``'loss'``."""
+    and the total ``'loss'``.
+
+    ``augment_fn``: a ``data/device_augment.DeviceAugment``, run on the raw
+    batch with the micro-step's draws (``augment_rng``).  ``resident_data``:
+    the signature becomes ``step(state, data, idx)``, ``data`` the whole set
+    as one batch tree on the device, ``idx`` the (B,) rows of this step."""
 
     def step(state: TrainState, batch: Dict) -> tuple:
         model, opt = state.model, state.opt
         model.train()
+        if augment_fn is not None:
+            B, S = batch["image"].shape[:2]
+            batch = augment_fn(batch, augment_fn.draw(augment_rng(seed, state.count), B, S))
         kw = {}
         if getattr(model, "stochastic", False):
             kw["generator"] = step_generator(seed, state.count, opt.params[0].device)
@@ -113,7 +135,17 @@ def make_train_step(mask_weight: float = 1.0, ema_decay: float = 0.9999, seed: i
         metrics["loss"] = total.detach()
         return state, metrics
 
-    return step
+    if not resident_data:
+        return step
+
+    def resident_step(state: TrainState, data: Dict, idx) -> tuple:
+        dev = data["image"].device
+        idx = torch.as_tensor(idx, dtype=torch.int64)
+        if idx.device != dev:
+            idx = (idx.pin_memory() if dev.type == "cuda" else idx).to(dev, non_blocking=True)
+        return step(state, gather_rows(data, idx))
+
+    return resident_step
 
 
 class swap_ema:

@@ -60,6 +60,11 @@ class Model(nn.Module):
                  mask_window: Optional[int] = None, mask_budget: Optional[int] = None,
                  mask_rois: int = 64):
         super().__init__()
+        for h in spec.headers:
+            if h.kind == "anchor_free":
+                raise NotImplementedError(
+                    f"header {h.tag!r} is anchor-free (AFDetect): its head is not ported to "
+                    f"hd_yolo_tpu_torch yet (ROADMAP A.4)")
         self.spec = spec
         self.dtype = dtype
         ch: Dict[int, int] = {}

@@ -79,3 +79,14 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     for f in files:
         with open(f) as fh:
             assert not pat.search(fh.read()), f
+
+
+def test_anchor_free_config_raises_until_its_head_is_ported():
+    """An ``AFDetect`` header must not be built as an anchor-based
+    ``Detect``: the port raises, naming the ROADMAP item of the head."""
+    from hd_yolo_tpu_torch.models.yolo import Model
+
+    cfg = os.path.join(REPO, "hd_yolo_tpu", "configs", "yolov6s-af.yaml")
+    assert [h.kind for h in parse_model_cfg(cfg, "hyp-nuclei").headers] == ["anchor_free"]
+    with pytest.raises(NotImplementedError, match="A.4"):
+        Model.from_cfg(cfg, "hyp-nuclei")

@@ -8,7 +8,8 @@ Run from the repo root on a machine with one NVIDIA GPU:
 (``--only``: build, run only the named kernels' phase-3 checks and timings
 — for ``roi_align_bwd`` also phases 14 and 14b, for ``roi_align_single_bwd``
 also phases 15 and 15b; ``device_augment`` runs phase 16 with its own
-host-loader CLI — and stop without the result lines.
+host-loader CLI, ``multihead``, ``anchor_free`` and ``ensemble`` phases 17,
+18 and 19 — and stop without the result lines.
 ``--hnet-loss-trials N``: phase 15's loss check N times, from the fresh
 model and 15 micro-steps in; ``--step-calls PATH``: both backwards timed at
 hnet training calls saved in PATH, captured first where it is absent, so
@@ -181,6 +182,36 @@ Phases (any failure raises and the script exits non-zero):
      the upload's MB and seconds, img/s of each epoch's steps beside phase
      14's host-loader CLI); ``--batch-size -1``'s batch and fitted MiB an
      image.
+ 17. multihead: ``yolov5l6-multihead`` (``det`` nc 7 and ``detSC`` nc 4 on
+     one P3-P6 trunk, both with masks) at full width, bf16, seeded weights,
+     objectness calibrated as in phases 4 and 4b, batch 16 x 640 uint8:
+     ``Detector.tiles`` on the packed branch (``stem_tc`` 1, NMS, ROI-align
+     and mask head 2 each, one active count a header) and at
+     ``Detector()``'s defaults, every NMS, canvas ROI-align and mask-head
+     call of both headers held against its plain version on the path's own
+     inputs (NMS and ROI-align bit for bit, the mask head as phase 5 holds
+     masks), step median / min / max of 10 and a profiled step,
+     ``Detector(..., task=)`` filtering; then training at batch 16 with
+     both mask losses (``det`` on half the images, ``detSC`` on the other
+     half): the loss over 8 updates from the fresh model as phase 14's, every
+     backward call shadowed, then 10 timed micro-steps (launches: ROI-align
+     and its backward 2 each), img/s, peak memory, a profiled step;
+ 18. anchor-free: ``yolov6s-af`` as published (depth 0.33, width 0.5),
+     bf16, batch 16 x 640, seeded weights, objectness calibrated to 1% of
+     each level's cells: launches of one batch (``stem_tc`` 1, NMS 1), the NMS
+     call held bit for bit, ``stem_tc`` at N 32 on the path's own input
+     against ``stem_conv_plain`` and timed against its bound and cuDNN, the
+     step and a profiled step; 8 SimOTA updates from the fresh model on 16
+     tiles of up to 256 nuclei (the loss falls), 10 timed micro-steps (no
+     kernel launched), the assignment's time and device time on the step's
+     inputs; a small f32 reference (2 x 256): the card's SimOTA assignment
+     equal to the CPU's on the same inputs, loss items within 1e-3, >= 98% of
+     the CPU's detections found again;
+ 19. ensemble: ``hd_yolo_tpu_torch.Ensemble`` of the flagship at
+     ``Detector()``'s defaults and a multihead model, both merged on
+     ``detSC`` (16 x 600 rows → 300) and ``det`` (the multihead alone):
+     launches, the merge's NMS call held bit for bit against ``nms_padded``
+     at (16, 600) and timed, the merge's time and the ensemble step's.
 
 Phase 3 also holds the single-level ROI-align's backward kernel
 (``roi_align_levels_bwd``) against its plain version at its two call sites:
@@ -199,8 +230,9 @@ the slide stitch's shapes ((1, 1024) band, (1, 4096) full, IoU 0.45,
 bit-identical, timed), and the K=108 stem kernels 6 and 7 at (16, 640,
 640, 3), kernel 6 timed in turns with ``stem_tc``.
 
-The last lines are the per-kernel JSON record, the ``nvidia-smi`` line, and
-``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+The last lines are the script's wall time, the per-kernel JSON record
+(``launches_by_path`` with the paths of phases 17–19), the ``nvidia-smi``
+line, and ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -354,13 +386,15 @@ def host_us(fn, n: int = 200) -> float:
     return t * 1e6
 
 
-def device_ms(fn, n: int = 10, tries: int = 3) -> float:
+def device_ms(fn, n: int = 10, tries: int = 6) -> float:
     """Device milliseconds per call of ``fn``: the profiler's summed time of
     everything ``fn`` runs on the card, over ``n`` calls after a warm-up.
     Unlike ``ms`` and ``ms_back_to_back`` it holds no host time.  The
     profiler can lose a window's device events (a reading of 0 was seen
-    on the card's machine), so a window with no device time is taken
-    again, up to ``tries`` times."""
+    on the card's machine, once in every window of a call), so a window
+    with no device time is taken again, up to ``tries`` times; after that
+    the reading is CUDA events around ``n`` back-to-back calls (which holds
+    host time where the host is the slower side), and says so."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -375,11 +409,13 @@ def device_ms(fn, n: int = 10, tries: int = 3) -> float:
                     if e.device_type == DeviceType.CUDA)
         if total > 0:
             return total / n / 1e3
-    raise AssertionError(f"the profiler recorded no device time over {n} calls in each of "
-                         f"{tries} windows")
+    t = cuda_ms(fn, 5, reps=n)
+    log(f"  (the profiler recorded no device time in {tries} windows of {n} calls; this "
+        f"device time is CUDA events around {n} back-to-back calls: {t:.4f} ms a call)")
+    return t
 
 
-def device_launches(fn, n: int = 5, tries: int = 3) -> dict:
+def device_launches(fn, n: int = 5, tries: int = 6) -> dict:
     """Device launches of one call of ``fn`` by name: the kernel and memset
     events the profiler records on the card over ``n`` calls (copies not
     counted), divided by ``n``, after a warm-up call.  The profiler can lose a window's
@@ -3440,13 +3476,477 @@ def phase_device_augment(iters: int, host_cli=None):
     return launches, info
 
 
+# ------------------------------------------- multihead, anchor-free, ensemble
+class capture_calls:
+    """``with capture_calls((module, name), ...) as seen:`` each listed
+    function records the arguments of every call (``seen[name]``, a list of
+    (args, kwargs)) and runs as it is."""
+
+    def __init__(self, *targets):
+        self.targets = targets
+
+    def __enter__(self):
+        self.seen = {name: [] for _, name in self.targets}
+        self.orig = [(m, n, getattr(m, n)) for m, n in self.targets]
+        for m, n, fn in self.orig:
+            def spy(*a, _fn=fn, _n=n, **k):
+                self.seen[_n].append((a, k))
+                return _fn(*a, **k)
+            setattr(m, n, spy)
+        return self.seen
+
+    def __exit__(self, *exc):
+        for m, n, fn in self.orig:
+            setattr(m, n, fn)
+        return False
+
+
+PATH_CALLS = ((pallas_nms, "nms_padded_pallas"), (pallas_roi_align, "roi_align_bounded"),
+              (detect_head, "fused_mask_probs"))
+
+
+@torch.no_grad()
+def hold_path_calls(seen: dict, what: str) -> dict:
+    """Each NMS, canvas ROI-align and mask-head call a path made, on its own
+    inputs, against the plain version: NMS and the ROI-align bit for bit,
+    the mask head as phase 5 holds masks (mean |d| <= 0.01, max <= 0.1).
+    Returns the largest error of each and the calls held."""
+    res = {}
+    for (a, k) in seen.get("nms_padded_pallas", []):
+        got = pallas_nms.nms_padded_pallas(*a, **k)
+        want = nms_padded(*a, **k)
+        need(all(torch.equal(x.to(torch.int64), y.to(torch.int64)) for x, y in zip(got, want)),
+             f"{what}: nms at {tuple(a[0].shape)} disagrees with nms_padded")
+        res.setdefault("nms", []).append(tuple(a[0].shape))
+    for (a, k) in seen.get("roi_align_bounded", []):
+        check_equal(f"{what}: roi_align at {a[1].shape[0]} ROIs", pallas_roi_align.roi_align_bounded(*a),
+                    pallas_roi_align.roi_align_bounded_plain(*a))
+        res.setdefault("roi_align", []).append(int(a[1].shape[0]))
+    worst = 0.0
+    for (a, k) in seen.get("fused_mask_probs", []):
+        d = (pallas_mask_head.fused_mask_probs(*a, **k)
+             - pallas_mask_head.fused_mask_probs_plain(*a, **k)).abs()
+        need(float(d.mean()) <= 0.01 and float(d.max()) <= 0.1,
+             f"{what}: mask head at {a[1].shape[0]} ROIs: mean |d| {float(d.mean()):.4g}, max "
+             f"{float(d.max()):.4g}")
+        worst = max(worst, float(d.max()))
+        res.setdefault("mask_head", []).append(int(a[1].shape[0]))
+    if "mask_head" in res:
+        res["mask_head_max_abs_err"] = worst
+    log(f"  {what}: every kernel call held against its plain version on the path's inputs: "
+        f"{res}")
+    return res
+
+
+def timed_steps(fn, iters: int) -> dict:
+    """Median, min and max host-clock ms of ``iters`` synchronised calls of
+    ``fn`` after two warm-ups."""
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"median_ms": statistics.median(times), "min_ms": min(times), "max_ms": max(times)}
+
+
+def path_launches(fn) -> dict:
+    """The kernels' launch counts of one ``fn()``: every count set to 0 just
+    before and read just after."""
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return dict(kernels.LAUNCHES), out
+
+
+def two_task_batch(seed: int, B: int = 16, max_t: int = 64):
+    """``hnet_batch``'s tiles and nuclei as targets of both multihead tasks,
+    ``det`` on the first half of the images and ``detSC`` on the second."""
+    x, t = hnet_batch(seed, B=B, max_t=max_t)
+    d = t["det40x"]
+    first = np.arange(B) < B // 2
+    return x, {task: {**d, "valid": d["valid"] & rows[:, None]}
+               for task, rows in (("det", first), ("detSC", ~first))}
+
+
+def train_phase_state(cfg: str, seed: int = 0):
+    """``cfg`` at full width for training as the CLI builds it (hyp scaled
+    for 640 px, flax-default init from ``seed``), bf16, on the card, with
+    its optimizer (an update a micro-step) and step."""
+    from hd_yolo_tpu_torch.engines.optim import build_optimizer
+    from hd_yolo_tpu_torch.engines.train import scale_task_hyp
+    from hd_yolo_tpu_torch.engines.train_step import TrainState, make_train_step
+    from hd_yolo_tpu_torch.models.builder import parse_model_cfg
+    from hd_yolo_tpu_torch.models.yolo import Model
+
+    hyp = scale_task_hyp(load_cfg("hyp-nuclei"), parse_model_cfg(cfg, "hyp-nuclei"), 640)
+    model = Model.from_cfg(cfg, hyp, dtype=torch.bfloat16, mask_rois=64)
+    model.init_weights(torch.Generator().manual_seed(seed))
+    model.cuda()
+    return TrainState.create(model, build_optimizer(model, hyp, 2, 4)), make_train_step()
+
+
+def train_timing(step, state, batch, iters: int, masks: bool = True) -> tuple:
+    """Launches of one micro-step, then the median / min / max of ``iters``
+    timed micro-steps after 3 warm-ups, img/s, peak memory and a profiled
+    step; every loss item finite."""
+    ms = [step(state, batch)[1] for _ in range(3)]
+    launches, (_, m) = path_launches(lambda: step(state, batch))
+    ms.append(m)
+    torch.cuda.reset_peak_memory_stats()
+    t = timed_steps(lambda: ms.append(step(state, batch)[1]), iters)
+    B = batch["image"].shape[0]
+    t.update(img_per_s=B / t["median_ms"] * 1e3,
+             peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    t.update(profile_step(lambda: step(state, batch)))
+    items = {k: torch.stack([x[k] for x in ms]).float().cpu() for k in ms[0]}
+    for k, v in items.items():
+        need(bool(torch.isfinite(v).all()), f"non-finite {k} in a training step")
+    t["last_items"] = {k: float(v[-1]) for k, v in items.items()}
+    return launches, t
+
+
+def phase_multihead(iters: int):
+    """Phase 17: yolov5l6-multihead (``det`` nc 7 and ``detSC`` nc 4, both
+    with masks) at full width, bf16, batch 16 x 640, seeded weights."""
+    from hd_yolo_tpu_torch.engines.train_step import to_device
+
+    info = {}
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    x = torch.randint(0, 256, (16, 640, 640, 3), generator=gen, device="cuda", dtype=torch.uint8)
+    det = Detector("yolov5l6-multihead", "hyp-nuclei", device="cuda", seed=0, pre_nms_topk=1024,
+                   max_masks=100, mask_budget=768, mask_window=16)
+    calibrate_objectness(det, x, 0.02)
+    det.tiles(x)
+    with capture_calls(*PATH_CALLS) as seen, MaskPrefix() as prefix:
+        launches, out = path_launches(lambda: det.tiles(x))
+    log(f"  launches of one batch, packed branch, both headers: {launches}; mask slots "
+        f"computed {prefix.text()}; {prefix.check()}")
+    for k, n in (("stem_tc", 1), ("stem", 0), ("nms", 2), ("roi_align", 2), ("mask_head", 2)):
+        need(launches[k] == n, f"multihead: {k} launched {launches[k]} times, expected {n}")
+    need(set(out) == {"det", "detSC"}, f"multihead outputs {sorted(out)}")
+    for t, o in out.items():
+        need(o["masks"].shape == (16, 100, 28, 28) and o["score_vector"].shape[-1] ==
+             det.model.headers[t].nc + 1, f"multihead {t}: unexpected output shapes")
+        for k in ("boxes", "scores", "masks"):
+            need(bool(torch.isfinite(o[k].float()).all()), f"multihead {t}: non-finite {k}")
+        need(int(o["valid"].sum()) >= 16 and int(o["mask_valid"].sum()) >= 16,
+             f"multihead {t}: too few detections or masks")
+        log(f"  {t}: valid detections/tile {float(o['valid'].sum()) / 16:.2f}, masks kept "
+            f"{int(o['mask_valid'].sum())}")
+    info["held_packed"] = hold_path_calls(seen, "multihead, packed")
+    info["packed"] = timed_steps(lambda: det.tiles(x), iters)
+    log(f"  packed branch step: median {info['packed']['median_ms']:.2f} ms over {iters} "
+        f"(min {info['packed']['min_ms']:.2f}, max {info['packed']['max_ms']:.2f}); tiles/s "
+        f"{16e3 / info['packed']['median_ms']:.1f}")
+    info["packed"].update(profile_step(lambda: det.tiles(x)))
+
+    dflt = Detector("yolov5l6-multihead", "hyp-nuclei", device="cuda", seed=0)
+    dflt.model.load_state_dict(det.model.state_dict())
+    dflt.tiles(x)
+    with capture_calls(*PATH_CALLS) as seen:
+        d_launches, d_out = path_launches(lambda: dflt.tiles(x))
+    log(f"  launches of one batch at Detector()'s defaults: {d_launches}")
+    for k, n in (("stem_tc", 1), ("nms", 2), ("roi_align", 2), ("mask_head", 2)):
+        need(d_launches[k] == n, f"multihead defaults: {k} launched {d_launches[k]} times")
+    for t, o in d_out.items():
+        need(int(o["mask_valid"].sum()) >= int(out[t]["mask_valid"].sum()),
+             f"multihead defaults {t}: fewer masks than the packed branch")
+    info["held_defaults"] = hold_path_calls(seen, "multihead, defaults")
+    info["defaults"] = timed_steps(lambda: dflt.tiles(x), iters)
+    log(f"  defaults step: median {info['defaults']['median_ms']:.2f} ms (min "
+        f"{info['defaults']['min_ms']:.2f}, max {info['defaults']['max_ms']:.2f})")
+    images = [np.asarray(x[i].cpu()) for i in range(2)]
+    recs = dflt(images).records
+    for t in ("det", "detSC"):
+        only = dflt(images, task=t).records
+        need(all(set(r) == {t} for r in only), f"task={t} kept other tasks")
+        need(all(np.array_equal(a[t]["labels"], b[t]["labels"]) for a, b in zip(only, recs)),
+             f"task={t} records differ from the unfiltered call's")
+    log("  Detector(..., task=) keeps that header's records only, equal to the unfiltered call's")
+    del det, dflt
+    torch.cuda.empty_cache()
+
+    # training: both mask losses, one task an image
+    state, step = train_phase_state("yolov5l6-multihead")
+    xb, tb = two_task_batch(1)
+    batch = to_device({"image": xb, "targets": tb}, "cuda")
+
+    def batch_loss():
+        state.model.train()
+        with torch.no_grad():
+            losses_, _ = state.model.losses(batch["image"], batch["targets"])
+            return float(state.model.total_loss(losses_))
+
+    r = loss_runs(step, state, batch, batch_loss)
+    r.pop("metrics")
+    log(f"  loss on the batch before 8 updates (the fresh model) {r['before']:.4f}; after them "
+        f"through the kernels {r['kernel']:.4f} ({r['held']['calls']} backward calls held, worst "
+        f"{r['held']['roi_align_bwd']:.3g}), plain {r['plain']:.4f}, kernels again "
+        f"{r['kernel_again']:.4f}")
+    need(r["kernel"] < r["before"], "multihead: the loss did not fall over 8 updates")
+    fall = r["before"] - r["plain"]
+    need(fall > 0 and abs(r["kernel"] - r["plain"]) <= 0.1 * fall,
+         f"multihead: the loss through the kernels {r['kernel']:.4f} is not within a tenth of the "
+         f"plain backward's fall to {r['plain']:.4f}")
+    t_launches, info["train"] = train_timing(step, state, batch, iters)
+    need(t_launches["roi_align"] == 2 and t_launches["roi_align_bwd"] == 2,
+         f"multihead training: {t_launches}")
+    need(all(info["train"]["last_items"].get(f"{t}/mask", 0) > 0 for t in ("det", "detSC")),
+         "multihead training: a task's mask loss is 0")
+    info["train"]["loss_runs"] = r
+    log(f"  train micro-step (batch 16 x 640, bf16, both mask losses): median "
+        f"{info['train']['median_ms']:.2f} ms over {iters} (min {info['train']['min_ms']:.2f}, "
+        f"max {info['train']['max_ms']:.2f}); {info['train']['img_per_s']:.1f} img/s; peak "
+        f"memory {info['train']['peak_gib']:.2f} GiB; launches {t_launches}")
+    del state, step, batch
+    torch.cuda.empty_cache()
+    return launches, d_launches, t_launches, info
+
+
+@torch.no_grad()
+def calibrate_af(model, x, frac: float):
+    """Set each level's objectness bias of the anchor-free header so that a
+    fraction ``frac`` of that level's cells of ``x`` clears ``conf_thres``
+    (random weights put the raw logits anywhere, and apart by level)."""
+    h = model.headers["det"]
+    feats = [model.trunk(x)[j] for j in h.spec.from_idx]
+    _, _, obj, shapes = h._branches(feats)
+    conf = h.nms_params["conf_thres"]
+    start = 0
+    for c, (ny, nx) in zip(h.obj_preds, shapes):
+        raw = obj[:, start:start + ny * nx] - c.bias.float()
+        start += ny * nx
+        c.bias.fill_(math.log(conf / (1 - conf)) - float(torch.quantile(raw.flatten(), 1 - frac)))
+
+
+def af_batch(seed: int, B: int = 16, max_t: int = 256, size: int = 640):
+    """``hnet_batch``'s tiles with up to ``max_t`` nuclei each as ``det`` targets."""
+    x, t = hnet_batch(seed, B=B, size=size, max_t=max_t)
+    d = t["det40x"]
+    return x, {"det": {k: d[k] for k in ("boxes", "labels", "valid")}}
+
+
+def phase_anchor_free(iters: int):
+    """Phase 18: yolov6s-af (depth 0.33, width 0.5) at batch 16 x 640, bf16."""
+    from hd_yolo_tpu_torch.engines.train_step import to_device
+    from hd_yolo_tpu_torch.models import anchor_free_head, layers
+
+    info = {}
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    x = torch.randint(0, 256, (16, 640, 640, 3), generator=gen, device="cuda", dtype=torch.uint8)
+    det = Detector("yolov6s-af", "hyp-nuclei", device="cuda", seed=0)
+    calibrate_af(det.model, x, 0.01)
+    det.tiles(x)
+    with capture_calls((pallas_nms, "nms_padded_pallas"), (layers, "stem_conv")) as seen:
+        launches, out = path_launches(lambda: det.tiles(x))
+    log(f"  launches of one batch: {launches}")
+    for k, n in (("stem_tc", 1), ("stem", 0), ("nms", 1), ("roi_align", 0), ("mask_head", 0)):
+        need(launches[k] == n, f"anchor-free: {k} launched {launches[k]} times, expected {n}")
+    o = out["det"]
+    need(set(o) == {"boxes", "scores", "labels", "levels", "valid"}, f"AF outputs {sorted(o)}")
+    need(bool(torch.isfinite(o["boxes"]).all() & torch.isfinite(o["scores"]).all()),
+         "anchor-free: non-finite outputs")
+    n_valid = int(o["valid"].sum())
+    need(n_valid >= 16, "anchor-free: too few detections")
+    log(f"  valid detections/tile {n_valid / 16:.2f}; levels {torch.bincount(o['levels'][o['valid']]).tolist()}")
+    info["held"] = hold_path_calls(seen, "anchor-free")
+
+    # the stem at N = 32 on the path's own input: kernel 1's new shape
+    (a, k), = seen["stem_conv"]
+    xs, w, scale, bias = a
+    need(w.shape == (6, 6, 3, 32) and pallas_stem.stem_form(xs.shape, w.shape, 2, 2,
+                                                            torch.bfloat16) == "tc",
+         f"the yolov6s-af stem is not stem_tc at N 32: {tuple(w.shape)}")
+    got = pallas_stem.stem_conv(*a, **k)
+    err = check_close("stem_tc at N 32 (yolov6s-af, the path's input)", got,
+                      pallas_stem.stem_conv_plain(*a, **k), atol=1e-3, rtol=2 ** -7)
+    fns = {"stem_tc": lambda: pallas_stem.stem_conv(*a, **k),
+           "cuDNN": stem_library(xs, w, scale, bias)}
+    ms = cuda_ms_turns(fns, 20)
+    b2b = cuda_ms_turns(fns, 20, reps=B2B)
+    dev = device_ms(lambda: pallas_stem.stem_conv(*a, **k))
+    plain_ms = cuda_ms(lambda: pallas_stem.stem_conv_plain(*a, **k), 5)
+    b_ms, by = bound(nbytes(xs, got, scale, bias) + stem_lab.KDIM * 32 * 2,
+                     2.0 * got.numel() * stem_lab.KDIM, BF16_FLOPS)
+    info["stem_tc_n32"] = dict(max_abs_err=err, ms=ms["stem_tc"], ms_back_to_back=b2b["stem_tc"],
+                               device_ms=dev, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                               library_ms=ms["cuDNN"], library_ms_back_to_back=b2b["cuDNN"])
+    log(f"  stem_tc at (16, 640, 640, 3) N 32: {ms['stem_tc']:.4f} ms one call a window, "
+        f"{b2b['stem_tc']:.4f} back to back, device {dev:.4f} | cuDNN {ms['cuDNN']:.4f} "
+        f"({b2b['cuDNN']:.4f}) | plain {plain_ms:.4f} | bound {b_ms:.4f} ({by})")
+    info["infer"] = timed_steps(lambda: det.tiles(x), iters)
+    log(f"  batch-16 step: median {info['infer']['median_ms']:.2f} ms over {iters} (min "
+        f"{info['infer']['min_ms']:.2f}, max {info['infer']['max_ms']:.2f}); tiles/s "
+        f"{16e3 / info['infer']['median_ms']:.1f}")
+    info["infer"].update(profile_step(lambda: det.tiles(x)))
+    del det
+    torch.cuda.empty_cache()
+
+    # SimOTA training
+    state, step = train_phase_state("yolov6s-af")
+    xb, tb = af_batch(2)
+    batch = to_device({"image": xb, "targets": tb}, "cuda")
+    n_obj = int(tb["det"]["valid"].sum())
+
+    def batch_loss():
+        state.model.train()
+        with torch.no_grad():
+            losses_, _ = state.model.losses(batch["image"], batch["targets"], compute_masks=False)
+            return float(state.model.total_loss(losses_))
+
+    before = batch_loss()
+    for _ in range(8):
+        step(state, batch)
+    after = batch_loss()
+    log(f"  loss on the batch ({n_obj} objects) before 8 updates (the fresh model) {before:.4f}, "
+        f"after {after:.4f}")
+    need(after < before, "anchor-free: the loss did not fall over 8 updates")
+    t_launches, info["train"] = train_timing(step, state, batch, iters)
+    need(sum(t_launches.values()) == 0, f"anchor-free training launched a kernel: {t_launches}")
+    info["train"].update(loss_before=before, loss_after=after, objects=n_obj)
+    with capture_calls((anchor_free_head, "simota_assign")) as seen:
+        step(state, batch)
+    (a, k), = seen["simota_assign"]
+    info["train"]["simota_device_ms"] = device_ms(lambda: anchor_free_head.simota_assign(*a, **k))
+    info["train"]["simota_ms"] = cuda_ms(lambda: anchor_free_head.simota_assign(*a, **k), 10)
+    log(f"  train micro-step (batch 16 x 640, bf16, SimOTA over {a[0].shape[1]} cells x "
+        f"{a[5].shape[1]} targets): median {info['train']['median_ms']:.2f} ms over {iters} (min "
+        f"{info['train']['min_ms']:.2f}, max {info['train']['max_ms']:.2f}); "
+        f"{info['train']['img_per_s']:.1f} img/s; peak {info['train']['peak_gib']:.2f} GiB; the "
+        f"assignment {info['train']['simota_ms']:.3f} ms a call, device "
+        f"{info['train']['simota_device_ms']:.3f} ms; launches {t_launches}")
+    del state, step, batch
+    torch.cuda.empty_cache()
+    info["reference"] = af_reference()
+    return launches, t_launches, info
+
+
+def af_reference() -> dict:
+    """yolov6s-af in f32 at 2 x 256 px from the same seeded weights on the
+    card and on the CPU: the SimOTA assignment on the same inputs (matched
+    targets and foreground equal, IoU within 1e-5), the training loss items
+    (rtol 1e-3) and the detections (>= 98% of the CPU's found again, same
+    label, IoU >= 0.9, as phase 5 holds them)."""
+    from hd_yolo_tpu_torch.models import anchor_free_head
+    from hd_yolo_tpu_torch.models.yolo import Model
+
+    cpu = Model.from_cfg("yolov6s-af", "hyp-nuclei", pre_nms_topk=256)
+    cpu.reset_parameters(torch.Generator().manual_seed(4))
+    gpu = Model.from_cfg("yolov6s-af", "hyp-nuclei", pre_nms_topk=256).cuda()
+    gpu.load_state_dict(cpu.state_dict())
+    xb, tb = af_batch(3, B=2, max_t=48, size=256)
+    x = torch.from_numpy(xb)
+    calibrate_af(gpu, x.cuda(), 0.02)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    res = {}
+    with torch.no_grad():
+        a = {k: v.cpu() for k, v in gpu(x.cuda())["det"].items()}
+        b = cpu(x)["det"]
+    matched, total, _ = match_detections(a, b)
+    res["detections_cpu"], res["matched"] = total, matched
+    need(total >= 10 and matched >= 0.98 * total,
+         f"anchor-free reference: {matched} of the CPU's {total} detections found again")
+    t_cpu = {k: torch.from_numpy(v) for k, v in tb["det"].items()}
+    items = {}
+    for name, m, dev in (("cuda", gpu, "cuda"), ("cpu", cpu, "cpu")):
+        m.train()
+        with capture_calls((anchor_free_head, "simota_assign")) as seen, torch.no_grad():
+            losses, _ = m.losses(x.to(dev), {"det": {k: v.to(dev) for k, v in t_cpu.items()}},
+                                 compute_masks=False)
+        m.eval()
+        items[name] = {k: float(v) for k, v in losses["det"]["loss_items"].items()}
+        if name == "cuda":
+            (sa, sk), = seen["simota_assign"]
+    for k, v in items["cpu"].items():
+        need(abs(items["cuda"][k] - v) <= 1e-3 * abs(v) + 1e-6,
+             f"anchor-free reference loss {k}: card {items['cuda'][k]} vs CPU {v}")
+    g = anchor_free_head.simota_assign(*sa, **sk)
+    c = anchor_free_head.simota_assign(*[t.cpu() for t in sa], **sk)
+    need(torch.equal(g[0].cpu(), c[0]) and torch.equal(g[1].cpu(), c[1]),
+         "anchor-free reference: the card's SimOTA assignment differs from the CPU's")
+    res["assign_iou_max_abs_err"] = float((g[2].cpu() - c[2]).abs().max())
+    need(res["assign_iou_max_abs_err"] <= 1e-5, f"anchor-free reference IoU: {res}")
+    res.update(foreground=int(c[1].sum()), losses=items)
+    log(f"  reference (f32, 2 x 256): {matched} of the CPU's {total} detections found again; "
+        f"SimOTA on the card equal to the CPU's ({res['foreground']} foreground cells); {res}")
+    return res
+
+
+def phase_ensemble(iters: int):
+    """Phase 19: the flagship (yolov5l6-mask, Detector()'s defaults) and the
+    multihead model merged on task detSC by ``hd_yolo_tpu_torch.Ensemble``,
+    bf16, batch 16 x 640, seeded weights."""
+    import hd_yolo_tpu_torch
+    from hd_yolo_tpu_torch.models import ensemble
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    x = torch.randint(0, 256, (16, 640, 640, 3), generator=gen, device="cuda", dtype=torch.uint8)
+    flag = Detector("yolov5l6-mask", "hyp-nuclei", device="cuda", seed=0)
+    mh = Detector("yolov5l6-multihead", "hyp-nuclei", device="cuda", seed=1)
+    for d in (flag, mh):
+        calibrate_objectness(d, x, 0.02)
+    ens = hd_yolo_tpu_torch.Ensemble([flag.model, mh.model])
+    ens(x)
+    with capture_calls((pallas_nms, "nms_padded_pallas"), (ensemble, "merge_outputs")) as seen:
+        launches, out = path_launches(lambda: ens(x))
+    log(f"  launches of one ensemble batch (two members, two merged tasks): {launches}")
+    for k, n in (("stem_tc", 2), ("nms", 1 + 2 + 2), ("roi_align", 3), ("mask_head", 3)):
+        need(launches[k] == n, f"ensemble: {k} launched {launches[k]} times, expected {n}")
+    o = out["detSC"]
+    need(set(out) == {"det", "detSC"} and o["boxes"].shape == (16, 300, 4)
+         and o["masks"].shape == (16, 300, 28, 28), "ensemble: unexpected outputs")
+    need(int(o["valid"].sum()) >= 16 and int(o["mask_valid"].sum()) >= 16,
+         "ensemble: too few merged detections or masks")
+    merge_args = [(a, k) for a, k in seen["merge_outputs"] if len(a[0]) == 2]
+    need(len(merge_args) == 1, "ensemble: detSC was not merged from both members")
+    (ma, mk), = merge_args
+    merge_nms = [c for c in seen["nms_padded_pallas"] if c[0][0].shape == (16, 600, 4)]
+    need(len(merge_nms) == 1, "ensemble: no NMS call at the merge's (16, 600) shape")
+    held = hold_path_calls({"nms_padded_pallas": merge_nms}, "ensemble merge")
+    a = merge_nms[0][0]
+    t = kernel_ms(lambda: pallas_nms.nms_padded_pallas(*a), 20)
+    t["device_ms"] = device_ms(lambda: pallas_nms.nms_padded_pallas(*a))
+    plain_ms = cuda_ms(lambda: nms_padded(*a), 3, warmup=1)
+    merge_ms = cuda_ms(lambda: ensemble.merge_outputs(*ma, **mk), 20)
+    step = timed_steps(lambda: ens(x), iters)
+    log(f"  detSC merged: {int(o['valid'].sum()) / 16:.2f} detections/tile from "
+        f"{sum(int(m['valid'].sum()) for m in ma[0]) / 16:.2f} in; merge {merge_ms:.4f} ms a "
+        f"call; its NMS (16, 600) -> 300 with the sort and gathers {t['ms']:.4f} ms "
+        f"({t['ms_back_to_back']:.4f} back to back, device {t['device_ms']:.4f}), plain "
+        f"{plain_ms:.4f}; ensemble step median {step['median_ms']:.2f} ms (min "
+        f"{step['min_ms']:.2f}, max {step['max_ms']:.2f})")
+    del flag, mh, ens
+    torch.cuda.empty_cache()
+    return launches, {"held": held, "merge_ms": merge_ms, "nms_16x600": {**t, "plain_ms": plain_ms},
+                      "step": step}
+
+
+ONLY_PATHS = {
+    "device_augment": "[16] device augmentation: yolov5l6-mask, batch 16 x 640, bf16, masks, "
+                      "raw mode",
+    "multihead": "[17] multihead: yolov5l6-multihead (det nc 7, detSC nc 4, masks), batch 16 x "
+                 "640, bf16",
+    "anchor_free": "[18] anchor-free: yolov6s-af (AFDetect, SimOTA), batch 16 x 640, bf16",
+    "ensemble": "[19] ensemble: yolov5l6-mask + yolov5l6-multihead merged on detSC, batch 16 x "
+                "640, bf16",
+}
+PATH_PHASES = {"multihead": phase_multihead, "anchor_free": phase_anchor_free,
+               "ensemble": phase_ensemble}
+
+
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/H100 port.")
     ap.add_argument("--only", default="",
-                    help="comma-separated phase-3 kernel names: build, run only their phases "
-                         "and stop (no result lines); without it, every phase")
+                    help="comma-separated phase-3 kernel names or paths (device_augment, "
+                         "multihead, anchor_free, ensemble): build, run only their phases and "
+                         "stop (no result lines); without it, every phase")
     ap.add_argument("--hnet-loss-trials", type=int, default=0, metavar="N",
                     help="build, run phase 15's loss check N times (hnet_loss_trials) and stop")
     ap.add_argument("--step-calls", default="", metavar="PATH",
@@ -3454,9 +3954,10 @@ def main(argv=None) -> int:
                          "saved in PATH (captured first where it does not exist) and stop")
     args = ap.parse_args(argv)
     only = {k for k in args.only.split(",") if k}
-    if only - set(TPU_KERNEL) - {"device_augment"}:
-        ap.error(f"unknown kernels {sorted(only - set(TPU_KERNEL))}; choose from "
-                 f"{list(TPU_KERNEL)} or device_augment")
+    if only - set(TPU_KERNEL) - set(ONLY_PATHS):
+        ap.error(f"unknown kernels {sorted(only - set(TPU_KERNEL) - set(ONLY_PATHS))}; choose "
+                 f"from {list(TPU_KERNEL)} or {list(ONLY_PATHS)}")
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
         return 2
@@ -3515,6 +4016,10 @@ def main(argv=None) -> int:
     if "device_augment" in only:
         log("[16] device augmentation: yolov5l6-mask, batch 16 x 640, bf16, masks, raw mode")
         log("  " + json.dumps({"device_augment": phase_device_augment(10)[1]}))
+    for path in PATH_PHASES:
+        if path in only:
+            log(ONLY_PATHS[path])
+            log("  " + json.dumps({path: PATH_PHASES[path](10)[-1]}, default=float))
     if only:
         log(f"  --only {','.join(sorted(only))}: the other phases and the result lines skipped")
         return 0
@@ -3560,12 +4065,24 @@ def main(argv=None) -> int:
     log("[16] device augmentation: yolov5l6-mask, batch 16 x 640, bf16, masks, raw mode")
     aug_launches, aug_info = phase_device_augment(10, train_info["cli"])
     log("  " + json.dumps({"device_augment": aug_info}))
+    log(ONLY_PATHS["multihead"])
+    mh_launches, mh_default_launches, mh_train_launches, mh_info = phase_multihead(10)
+    log("  " + json.dumps({"multihead": mh_info}, default=float))
+    log(ONLY_PATHS["anchor_free"])
+    af_launches, af_train_launches, af_info = phase_anchor_free(10)
+    log("  " + json.dumps({"anchor_free": af_info}, default=float))
+    log(ONLY_PATHS["ensemble"])
+    ens_launches, ens_info = phase_ensemble(10)
+    log("  " + json.dumps({"ensemble": ens_info}, default=float))
 
     paths = {"flagship": launches, "defaults": default_launches, "hnet": hnet_launches,
              "lab": lab_launches, "slide": slide_launches, "val": val_launches,
              "loader": loader_launches, "export": export_launches, "serving": serving_launches,
              "train": train_launches, "hnet_train": hnet_train_launches,
-             "device_augment": aug_launches}
+             "device_augment": aug_launches, "multihead": mh_launches,
+             "multihead_defaults": mh_default_launches, "multihead_train": mh_train_launches,
+             "anchor_free": af_launches, "anchor_free_train": af_train_launches,
+             "ensemble": ens_launches}
     main_path = {k: "flagship" for k in FLAGSHIP_KERNELS}
     main_path.update(roi_align_single="hnet", stem_k108="lab", stem_dot108="lab", stem="lab",
                      roi_align_bwd="train", roi_align_single_bwd="hnet_train")
@@ -3575,6 +4092,11 @@ def main(argv=None) -> int:
                                     if k.startswith("roi_align")}
     for k, v in per_image.items():
         results[k]["per_image"] = v
+    results["stem_tc"]["anchor_free_n32"] = af_info["stem_tc_n32"]
+    results["nms"]["ensemble_16x600"] = ens_info["nms_16x600"]
+    for k in ("nms", "roi_align", "mask_head"):
+        results[k]["multihead_calls_held"] = {
+            b: mh_info[f"held_{b}"].get(k, []) for b in ("packed", "defaults")}
     for k, pre in (("roi_align", "fwd"), ("roi_align_bwd", "bwd")):
         results[k]["hnet_train"] = {c: v for c, v in hnet_train_info["canvas_at_step"].items()
                                     if c.startswith(pre)}
@@ -3583,7 +4105,8 @@ def main(argv=None) -> int:
          "replaces": TPU_KERNEL[k], "launches": paths[main_path[k]][k],
          "launches_by_path": {p: n.get(k, 0) for p, n in paths.items()}, **results[k]}
         for k in TPU_KERNEL]}
-    print(json.dumps(record), flush=True)
+    log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps(record, default=float), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

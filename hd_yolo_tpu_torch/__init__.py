@@ -26,7 +26,7 @@ if not LOGGER.handlers:
 from .config import load_cfg  # noqa: E402,F401
 
 
-def __getattr__(name):  # lazy top-level API: hd_yolo_tpu_torch.Detector, .HNet etc.
+def __getattr__(name):  # lazy top-level API: hd_yolo_tpu_torch.Detector, .Ensemble, .HNet etc.
     if name in ("Detector", "Detections"):
         from . import detector
 
@@ -35,6 +35,10 @@ def __getattr__(name):  # lazy top-level API: hd_yolo_tpu_torch.Detector, .HNet 
         from .models.yolo import Model
 
         return Model
+    if name == "Ensemble":
+        from .models.ensemble import Ensemble
+
+        return Ensemble
     if name == "HNet":
         from .hnet import HNet
 

@@ -1,5 +1,6 @@
-"""Model container: backbone → neck → Detect headers, from a parsed spec
-(port of ``hd_yolo_tpu/models/yolo.py``).
+"""Model container: backbone → neck → headers (``Detect``, or
+``AnchorFreeDetect`` for an ``AFDetect`` row), from a parsed spec (port of
+``hd_yolo_tpu/models/yolo.py``).
 
 ``forward`` is the inference path (no autograd); ``losses`` is the training
 forward (``model.train()``: BatchNorm on batch statistics, losses only) and
@@ -20,6 +21,7 @@ import torch
 from torch import nn
 
 from . import layers as L
+from .anchor_free_head import AnchorFreeDetect
 from .builder import NetworkSpec, parse_model_cfg
 from .detect_head import Detect
 
@@ -60,11 +62,6 @@ class Model(nn.Module):
                  mask_window: Optional[int] = None, mask_budget: Optional[int] = None,
                  mask_rois: int = 64):
         super().__init__()
-        for h in spec.headers:
-            if h.kind == "anchor_free":
-                raise NotImplementedError(
-                    f"header {h.tag!r} is anchor-free (AFDetect): its head is not ported to "
-                    f"hd_yolo_tpu_torch yet (ROADMAP A.4)")
         self.spec = spec
         self.dtype = dtype
         ch: Dict[int, int] = {}
@@ -86,9 +83,10 @@ class Model(nn.Module):
         self.backbone = nn.ModuleList(mods[: spec.n_backbone])
         self.neck = nn.ModuleList(mods[spec.n_backbone:])
         self.headers = nn.ModuleDict({
-            h.tag: Detect(h, pre_nms_topk=pre_nms_topk, max_masks=max_masks,
-                          dim_reduced=dim_reduced, mask_window=mask_window,
-                          mask_budget=mask_budget, mask_rois=mask_rois)
+            h.tag: AnchorFreeDetect(h, pre_nms_topk=pre_nms_topk) if h.kind == "anchor_free"
+            else Detect(h, pre_nms_topk=pre_nms_topk, max_masks=max_masks,
+                        dim_reduced=dim_reduced, mask_window=mask_window,
+                        mask_budget=mask_budget, mask_rois=mask_rois)
             for h in spec.headers
         })
         self.eval()
@@ -160,7 +158,8 @@ class Model(nn.Module):
         distributions: each conv and deconv kernel lecun-normal on its fan-in
         (a normal truncated at ±2 standard deviations, scaled to variance
         1/fan_in), zero biases, BatchNorm scale 1 and shift 0 with running
-        statistics 0 / 1, and the Detect prior biases."""
+        statistics 0 / 1, and the Detect prior biases (an anchor-free
+        header has none)."""
         for mod in self.modules():
             if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
                 w = mod.weight
@@ -184,7 +183,8 @@ class Model(nn.Module):
                 mod.running_mean.zero_()
                 mod.running_var.fill_(1.0)
         for det in self.headers.values():
-            det.init_det_bias()
+            if isinstance(det, Detect):
+                det.init_det_bias()
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -205,4 +205,5 @@ class Model(nn.Module):
                 mod.running_mean.copy_(torch.randn(c, generator=generator) * 0.1)
                 mod.running_var.copy_(torch.rand(c, generator=generator) * 0.5 + 0.75)
         for det in self.headers.values():
-            det.init_det_bias()
+            if isinstance(det, Detect):
+                det.init_det_bias()

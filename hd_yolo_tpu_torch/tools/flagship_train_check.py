@@ -42,15 +42,17 @@ CLASS_AXES = {1: (22, 18), 2: (26, 10), 3: (10, 9), 4: (16, 14)}
 LABELS_TEXT = {1: "tumor", 2: "stromal", 3: "sTILs", 4: "other"}
 
 
-def render_nucleus(rng, img: np.ndarray, size: int):
+def render_nucleus(rng, img: np.ndarray, size: int, class_probs=None, axes_scale: float = 1.0):
     """Draw one nucleus of a random class into ``img``; returns (box, label,
-    polygon)."""
+    polygon).  ``class_probs`` (length 4, classes 1..4) biases the class
+    draw, ``axes_scale`` scales the ellipse's axes."""
     import cv2
 
-    c = int(rng.integers(1, 5))
+    c = (int(rng.choice(4, p=class_probs)) + 1 if class_probs is not None
+         else int(rng.integers(1, 5)))
     ax, ay = CLASS_AXES[c]
-    ax = max(int(ax * rng.uniform(0.8, 1.25)), 4)
-    ay = max(int(ay * rng.uniform(0.8, 1.25)), 4)
+    ax = max(int(ax * axes_scale * rng.uniform(0.8, 1.25)), 4)
+    ay = max(int(ay * axes_scale * rng.uniform(0.8, 1.25)), 4)
     cx = int(rng.integers(ax + 2, size - ax - 2))
     cy = int(rng.integers(ay + 2, size - ay - 2))
     poly = cv2.ellipse2Poly((cx, cy), (ax, ay), int(rng.integers(0, 180)), 0, 360, 12)
@@ -60,13 +62,16 @@ def render_nucleus(rng, img: np.ndarray, size: int):
     return [x1, y1, x2, y2], c, poly
 
 
-def render_tile(rng, img_size: int, nuclei_per_tile: int):
-    """One synthetic H&E tile: (img uint8 RGB, boxes, labels, polygons)."""
+def render_tile(rng, img_size: int, nuclei_per_tile: int, class_probs=None,
+                axes_scale: float = 1.0):
+    """One synthetic H&E tile: (img uint8 RGB, boxes, labels, polygons).
+    ``class_probs`` and ``axes_scale`` go to each ``render_nucleus``; without
+    them the draws are the uniform class and the class's own axes."""
     img = np.full((img_size, img_size, 3), 230, np.uint8)
     img += rng.integers(-12, 12, img.shape).astype(np.uint8)
     boxes, labels, polys = [], [], []
     for _ in range(nuclei_per_tile):
-        b, c, p = render_nucleus(rng, img, img_size)
+        b, c, p = render_nucleus(rng, img, img_size, class_probs, axes_scale)
         boxes.append(b)
         labels.append(c)
         polys.append(p)

@@ -6,6 +6,11 @@ The key map and layout rules of ``hd_yolo_tpu/utils/export_torch.py``:
   flax ConvTranspose (kh, kw, I, O)  → flipped back spatially, then (I, O, kh, kw)
   bn {scale, bias} + stats {mean, var} → weight / bias / running_mean / running_var
   header ``seg.k``                    ↔ flax ``seg{nl-1-k}`` (the reference list is top-down)
+  anchor-free header ``stems.i`` / ``cls_convs.i`` / ``reg_convs.i`` ↔ flax
+  ``stem{i}`` / ``cls_conv{i}`` / ``reg_conv{i}``, and ``cls_preds.i`` /
+  ``reg_preds.i`` / ``obj_preds.i`` ↔ ``cls_pred{i}`` / ``reg_pred{i}`` /
+  ``obj_pred{i}`` (the JAX package's exporter has no such map; these keys
+  are the port's own)
 BatchNorm buffers also get ``num_batches_tracked`` = 0, so the converted
 tree loads with ``strict=True``.
 
@@ -113,6 +118,15 @@ def state_dict_from_flax(variables_np: Mapping, spec: NetworkSpec) -> Dict[str, 
 
     for h in spec.headers:
         hkey, fh, nl = f"headers.{h.tag}", f"header_{h.tag}", len(h.strides)
+        if h.kind == "anchor_free":
+            for i in range(nl):
+                for tk, fk in (("stems", "stem"), ("cls_convs", "cls_conv"),
+                               ("reg_convs", "reg_conv")):
+                    r.conv_block(f"{hkey}.{tk}.{i}", (fh, f"{fk}{i}"))
+                for tk, fk in (("cls_preds", "cls_pred"), ("reg_preds", "reg_pred"),
+                               ("obj_preds", "obj_pred")):
+                    r.conv(f"{hkey}.{tk}.{i}", fh, f"{fk}{i}")
+            continue
         for l in range(nl):
             r.conv(f"{hkey}.m.{l}", fh, f"det{l}")
         for k in range(nl):

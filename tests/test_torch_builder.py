@@ -15,7 +15,8 @@ from hd_yolo_tpu_torch.config import CONFIG_DIR, load_cfg
 from hd_yolo_tpu_torch.models.builder import normalize_legacy_cfg, parse_model_cfg
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PORT_CONFIGS = ["yolov5l6-mask", "yolov5s-test", "hyp-nuclei", "hnet-nucls"]
+PORT_CONFIGS = ["yolov5l6-mask", "yolov5s-test", "hyp-nuclei", "hnet-nucls",
+                "yolov5l6-multihead", "yolov5s-multihead-test", "yolov6s-af"]
 
 
 @pytest.mark.parametrize("name", PORT_CONFIGS)
@@ -24,7 +25,8 @@ def test_copied_yaml_is_byte_equal(name):
                        os.path.join(REPO, "hd_yolo_tpu", "configs", name + ".yaml"), shallow=False)
 
 
-@pytest.mark.parametrize("cfg", ["yolov5l6-mask", "yolov5s-test"])
+@pytest.mark.parametrize("cfg", ["yolov5l6-mask", "yolov5s-test", "yolov5l6-multihead",
+                                 "yolov5s-multihead-test", "yolov6s-af"])
 def test_network_spec_equals_jax(cfg):
     got = dataclasses.asdict(parse_model_cfg(cfg, "hyp-nuclei"))
     want = dataclasses.asdict(jax_parse_model_cfg(cfg, "hyp-nuclei"))
@@ -82,11 +84,30 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
 
 
 def test_anchor_free_config_raises_until_its_head_is_ported():
-    """An ``AFDetect`` header must not be built as an anchor-based
-    ``Detect``: the port raises, naming the ROADMAP item of the head."""
+    """An ``AFDetect`` header is built as the anchor-free header, not as an
+    anchor-based ``Detect`` (it raised ``NotImplementedError`` until the
+    head was ported): ``yolov6s-af`` builds an ``AnchorFreeDetect`` and
+    the JAX model's weights load into it with ``strict=True``."""
+    import numpy as np
+
+    from hd_yolo_tpu.models import Model as JaxModel
+    from hd_yolo_tpu_torch.models.anchor_free_head import AnchorFreeDetect
     from hd_yolo_tpu_torch.models.yolo import Model
+    from hd_yolo_tpu_torch.utils.convert import state_dict_from_flax
+    from torch_port_common import random_variables
 
     cfg = os.path.join(REPO, "hd_yolo_tpu", "configs", "yolov6s-af.yaml")
     assert [h.kind for h in parse_model_cfg(cfg, "hyp-nuclei").headers] == ["anchor_free"]
-    with pytest.raises(NotImplementedError, match="A.4"):
-        Model.from_cfg(cfg, "hyp-nuclei")
+    tm = Model.from_cfg(cfg, "hyp-nuclei")
+    assert isinstance(tm.headers["det"], AnchorFreeDetect)
+    variables = random_variables(JaxModel.from_cfg(cfg, "hyp-nuclei"), (1, 64, 64, 3))
+    sd = state_dict_from_flax(variables, tm.spec)
+    assert set(sd) == set(tm.state_dict())
+    tm.load_state_dict(sd, strict=True)
+    n_flax = sum(int(np.prod(a.shape)) for a in _leaves(variables["params"]))
+    assert sum(p.numel() for p in tm.parameters()) == n_flax
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))

@@ -8,8 +8,9 @@ Run from the repo root on a machine with one NVIDIA GPU:
 (``--only``: build, run only the named kernels' phase-3 checks and timings
 — for ``roi_align_bwd`` also phases 14 and 14b, for ``roi_align_single_bwd``
 also phases 15 and 15b; ``device_augment`` runs phase 16 with its own
-host-loader CLI, ``multihead``, ``anchor_free`` and ``ensemble`` phases 17,
-18 and 19 — and stop without the result lines.
+host-loader CLI, ``multihead``, ``anchor_free``, ``ensemble``,
+``pretrained``, ``nucls_finetune`` and ``hub`` phases 17–22 — and stop
+without the result lines.
 ``--hnet-loss-trials N``: phase 15's loss check N times, from the fresh
 model and 15 micro-steps in; ``--step-calls PATH``: both backwards timed at
 hnet training calls saved in PATH, captured first where it is absent, so
@@ -212,6 +213,50 @@ Phases (any failure raises and the script exits non-zero):
      ``detSC`` (16 x 600 rows → 300) and ``det`` (the multihead alone):
      launches, the merge's NMS call held bit for bit against ``nms_padded``
      at (16, 600) and timed, the merge's time and the ensemble step's.
+ 20. pretrained: the serialized reference checkpoints
+     ``tests/fixtures/{metayolo,ultralytics}_tiny.pt`` through
+     ``utils/import_torch`` into ``tiny2l.yaml`` on the card (f32, masks):
+     every tensor of the model loaded, launches (the direct ``stem``, NMS,
+     the canvas ROI-align and the mask head's f32 form 1 each, the bf16
+     mask head 0), each NMS, ROI-align and mask-head call held against its
+     plain version on its own inputs (the f32 mask head within 1e-4), and
+     the outputs against the fixture's ``expected`` (the reference torch
+     model's own): the count within 10%, every expected box within 1 px,
+     matched scores rtol 1e-3 / atol 1e-4, masks mean |d| <= 0.01 and max
+     <= 0.1; then the
+     flagship's seeded weights written as an ultralytics ``model.{i}`` .pt
+     and a metayolo ``{'ema': ...}`` checkpoint, each resolved by bare name
+     through ``$HD_YOLO_WEIGHTS_DIR``: every tensor loaded, a bf16 16 x 640
+     batch bit for bit the outputs of the same weights loaded directly;
+ 21. NuCLS fine-tune: a synthetic NuCLS ``trainval`` layout (64 FOVs of 640
+     px, ~80 polyline nuclei each, six training slides, a test slide and an
+     excluded slide listed under training) converted by ``python -m
+     hd_yolo_tpu_torch.data.nucls``; ``engines/train.main`` on the flagship
+     from phase 20's ultralytics .pt (bf16, masks, batch 16, an update a
+     micro-step, 3 epochs): every tensor loaded, >= 4 updates, each
+     gradient read: a non-finite one fails the phase (naming its parameters,
+     loss items and batch) unless a det-loss candidate's decoded height is
+     0 or at most 1e-18 of its width, where CIoU's gradient is NaN in the
+     JAX package too (ROADMAP C.2), finite loss,
+     ``last``/``best``/``final`` written, EMA validation each epoch, img/s of
+     each epoch's steps, the launches of a micro-step (canvas ROI-align
+     forward and backward 1 each, no stem, NMS or mask head) and of an
+     epoch's validation; then the first epoch again with every
+     ``roi_align_bwd`` call held against its plain version (as phase 14);
+ 22. hub presets at their published widths, written inline row for row
+     (ultralytics/yolov5 ``models/hub/yolov5s-ghost.yaml`` v6.0 and v3.1's
+     ``models/yolov5s.yaml``, nc 80) and parsed through
+     ``normalize_legacy_cfg``: seeded weights, objectness calibrated to 1%
+     of the anchors; one bf16 16 x 640 batch's launches (``stem_tc`` 1 for
+     the ghost model's N-32 stem, 0 behind v3.1's Focus; NMS 1), its NMS
+     call held bit for bit, the step and a profiled step; card vs CPU in
+     f32 on 2 x 640 (>= 98% of the CPU's detections found again); 8 updates
+     from the fresh model with masks off on 16 tiles (every loss item
+     finite, the box and class losses falling: the objectness rises in the
+     bias warmup, and with it the total, as JAX's own chain does on the
+     same preset, ``tests/test_torch_hub_preset_train.py``); 8 updates
+     in f32 on 2 x 256 on the card and on the CPU from one fresh model, each
+     micro-step's loss within rtol 2e-3.
 
 Phase 3 also holds the single-level ROI-align's backward kernel
 (``roi_align_levels_bwd``) against its plain version at its two call sites:
@@ -219,7 +264,9 @@ hnet's pyramid (the four levels, bf16, one device launch, bit for bit) and
 the confliction loss's pooling (f32, 5 channels, 100 boxes an image, output
 28, against the CPU, one device launch by either path), with its times and
 bound; it times the direct stem's f32 form beside cuDNN's f32 conv + bias +
-SiLU (TF32 off); and it holds the single-level
+SiLU (TF32 off); it holds the mask head's f32 form (an f32 model's
+features) within 1e-4 of the plain version at the fixtures' 100 ROIs and
+at 360 of 768, timed beside cuDNN's f32 chain; and it holds the single-level
 ROI-align kernel bit for bit against
 its plain version at the four hnet-nucls level shapes in one launch
 (``roi_align_levels``; device time and wrapper host time, in turns with
@@ -231,7 +278,7 @@ bit-identical, timed), and the K=108 stem kernels 6 and 7 at (16, 640,
 640, 3), kernel 6 timed in turns with ``stem_tc``.
 
 The last lines are the script's wall time, the per-kernel JSON record
-(``launches_by_path`` with the paths of phases 17–19), the ``nvidia-smi``
+(``launches_by_path`` with the paths of phases 17–22), the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
@@ -280,6 +327,8 @@ TPU_KERNEL = {
     "nms": "hd_yolo_tpu/ops/pallas_nms.py:32",
     "roi_align": "hd_yolo_tpu/ops/pallas_roi_align.py:195",
     "mask_head": "hd_yolo_tpu/ops/pallas_mask_head.py:51",
+    # the same TPU kernel on an f32 model's features
+    "mask_head_f32": "hd_yolo_tpu/ops/pallas_mask_head.py:51",
     "roi_align_single": "hd_yolo_tpu/ops/pallas_roi_align.py:31",
     "stem_k108": "tools/stem_lab.py:132",
     "stem_dot108": "tools/stem_lab.py:168",
@@ -815,10 +864,10 @@ def seeded_mask_head(nc: int, C: int, seed: int) -> MaskHead:
     return head.to("cuda")
 
 
-def mask_head_library(head: MaskHead):
-    """The mask head as cuDNN's chain in bf16 (4 convs, deconv, 1x1, sigmoid
-    on NCHW input): the library yardstick of the mask-head kernel."""
-    bf = lambda t: t.to(torch.bfloat16)
+def mask_head_library(head: MaskHead, dtype=torch.bfloat16):
+    """The mask head as cuDNN's chain in ``dtype`` (4 convs, deconv, 1x1,
+    sigmoid on NCHW input): the library yardstick of the mask-head kernels."""
+    bf = lambda t: t.to(dtype)
     convs = [(bf(c.weight), bf(c.bias)) for c in head.fcn]
     preds = head.maskrcnn_preds
     dw, db = bf(preds.conv5_mask.weight), bf(preds.conv5_mask.bias)
@@ -888,6 +937,50 @@ def phase_mask_head(gen, iters):
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, library_ms=ms["cuDNN"],
                 active_360=dict(ms=ms["kernel_360"], ms_back_to_back=b2b["kernel_360"],
                                 bound_ms=b_ms_p, library_ms=ms["cuDNN_360"]))
+
+
+def phase_mask_head_f32(gen, iters):
+    """The f32 form at the pretrained fixtures' path (an f32 model, one
+    image's 100 mask slots) and at the flagship's 768-ROI budget with a 360
+    prefix: within 1e-4 of the plain version in f32 (TF32 off), inactive
+    slots exactly 0, two launches bit-identical; timed beside cuDNN's f32
+    chain."""
+    dev = "cuda"
+    C, nc = 256, 2
+    head = seeded_mask_head(nc, C, 5)
+    library = mask_head_library(head, torch.float32)
+    res = {}
+    for N, used in ((100, None), (768, 360)):
+        pooled = torch.randn((N, 14, 14, C), generator=gen, device=dev)
+        labels = torch.randint(0, nc, (N,), generator=gen, device=dev)
+        act = None if used is None else torch.tensor(used, dtype=torch.int32, device=dev)
+        with torch.no_grad():
+            got = pallas_mask_head.fused_mask_probs(head, pooled, labels, act)
+            want = pallas_mask_head.fused_mask_probs_plain(head, pooled, labels, act)
+            torch.cuda.synchronize()
+            err = check_close(f"mask_head_f32 N {N}, active {used or N}", got, want, atol=1e-4,
+                              rtol=0.0)
+            need(torch.equal(got, pallas_mask_head.fused_mask_probs(head, pooled, labels, act)),
+                 "mask_head_f32: two launches differ")
+            if used is not None:
+                need(bool((got[used:] == 0).all()), "mask_head_f32: an inactive slot is not 0")
+            plain_ms = cuda_ms(lambda: pallas_mask_head.fused_mask_probs_plain(
+                head, pooled, labels, act), iters)
+            xb = pooled.permute(0, 3, 1, 2)[:used]
+            fns = {"kernel": lambda: pallas_mask_head.fused_mask_probs(head, pooled, labels, act),
+                   "cuDNN": lambda: library(xb)}
+            ms = cuda_ms_turns(fns, iters)
+            b2b = cuda_ms_turns(fns, iters, reps=B2B)
+        k = used or N
+        wbytes = (4 * 9 * C * C + 4 * C + 4 * C * C + C) * 4
+        b_ms, by = bound(nbytes(pooled[:k], got) + wbytes + k * (C * 4 + 8), mask_head_flops(k),
+                         F32_FLOPS)
+        res[N] = dict(max_abs_err=err, ms=ms["kernel"], ms_back_to_back=b2b["kernel"],
+                      plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, library_ms=ms["cuDNN"])
+        log(f"  mask_head_f32 at {N} ROIs, {k} active: kernel {ms['kernel']:.4f} ms "
+            f"({b2b['kernel']:.4f} back to back) | cuDNN f32 chain on {k} {ms['cuDNN']:.4f} | "
+            f"plain {plain_ms:.4f} | bound {b_ms:.4f} ({by}) | max_abs_err {err:.3g}")
+    return {**res[100], "flagship_768_active_360": res[768]}
 
 
 def phase_roi_single(gen, iters):
@@ -3522,17 +3615,22 @@ def hold_path_calls(seen: dict, what: str) -> dict:
         check_equal(f"{what}: roi_align at {a[1].shape[0]} ROIs", pallas_roi_align.roi_align_bounded(*a),
                     pallas_roi_align.roi_align_bounded_plain(*a))
         res.setdefault("roi_align", []).append(int(a[1].shape[0]))
-    worst = 0.0
+    worst = {}
     for (a, k) in seen.get("fused_mask_probs", []):
         d = (pallas_mask_head.fused_mask_probs(*a, **k)
              - pallas_mask_head.fused_mask_probs_plain(*a, **k)).abs()
-        need(float(d.mean()) <= 0.01 and float(d.max()) <= 0.1,
-             f"{what}: mask head at {a[1].shape[0]} ROIs: mean |d| {float(d.mean()):.4g}, max "
-             f"{float(d.max()):.4g}")
-        worst = max(worst, float(d.max()))
-        res.setdefault("mask_head", []).append(int(a[1].shape[0]))
-    if "mask_head" in res:
-        res["mask_head_max_abs_err"] = worst
+        name = "mask_head_f32" if a[1].dtype == torch.float32 else "mask_head"
+        if name == "mask_head_f32":     # the f32 form: f32 rounding only
+            need(float(d.max()) <= 1e-4, f"{what}: f32 mask head at {a[1].shape[0]} ROIs: max "
+                                         f"|d| {float(d.max()):.4g}")
+        else:
+            need(float(d.mean()) <= 0.01 and float(d.max()) <= 0.1,
+                 f"{what}: mask head at {a[1].shape[0]} ROIs: mean |d| {float(d.mean()):.4g}, "
+                 f"max {float(d.max()):.4g}")
+        worst[name] = max(worst.get(name, 0.0), float(d.max()))
+        res.setdefault(name, []).append(int(a[1].shape[0]))
+    for name, v in worst.items():
+        res[f"{name}_max_abs_err"] = v
     log(f"  {what}: every kernel call held against its plain version on the path's inputs: "
         f"{res}")
     return res
@@ -3926,6 +4024,604 @@ def phase_ensemble(iters: int):
                       "step": step}
 
 
+# ------------------------------------------- reference checkpoints, NuCLS, hub
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures")
+# the card's name and power limit as nvidia-smi gives them, set by main and
+# written beside the numbers of phases 20-22
+CARD: dict = {}
+# the flagship's seeded weights written by phase 20 (and by phase 21 when it
+# runs alone): {"dir": TemporaryDirectory, "ultralytics": path, "metayolo": path}
+FLAGSHIP_CKPTS: dict = {}
+
+
+def match_fixture(o: dict, exp: dict, what: str) -> dict:
+    """One image's outputs ``o`` (numpy) against a fixture's ``expected``,
+    the reference torch model's own: the detection count within 10%, every
+    expected box within 1 px of one of ``o``'s, those matched scores within
+    rtol 1e-3 / atol 1e-4, their masks mean |d| <= 0.01 and max <= 0.1."""
+    v = o["valid"][0].astype(bool)
+    n_exp = len(exp["boxes"])
+    need(abs(int(v.sum()) - n_exp) <= max(1, n_exp // 10),
+         f"{what}: {int(v.sum())} detections, the reference {n_exp}")
+    idx, box_d = [], 0.0
+    for j in range(n_exp):
+        d = np.abs(o["boxes"][0] - exp["boxes"][j]).max(-1)
+        d[~v] = np.inf
+        i = int(d.argmin())
+        need(d[i] < 1.0, f"{what}: expected box {exp['boxes'][j]} is {d[i]:.3g} px from any")
+        idx.append(i)
+        box_d = max(box_d, float(d[i]))
+    ds = np.abs(o["scores"][0][idx] - exp["scores"])
+    need(bool((ds <= 1e-4 + 1e-3 * np.abs(exp["scores"])).all()), f"{what}: scores off by {ds.max()}")
+    need(all(o["mask_valid"][0][i] for i in idx), f"{what}: a matched detection has no mask")
+    dm = np.abs(o["masks"][0][idx] - exp["masks"][:, 0])
+    need(dm.mean() <= 0.01 and dm.max() <= 0.1,
+         f"{what}: masks mean |d| {dm.mean():.4g}, max {dm.max():.4g}")
+    return {"detections": int(v.sum()), "expected": n_exp, "box_max_px": box_d,
+            "score_max_abs_err": float(ds.max()), "mask_mean_abs_err": float(dm.mean()),
+            "mask_max_abs_err": float(dm.max())}
+
+
+def ultralytics_keys(sd: dict, spec) -> dict:
+    """The port's keys → an ultralytics checkpoint's ``model.{i}.*`` (the
+    neck after the backbone, the header at its row's index)."""
+    out = {}
+    for k, v in sd.items():
+        part, rest = k.split(".", 1)
+        head, tail = rest.split(".", 1)
+        i = {"backbone": lambda: int(head), "neck": lambda: spec.n_backbone + int(head),
+             "headers": lambda: spec.headers[0].index}[part]()
+        out[f"model.{i}.{tail}"] = v
+    return out
+
+
+@torch.no_grad()
+def flagship_checkpoints() -> dict:
+    """The flagship at full width and depth with seeded weights (objectness
+    calibrated on noise tiles as phase 4 does), written to a temporary
+    directory as an ultralytics ``model.{i}`` state_dict (``yolo_u.pt``) and
+    a metayolo ``{'ema': state_dict}`` checkpoint (``yolo_m.pt``)."""
+    import tempfile
+
+    if not FLAGSHIP_CKPTS:
+        torch.cuda.synchronize()
+        det = Detector("yolov5l6-mask", "hyp-nuclei", device="cuda", seed=20)
+        gen = torch.Generator(device="cuda").manual_seed(20)
+        x = torch.randint(0, 256, (16, 640, 640, 3), generator=gen, device="cuda",
+                          dtype=torch.uint8)
+        calibrate_objectness(det, x, 0.02)
+        sd = {k: v.detach().cpu().clone() for k, v in det.model.state_dict().items()}
+        d = tempfile.TemporaryDirectory()
+        u, m = os.path.join(d.name, "yolo_u.pt"), os.path.join(d.name, "yolo_m.pt")
+        torch.save(ultralytics_keys(sd, det.model.spec), u)
+        torch.save({"ema": sd, "model": None, "epoch": 299}, m)
+        FLAGSHIP_CKPTS.update(dir=d, ultralytics=u, metayolo=m, state_dict=sd, x=x)
+        del det
+        torch.cuda.empty_cache()
+    return FLAGSHIP_CKPTS
+
+
+@torch.no_grad()
+def phase_pretrained(iters: int):
+    """Phase 20: reference checkpoints into the port.  The serialized
+    fixtures (metayolo and ultralytics layouts of the reference torch model,
+    with its own outputs) through ``utils/import_torch`` into ``tiny2l.yaml``
+    on the card in f32 with masks, against the fixtures' ``expected``; then
+    the flagship's seeded weights in both layouts, resolved by bare name
+    through ``$HD_YOLO_WEIGHTS_DIR``: every tensor loaded, a bf16 16 x 640
+    batch bit for bit the outputs of the same weights loaded directly."""
+    from hd_yolo_tpu_torch.models.yolo import Model
+    from hd_yolo_tpu_torch.utils import import_torch
+    from hd_yolo_tpu_torch.utils.downloads import attempt_download
+
+    info = {}
+    cfg = os.path.join(FIXTURES, "tiny2l.yaml")
+    launches = {}
+    for name in ("metayolo_tiny", "ultralytics_tiny"):
+        fix = torch.load(os.path.join(FIXTURES, f"{name}.pt"), map_location="cpu",
+                         weights_only=False)
+        m = Model.from_cfg(cfg, "hyp-nuclei")
+        n, left = import_torch.import_state_dict(m, fix["state_dict"])
+        need(n == len(m.state_dict()), f"{name}: {n} of {len(m.state_dict())} tensors loaded")
+        m.cuda()
+        x = fix["input_nhwc"].cuda()
+        m(x)
+        with capture_calls(*PATH_CALLS) as seen:
+            launches[name], out = path_launches(lambda: m(x))
+        for k, want in (("stem", 1), ("stem_tc", 0), ("nms", 1), ("roi_align", 1),
+                        ("mask_head", 0), ("mask_head_f32", 1)):
+            need(launches[name][k] == want,
+                 f"{name}: {k} launched {launches[name][k]} times, expected {want}")
+        o = {k: v.cpu().numpy() for k, v in out["det"].items()}
+        info[name] = {"tensors": n, "left_over": len(left),
+                      **match_fixture(o, {k: t.numpy() for k, t in fix["expected"].items()}, name),
+                      "held": hold_path_calls(seen, name)}
+        log(f"  {name}: {n} tensors loaded ({len(left)} reference keys left over: anchors, "
+            f"mask_indices, loss buffers); launches {launches[name]}; against the reference's "
+            f"outputs: {info[name]}")
+    t0 = time.perf_counter()
+    ck = flagship_checkpoints()
+    info["flagship_seed_and_write_s"] = time.perf_counter() - t0
+    x = ck["x"]
+    direct = Detector("yolov5l6-mask", "hyp-nuclei", device="cuda", seed=0)
+    direct.model.load_state_dict(ck["state_dict"])
+    want = direct.tiles(x)["detSC"]
+    need(int(want["valid"].sum()) >= 16 and int(want["mask_valid"].sum()) >= 16,
+         "flagship: too few detections to compare")
+    old = os.environ.get("HD_YOLO_WEIGHTS_DIR")
+    os.environ["HD_YOLO_WEIGHTS_DIR"] = ck["dir"].name
+    try:
+        for layout, path in (("ultralytics", "yolo_u.pt"), ("metayolo", "yolo_m.pt")):
+            det = Detector("yolov5l6-mask", "hyp-nuclei", device="cuda", seed=1)
+            t0 = time.perf_counter()
+            resolved = str(attempt_download(path))
+            n, left = import_torch.load_torch_weights(det.model, resolved)
+            t_load = time.perf_counter() - t0
+            need(resolved == ck[layout] and n == len(det.model.state_dict()) and not left,
+                 f"flagship {layout}: {n} of {len(det.model.state_dict())} tensors from "
+                 f"{resolved}, left over {left[:5]}")
+            got = det.tiles(x)["detSC"]
+            need(all(torch.equal(got[k], want[k]) for k in want),
+                 f"flagship {layout}: outputs differ from the directly loaded weights'")
+            info[f"flagship_{layout}"] = {"tensors": n, "load_s": t_load,
+                                          "detections": int(got["valid"].sum()),
+                                          "masks": int(got["mask_valid"].sum())}
+            log(f"  flagship from the {layout} layout, by bare name {path!r} through "
+                f"$HD_YOLO_WEIGHTS_DIR: {n} tensors, every one of the model, in {t_load:.2f} s; "
+                f"bf16 16 x 640 outputs bit for bit the directly loaded weights' "
+                f"({int(got['valid'].sum())} detections, {int(got['mask_valid'].sum())} masks)")
+            del det
+    finally:
+        if old is None:
+            os.environ.pop("HD_YOLO_WEIGHTS_DIR", None)
+        else:
+            os.environ["HD_YOLO_WEIGHTS_DIR"] = old
+    del direct
+    torch.cuda.empty_cache()
+    info["card"] = CARD.get("smi")
+    return launches, info
+
+
+NUCLS_TRAIN_SLIDES = ["TCGA-A2-A0CM-DX1", "TCGA-AR-A1AQ-DX1", "TCGA-BH-A0BG-DX1",
+                      "TCGA-E2-A1B6-DX1", "TCGA-OL-A5D6-DX1", "TCGA-S3-AA10-DX1"]
+NUCLS_TEST_SLIDE = "TCGA-A7-A4SE-DX1"
+NUCLS_GROUPS = ["tumor", "fibroblast", "lymphocyte", "plasma_cell", "macrophage",
+                "mitotic_figure", "apoptotic_body", "vascular_endothelium", "unlabeled",
+                "correction_tumor"]
+
+
+def write_nucls_layout(root: str, size: int = 640, per_fov: int = 80, fovs: int = 8,
+                       seed: int = 21) -> str:
+    """A synthetic NuCLS ``trainval`` layout in the real schema under
+    ``root``: ``rgb/<fov>.png`` (``size`` px, written with cv2), ``csv/<fov>.csv``
+    (about ``per_fov`` nuclei a FOV: group, type, box, ``coords_x`` /
+    ``coords_y`` polylines), ``train_test_splits/fold_1_{train,test}.csv``.
+    ``fovs`` FOVs for each of six training slides, one test slide and one
+    slide of ``EXCLUDE_SLIDE_IDS`` listed under training."""
+    import cv2
+    import pandas as pd
+
+    from hd_yolo_tpu_torch.data.nucls import EXCLUDE_SLIDE_IDS
+
+    rng = np.random.default_rng(seed)
+    excluded = EXCLUDE_SLIDE_IDS[0]
+    for d in ("rgb", "csv", "train_test_splits"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    t = np.linspace(0, 2 * np.pi, 13)[:-1]
+    for slide in NUCLS_TRAIN_SLIDES + [NUCLS_TEST_SLIDE, excluded]:
+        for f in range(fovs):
+            fov = f"{slide}_id-{rng.integers(1 << 48):012x}_left-{640 * f}_top-{1280 * f}"
+            img = rng.integers(150, 230, (size, size, 3), dtype=np.uint8)
+            k = int(rng.integers(per_fov - 10, per_fov + 11))
+            rows = []
+            for _ in range(k):
+                c = rng.uniform(20, size - 20, 2)
+                ax, ang = rng.uniform(5, 20, 2), rng.uniform(0, np.pi)
+                px = ax[0] * np.cos(t) * np.cos(ang) - ax[1] * np.sin(t) * np.sin(ang) + c[0]
+                py = ax[0] * np.cos(t) * np.sin(ang) + ax[1] * np.sin(t) * np.cos(ang) + c[1]
+                pts = np.clip(np.stack([px, py], 1), 0, size - 1).astype(np.int32)
+                g = NUCLS_GROUPS[int(rng.integers(len(NUCLS_GROUPS)))]
+                cv2.fillPoly(img, [pts], tuple(int(v) for v in rng.integers(40, 120, 3)))
+                rows.append({"raw_classification": g, "main_classification": g,
+                             "super_classification": g, "group": g, "type": "polyline",
+                             "xmin": int(pts[:, 0].min()), "ymin": int(pts[:, 1].min()),
+                             "xmax": int(pts[:, 0].max()), "ymax": int(pts[:, 1].max()),
+                             "coords_x": ",".join(map(str, pts[:, 0])),
+                             "coords_y": ",".join(map(str, pts[:, 1]))})
+            cv2.imwrite(os.path.join(root, "rgb", f"{fov}.png"), img)
+            pd.DataFrame(rows).to_csv(os.path.join(root, "csv", f"{fov}.csv"))
+    for split, slides in (("train", NUCLS_TRAIN_SLIDES + [excluded]), ("test", [NUCLS_TEST_SLIDE])):
+        pd.DataFrame({"slide_name": slides}).to_csv(
+            os.path.join(root, "train_test_splits", f"fold_1_{split}.csv"))
+    return root
+
+
+class LaunchLedger:
+    """Training callbacks that read the kernels' launch counts of each
+    epoch's micro-steps (reset at ``on_train_epoch_start``, read at
+    ``on_train_epoch_end``) and of its validation (read at
+    ``on_fit_epoch_end``), beside ``EpochClock``'s timing."""
+
+    def __init__(self, clock: "EpochClock"):
+        self.steps, self.val = [], []
+        cb = clock.callbacks
+        cb.register_action("on_train_epoch_start", "launches", kernels.reset_launches)
+        cb.register_action("on_train_epoch_end", "launches", self.end_steps)
+        cb.register_action("on_fit_epoch_end", "launches", self.end_val)
+        self.clock = clock
+
+    def end_steps(self, epoch):
+        self.steps.append((self.clock.steps, dict(kernels.LAUNCHES)))
+        kernels.reset_launches()
+
+    def end_val(self, *a):
+        self.val.append(dict(kernels.LAUNCHES))
+
+
+class GradWatch:
+    """``with GradWatch() as bad:`` each optimizer micro-step also reads its
+    gradient (a host sync a step).  A gradient holding inf or NaN appends
+    to ``bad`` the micro-step, its loss items, the parameters whose gradient
+    is non-finite (model order, with how many elements), the five largest
+    finite max|g| of the rest, the batch's target count and smallest box
+    side, and ``zero_side_candidates``: the det loss's candidates whose
+    decoded predicted height is 0 or at most 1e-18 of their width in f32
+    (an h logit below about -22 with the w logit near 0).  CIoU's
+    ``arctan(w1 / h1)`` (``ops/boxes.bbox_iou``, as JAX's) has a NaN
+    gradient once (w1 / h1)² overflows (an h logit below about -23):
+    arctan's derivative 0 times the quotient's -(w1 / h1) / h1 = -inf,
+    padded slots included, whatever the weights of the mean."""
+
+    def __enter__(self):
+        from hd_yolo_tpu_torch.engines import optim
+        from hd_yolo_tpu_torch.models import losses as losses_mod
+        from hd_yolo_tpu_torch.models import yolo
+
+        self.bad, self.steps, self.last = [], 0, {}
+        self.orig = (optim.Optimizer.update, yolo.Model.losses, losses_mod.bbox_iou)
+        upd, losses, iou = self.orig
+
+        def watched_losses(model, x, targets, *a, **k):
+            self.last = {"zero_side": []}
+            out = losses(model, x, targets, *a, **k)
+            self.last.update(targets=targets, losses=out[0])
+            return out
+
+        def watched_iou(box1, box2, *a, **k):
+            if box1.requires_grad:
+                self.last.setdefault("zero_side", []).append(
+                    (box1[..., 3] <= box1[..., 2] * 1e-18).sum())
+            return iou(box1, box2, *a, **k)
+
+        def watched_update(opt, grads):
+            finite = upd(opt, grads)
+            self.steps += 1
+            if not bool(finite):
+                self.bad.append(self.describe(opt, grads))
+            return finite
+
+        optim.Optimizer.update, yolo.Model.losses = watched_update, watched_losses
+        losses_mod.bbox_iou = watched_iou
+        return self.bad
+
+    @torch.no_grad()
+    def describe(self, opt, grads) -> dict:
+        rows, big = [], []
+        for n, g in zip(opt.names, grads):
+            if g is None:
+                continue
+            k = int((~torch.isfinite(g)).sum())
+            if k:
+                rows.append((n, k))
+            else:
+                big.append((float(g.float().abs().max()), n))
+        items = {}
+        for task, lt in self.last.get("losses", {}).items():
+            if isinstance(lt, dict) and "loss_items" in lt:
+                items[task] = {k: float(v) for k, v in lt["loss_items"].items()}
+        t = {}
+        for task, tt in self.last.get("targets", {}).items():
+            v = tt["valid"].bool()
+            b = tt["boxes"][v].float()
+            t[task] = {"targets": int(v.sum()),
+                       "min_side": float((b[:, 2:] - b[:, :2]).min()) if len(b) else None}
+        return {"micro_step": self.steps, "loss_items": items, "nonfinite": rows[:20],
+                "n_nonfinite_params": len(rows), "largest_finite": sorted(big)[-5:],
+                "batch": t, "zero_side_candidates": int(sum(self.last.get("zero_side", [])))}
+
+    def __exit__(self, *exc):
+        from hd_yolo_tpu_torch.engines import optim
+        from hd_yolo_tpu_torch.models import losses as losses_mod
+        from hd_yolo_tpu_torch.models import yolo
+
+        optim.Optimizer.update, yolo.Model.losses, losses_mod.bbox_iou = self.orig
+        return False
+
+
+# 3 micro-steps an epoch (48 training FOVs at batch 16), an update each.
+# CIoU's NaN gradient (ROADMAP C.2) skipped 8 of 54 micro-steps over nine
+# 2-epoch runs from these seeded weights, and 2 of 6 in one: 3 epochs keep
+# ">= 4 updates" from failing on that known skip.
+NUCLS_EPOCHS = 3
+
+
+def phase_nucls_finetune(iters: int):
+    """Phase 21: a synthetic NuCLS layout converted by ``python -m
+    hd_yolo_tpu_torch.data.nucls``, then ``engines/train.main`` fine-tunes
+    the flagship from phase 20's ultralytics ``.pt`` on it (bf16, masks,
+    batch 16 x 640, ``NUCLS_EPOCHS`` epochs)."""
+    import tempfile
+
+    from hd_yolo_tpu_torch.engines import train as train_mod
+
+    info = {}
+    ck = flagship_checkpoints()
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        layout = write_nucls_layout(os.path.join(d, "trainval"))
+        info["layout_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "hd_yolo_tpu_torch.data.nucls", "--data_dir",
+                            layout, "--output_dir", os.path.join(d, "native")],
+                           capture_output=True, text=True, timeout=300,
+                           cwd=os.path.dirname(os.path.abspath(__file__)))
+        info["convert_s"] = time.perf_counter() - t0
+        need(r.returncode == 0, f"the NuCLS converter failed: {r.stderr[-2000:]}")
+        paths = json.loads(r.stdout.strip().splitlines()[-1])["native"]
+        n_split = {s: sum(1 for _ in open(paths[s])) - 1 for s in ("train", "val")}
+        need(n_split["train"] >= 48 and n_split["val"] >= 1,
+             f"NuCLS splits: {n_split} (the excluded slide's FOVs must be gone)")
+        log(f"  NuCLS layout of {8 * 8} FOVs written in {info['layout_s']:.1f} s, converted in "
+            f"{info['convert_s']:.1f} s: {n_split['train']} training and {n_split['val']} "
+            f"validation FOVs (the excluded slide's 8 dropped)")
+        info["splits"] = n_split
+
+        loaded = []
+        orig = train_mod.load_pretrained
+
+        def spy(model, name):
+            n = orig(model, name)
+            loaded.append((n, len(model.state_dict())))
+            return n
+
+        clock = EpochClock(16)
+        ledger = LaunchLedger(clock)
+        save_dir = os.path.join(d, "run")
+        argv = lambda epochs, out: train_mod.argument_parser().parse_args([
+            "--cfg", "yolov5l6-mask", "--hyp", "hyp-nuclei", "--data", paths["data"],
+            "--weights", ck["ultralytics"], "--masks", "--batch-size", "16",
+            "--nominal-batch-size", "16", "--img-size", "640", "--epochs", str(epochs),
+            "--save-dir", out, "--workers", "8"])
+        train_mod.load_pretrained = spy
+        try:
+            with GradWatch() as bad:
+                t0 = time.perf_counter()
+                train_mod.train(argv(NUCLS_EPOCHS, save_dir), clock.callbacks)
+                info["train_s"] = time.perf_counter() - t0
+            # the first epoch again, each roi_align_bwd call held against its
+            # plain version on the same inputs (untimed: the plain backward
+            # costs seconds a call)
+            with shadow_backwards() as held, GradWatch() as bad_shadowed:
+                train_mod.train(argv(1, save_dir + "_shadowed"), EpochClock(16).callbacks)
+        finally:
+            train_mod.load_pretrained = orig
+        info["backwards_held"] = held
+        log(f"  the first epoch again, every roi_align_bwd call held against its plain version: "
+            f"{held}")
+        # a skipped micro-step passes only where CIoU's zero-side NaN (the
+        # JAX package's, ROADMAP C.2) explains it
+        for what, b in (("the fine-tune", bad), ("its shadowed first epoch", bad_shadowed)):
+            need(all(x["zero_side_candidates"] > 0 for x in b),
+                 f"{what}: a non-finite gradient without a zero-side CIoU candidate: "
+                 f"{json.dumps(b, default=str)}")
+        info["skipped"] = [{k: x[k] for k in ("micro_step", "zero_side_candidates",
+                                              "n_nonfinite_params")} for x in bad]
+        info["skipped_shadowed"] = len(bad_shadowed)
+        if bad or bad_shadowed:
+            log(f"  skipped micro-steps, each with a zero-side CIoU candidate: {info['skipped']} "
+                f"(the fine-tune), {len(bad_shadowed)} (the shadowed epoch); the first: "
+                f"{json.dumps((bad or bad_shadowed)[0], default=str)}")
+        need(len(loaded) == 2 and all(n == total for n, total in loaded),
+             f"--weights loaded {loaded} (tensors, of the model's)")
+        for name in ("last.pt", "final.pt", "best.pt"):
+            need(os.path.isfile(os.path.join(save_dir, name)), f"train did not write {name}")
+        rows = [json.loads(l) for l in open(os.path.join(save_dir, "results.json"))]
+        need([r["epoch"] for r in rows] == list(range(NUCLS_EPOCHS))
+             and all("detSC/map50" in r for r in rows),
+             f"EMA validation did not run each epoch: {rows}")
+        need(all(np.isfinite(r["loss"]) for r in rows), f"non-finite loss: {rows}")
+        saved = torch.load(os.path.join(save_dir, "last.pt"), map_location="cpu",
+                           weights_only=False)
+        steps, updates = int(saved["step"]), int(saved["opt"]["count"])
+        need(updates >= 4 and updates == steps - len(bad),
+             f"{updates} optimizer updates in {steps} micro-steps with {len(bad)} skipped, "
+             f"need >= 4 and every other one")
+        n0, micro = ledger.steps[0]
+        per = {k: v / max(n0, 1) for k, v in micro.items() if v}
+        need(per.get("roi_align") == 1 and per.get("roi_align_bwd") == 1
+             and micro["stem_tc"] == 0 and micro["nms"] == 0 and micro["mask_head"] == 0,
+             f"a micro-step's launches: {per} ({micro} over {n0} steps)")
+        val_l = ledger.val[0]
+        need(val_l["stem_tc"] >= 1 and val_l["nms"] >= 1 and val_l["mask_head"] >= 1,
+             f"validation's launches: {val_l}")
+        info.update(tensors_loaded=loaded[0][0], steps=steps, updates=updates,
+                    skipped_nonfinite=steps - updates,
+                    loss_by_epoch=[r["loss"] for r in rows],
+                    fitness_by_epoch=[r["fitness"] for r in rows],
+                    img_per_s_by_epoch=clock.img_per_s, micro_step_launches=per,
+                    val_launches=val_l)
+        log(f"  train.main --weights <the ultralytics .pt>: {loaded[0][0]} tensors loaded, every "
+            f"one of the model's; {steps} micro-steps, {updates} updates (apply-if-finite "
+            f"skipped {steps - updates}) in {info['train_s']:.1f} s; loss by epoch "
+            f"{[round(v, 4) for v in info['loss_by_epoch']]}, EMA fitness "
+            f"{[round(v, 4) for v in info['fitness_by_epoch']]}; img/s of each epoch's steps "
+            f"{[round(v, 2) for v in clock.img_per_s]}; launches a micro-step {per}, in one "
+            f"epoch's validation {val_l}")
+    info["card"] = CARD.get("smi")
+    return {"micro_step": {k: v // max(n0, 1) for k, v in micro.items()}, "val": val_l}, info
+
+
+# ultralytics/yolov5 models/hub/yolov5s-ghost.yaml (v6.0) and v3.1's
+# models/yolov5s.yaml, row for row
+HUB_PRESETS = {
+    "yolov5s-ghost": {
+        "nc": 80, "depth_multiple": 0.33, "width_multiple": 0.50,
+        "anchors": [[10, 13, 16, 30, 33, 23], [30, 61, 62, 45, 59, 119],
+                    [116, 90, 156, 198, 373, 326]],
+        "backbone": [[-1, 1, "Conv", [64, 6, 2, 2]], [-1, 1, "GhostConv", [128, 3, 2]],
+                     [-1, 3, "C3Ghost", [128]], [-1, 1, "GhostConv", [256, 3, 2]],
+                     [-1, 6, "C3Ghost", [256]], [-1, 1, "GhostConv", [512, 3, 2]],
+                     [-1, 9, "C3Ghost", [512]], [-1, 1, "GhostConv", [1024, 3, 2]],
+                     [-1, 3, "C3Ghost", [1024]], [-1, 1, "SPPF", [1024, 5]]],
+        "head": [[-1, 1, "GhostConv", [512, 1, 1]], [-1, 1, "nn.Upsample", [None, 2, "nearest"]],
+                 [[-1, 6], 1, "Concat", [1]], [-1, 3, "C3Ghost", [512, False]],
+                 [-1, 1, "GhostConv", [256, 1, 1]], [-1, 1, "nn.Upsample", [None, 2, "nearest"]],
+                 [[-1, 4], 1, "Concat", [1]], [-1, 3, "C3Ghost", [256, False]],
+                 [-1, 1, "GhostConv", [256, 3, 2]], [[-1, 14], 1, "Concat", [1]],
+                 [-1, 3, "C3Ghost", [512, False]], [-1, 1, "GhostConv", [512, 3, 2]],
+                 [[-1, 10], 1, "Concat", [1]], [-1, 3, "C3Ghost", [1024, False]],
+                 [[17, 20, 23], 1, "Detect", ["nc", "anchors"]]]},
+    "yolov5s-v3.1": {
+        "nc": 80, "depth_multiple": 0.33, "width_multiple": 0.50,
+        "anchors": [[10, 13, 16, 30, 33, 23], [30, 61, 62, 45, 59, 119],
+                    [116, 90, 156, 198, 373, 326]],
+        "backbone": [[-1, 1, "Focus", [64, 3]], [-1, 1, "Conv", [128, 3, 2]],
+                     [-1, 3, "BottleneckCSP", [128]], [-1, 1, "Conv", [256, 3, 2]],
+                     [-1, 9, "BottleneckCSP", [256]], [-1, 1, "Conv", [512, 3, 2]],
+                     [-1, 9, "BottleneckCSP", [512]], [-1, 1, "Conv", [1024, 3, 2]],
+                     [-1, 1, "SPP", [1024, [5, 9, 13]]], [-1, 3, "BottleneckCSP", [1024, False]]],
+        "head": [[-1, 1, "Conv", [512, 1, 1]], [-1, 1, "nn.Upsample", [None, 2, "nearest"]],
+                 [[-1, 6], 1, "Concat", [1]], [-1, 3, "BottleneckCSP", [512, False]],
+                 [-1, 1, "Conv", [256, 1, 1]], [-1, 1, "nn.Upsample", [None, 2, "nearest"]],
+                 [[-1, 4], 1, "Concat", [1]], [-1, 3, "BottleneckCSP", [256, False]],
+                 [-1, 1, "Conv", [256, 3, 2]], [[-1, 14], 1, "Concat", [1]],
+                 [-1, 3, "BottleneckCSP", [512, False]], [-1, 1, "Conv", [512, 3, 2]],
+                 [[-1, 10], 1, "Concat", [1]], [-1, 3, "BottleneckCSP", [1024, False]],
+                 [[17, 20, 23], 1, "Detect", ["nc", "anchors"]]]},
+}
+
+
+def hub_train_reference(cfg, B: int = 2, size: int = 256, updates: int = 8) -> dict:
+    """``updates`` training updates of ``cfg`` in f32 from one fresh model
+    (flax-default init, seed 0) on the card and on the CPU, the same batch:
+    the loss of each micro-step within rtol 2e-3 of the CPU's (the CPU's
+    threaded reductions alone move the loss between two runs there)."""
+    from hd_yolo_tpu_torch.engines.optim import build_optimizer
+    from hd_yolo_tpu_torch.engines.train import scale_task_hyp
+    from hd_yolo_tpu_torch.engines.train_step import TrainState, make_train_step, to_device
+    from hd_yolo_tpu_torch.models.builder import parse_model_cfg
+    from hd_yolo_tpu_torch.models.yolo import Model
+
+    hyp = scale_task_hyp(load_cfg("hyp-nuclei"), parse_model_cfg(cfg, "hyp-nuclei"), size)
+    xb, tb = af_batch(5, B=B, max_t=32, size=size)
+    losses = {}
+    for dev in ("cuda", "cpu"):
+        m = Model.from_cfg(cfg, hyp)
+        m.init_weights(torch.Generator().manual_seed(0))
+        m.to(dev)
+        state = TrainState.create(m, build_optimizer(m, hyp, 2, 4))
+        step = make_train_step(mask_weight=0.0)
+        batch = to_device({"image": xb, "targets": tb}, dev)
+        with torch.enable_grad():
+            losses[dev] = [float(step(state, batch)[1]["loss"]) for _ in range(updates)]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
+    need(rel <= 2e-3, f"f32 training card vs CPU: {losses}")
+    log(f"  f32 training, {B} x {size}, {updates} updates from the fresh model: the card's losses "
+        f"{[round(v, 5) for v in losses['cuda']]} within {rel:.2e} (relative) of the CPU's")
+    return {"losses_card": losses["cuda"], "losses_cpu": losses["cpu"], "max_rel_err": rel}
+
+
+def phase_hub(iters: int):
+    """Phase 22: two hub presets at their published widths, parsed by
+    ``normalize_legacy_cfg`` (tag ``det``, no mask branch), seeded weights
+    with the objectness calibrated: one bf16 16 x 640 batch's launches and
+    its NMS call held bit for bit, card vs CPU in f32 on 2 x 640, the step
+    and a profiled step, 8 updates from the fresh model, masks off, and the
+    f32 training card vs CPU (``hub_train_reference``)."""
+    from hd_yolo_tpu_torch.engines.train_step import make_train_step, to_device
+    from hd_yolo_tpu_torch.models.builder import normalize_legacy_cfg
+
+    launches, info = {}, {}
+    for p, (name, cfg) in enumerate(HUB_PRESETS.items()):
+        spec_cfg = normalize_legacy_cfg(cfg)
+        need(len(spec_cfg["headers"]) == 1 and spec_cfg["headers"][0][4] == "det",
+             f"{name}: legacy layout not normalised")
+        r = info[name] = {}
+        gen = torch.Generator(device="cuda").manual_seed(22 + p)
+        x = torch.randint(0, 256, (16, 640, 640, 3), generator=gen, device="cuda",
+                          dtype=torch.uint8)
+        det = Detector(cfg, "hyp-nuclei", device="cuda", seed=p)
+        calibrate_objectness(det, x, 0.01)
+        det.tiles(x)
+        with capture_calls((pallas_nms, "nms_padded_pallas")) as seen:
+            launches[name], out = path_launches(lambda: det.tiles(x))
+        stem_tc = 1 if name == "yolov5s-ghost" else 0
+        for k, n in (("stem_tc", stem_tc), ("stem", 0), ("nms", 1), ("roi_align", 0),
+                     ("mask_head", 0)):
+            need(launches[name][k] == n,
+                 f"{name}: {k} launched {launches[name][k]} times, expected {n}")
+        o = out["det"]
+        need(bool(torch.isfinite(o["boxes"]).all()) and int(o["valid"].sum()) >= 16,
+             f"{name}: non-finite boxes or too few detections")
+        r["params"] = sum(q.numel() for q in det.model.parameters())
+        r["detections_per_tile"] = int(o["valid"].sum()) / 16
+        r["held"] = hold_path_calls(seen, name)
+        r["step"] = timed_steps(lambda: det.tiles(x), iters)
+        log(f"  {name} ({r['params']:,} parameters): launches {launches[name]}; "
+            f"{r['detections_per_tile']:.2f} detections a tile; step median "
+            f"{r['step']['median_ms']:.2f} ms over {iters} (min {r['step']['min_ms']:.2f}, max "
+            f"{r['step']['max_ms']:.2f}), {16e3 / r['step']['median_ms']:.1f} tiles/s")
+        r["step"].update(profile_step(lambda: det.tiles(x)))
+        del det
+        torch.cuda.empty_cache()
+
+        # the card against the CPU in f32
+        xs = np.random.default_rng(22 + p).integers(0, 256, (2, 640, 640, 3), dtype=np.uint8)
+        gpu = Detector(cfg, "hyp-nuclei", device="cuda", dtype=torch.float32, seed=p)
+        calibrate_objectness(gpu, xs, 0.01)
+        cpu = Detector(cfg, "hyp-nuclei", device="cpu", dtype=torch.float32, seed=p)
+        cpu.model.load_state_dict(gpu.model.state_dict())
+        a = {k: t.cpu() for k, t in gpu.tiles(xs)["det"].items()}
+        matched, total, _ = match_detections(a, cpu.tiles(xs)["det"])
+        need(total >= 10 and matched >= 0.98 * total,
+             f"{name}: {matched} of the CPU's {total} detections found again on the card")
+        r["reference"] = {"detections_cpu": total, "matched": matched}
+        log(f"  {name} f32 2 x 640: {matched} of the CPU's {total} detections found again")
+        del gpu, cpu
+
+        # training from the fresh model, masks off
+        state, _ = train_phase_state(cfg)
+        step = make_train_step(mask_weight=0.0)
+        xb, tb = af_batch(22 + p, B=16, max_t=64)
+        batch = to_device({"image": xb, "targets": tb}, "cuda")
+
+        def batch_items():
+            state.model.train()
+            with torch.no_grad():
+                losses_, _ = state.model.losses(batch["image"], batch["targets"],
+                                                compute_masks=False)
+            items = {k: float(v) for k, v in losses_["det"]["loss_items"].items()}
+            return float(state.model.total_loss(losses_, 0.0)), items
+
+        before, items0 = batch_items()
+        with torch.enable_grad():
+            for _ in range(8):
+                step(state, batch)
+        after, items1 = batch_items()
+        need(all(np.isfinite(v) for v in (before, after, *items1.values())),
+             f"{name}: non-finite loss after 8 updates: {after} {items1}")
+        need(items1["box"] < items0["box"] and items1["cls"] < items0["cls"],
+             f"{name}: box or cls loss did not fall over 8 updates: {items0} -> {items1}")
+        r["train"] = {"loss_before": before, "loss_after": after, "items_before": items0,
+                      "items_after": items1, "reference": hub_train_reference(cfg)}
+        log(f"  {name} training, masks off, bf16 16 x 640: loss on the batch before 8 updates "
+            f"(the fresh model) {before:.4f}, after {after:.4f}; items {items0} -> {items1}")
+        del state, step, batch
+        torch.cuda.empty_cache()
+    info["card"] = CARD.get("smi")
+    return launches, info
+
+
 ONLY_PATHS = {
     "device_augment": "[16] device augmentation: yolov5l6-mask, batch 16 x 640, bf16, masks, "
                       "raw mode",
@@ -3934,9 +4630,16 @@ ONLY_PATHS = {
     "anchor_free": "[18] anchor-free: yolov6s-af (AFDetect, SimOTA), batch 16 x 640, bf16",
     "ensemble": "[19] ensemble: yolov5l6-mask + yolov5l6-multihead merged on detSC, batch 16 x "
                 "640, bf16",
+    "pretrained": "[20] pretrained: the reference checkpoint fixtures on tiny2l (f32, masks), the "
+                  "flagship from both layouts by bare name",
+    "nucls_finetune": "[21] NuCLS fine-tune: 64 synthetic FOVs converted, train.main on the "
+                      "flagship from the ultralytics .pt, batch 16 x 640, bf16, masks",
+    "hub": "[22] hub presets at published widths: yolov5s-ghost (v6.0), yolov5s (v3.1), batch "
+           "16 x 640, bf16",
 }
 PATH_PHASES = {"multihead": phase_multihead, "anchor_free": phase_anchor_free,
-               "ensemble": phase_ensemble}
+               "ensemble": phase_ensemble, "pretrained": phase_pretrained,
+               "nucls_finetune": phase_nucls_finetune, "hub": phase_hub}
 
 
 def main(argv=None) -> int:
@@ -3945,8 +4648,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/H100 port.")
     ap.add_argument("--only", default="",
                     help="comma-separated phase-3 kernel names or paths (device_augment, "
-                         "multihead, anchor_free, ensemble): build, run only their phases and "
-                         "stop (no result lines); without it, every phase")
+                         "multihead, anchor_free, ensemble, pretrained, nucls_finetune, hub): "
+                         "build, run only their phases and stop (no result lines); without it, "
+                         "every phase")
     ap.add_argument("--hnet-loss-trials", type=int, default=0, metavar="N",
                     help="build, run phase 15's loss check N times (hnet_loss_trials) and stop")
     ap.add_argument("--step-calls", default="", metavar="PATH",
@@ -3964,6 +4668,7 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     name = torch.cuda.get_device_name(0)
+    CARD["smi"] = smi
     log(f"[1] card: {smi} | torch {torch.__version__} cuda {torch.version.cuda} | {name}")
     # the plain versions are the references: full f32, no TF32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3992,6 +4697,7 @@ def main(argv=None) -> int:
     results = {}
     for kname, fn in (("stem", phase_stem), ("stem_tc", phase_stem_tc), ("nms", phase_nms),
                       ("roi_align", phase_roi), ("mask_head", phase_mask_head),
+                      ("mask_head_f32", phase_mask_head_f32),
                       ("roi_align_single", phase_roi_single),
                       ("roi_align_single_bwd", phase_roi_single_bwd),
                       ("stem_k108", phase_stem_k108), ("stem_dot108", phase_stem_dot108)):
@@ -4074,6 +4780,15 @@ def main(argv=None) -> int:
     log(ONLY_PATHS["ensemble"])
     ens_launches, ens_info = phase_ensemble(10)
     log("  " + json.dumps({"ensemble": ens_info}, default=float))
+    log(ONLY_PATHS["pretrained"])
+    pre_launches, pre_info = phase_pretrained(10)
+    log("  " + json.dumps({"pretrained": pre_info}, default=float))
+    log(ONLY_PATHS["nucls_finetune"])
+    nucls_launches, nucls_info = phase_nucls_finetune(10)
+    log("  " + json.dumps({"nucls_finetune": nucls_info}, default=float))
+    log(ONLY_PATHS["hub"])
+    hub_launches, hub_info = phase_hub(10)
+    log("  " + json.dumps({"hub": hub_info}, default=float))
 
     paths = {"flagship": launches, "defaults": default_launches, "hnet": hnet_launches,
              "lab": lab_launches, "slide": slide_launches, "val": val_launches,
@@ -4082,10 +4797,14 @@ def main(argv=None) -> int:
              "device_augment": aug_launches, "multihead": mh_launches,
              "multihead_defaults": mh_default_launches, "multihead_train": mh_train_launches,
              "anchor_free": af_launches, "anchor_free_train": af_train_launches,
-             "ensemble": ens_launches}
+             "ensemble": ens_launches, "pretrained": pre_launches["metayolo_tiny"],
+             "nucls_finetune": nucls_launches["micro_step"],
+             "nucls_finetune_val": nucls_launches["val"],
+             "hub_ghost": hub_launches["yolov5s-ghost"], "hub_v3.1": hub_launches["yolov5s-v3.1"]}
     main_path = {k: "flagship" for k in FLAGSHIP_KERNELS}
-    main_path.update(roi_align_single="hnet", stem_k108="lab", stem_dot108="lab", stem="lab",
-                     roi_align_bwd="train", roi_align_single_bwd="hnet_train")
+    main_path.update(mask_head_f32="pretrained", roi_align_single="hnet", stem_k108="lab",
+                     stem_dot108="lab", stem="lab", roi_align_bwd="train",
+                     roi_align_single_bwd="hnet_train")
     results["nms"]["stitch"] = stitch
     results["nms"]["hnet"] = {k: v for k, v in hnet_times.items() if k.startswith("nms")}
     results["roi_align"]["hnet"] = {k: v for k, v in hnet_times.items()

@@ -76,7 +76,7 @@ def label_params(model: nn.Module, freeze: Optional[Sequence[str]] = None) -> Di
                 labels[name] = "frozen"
             elif isinstance(mod, NORMS) and pname == "weight":
                 labels[name] = "bn_scale"
-            elif pname == "bias":
+            elif pname.endswith("bias"):        # also attention's in_proj_bias
                 labels[name] = "bias"
             else:
                 labels[name] = "kernel"

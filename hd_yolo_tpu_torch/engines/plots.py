@@ -1,11 +1,10 @@
-"""Visualization: detection overlays and PR / metric curves (port of
-``hd_yolo_tpu/engines/plots.py``, the parts validation and
-``Detections.render`` use).
+"""Visualization: detection overlays, PR / metric curves and the training
+plots (port of ``hd_yolo_tpu/engines/plots.py``).
 
-Host-side: OpenCV draws the overlays and matplotlib the curves, each
-imported inside the function that needs it.  The training-time plots
-(``plot_labels``, ``plot_evolve``, ``plot_results``,
-``feature_visualization``) come with yolo training.
+Host-side: OpenCV draws the overlays and matplotlib the curves and the
+training plots (``feature_visualization``, ``plot_labels``,
+``plot_evolve``, ``plot_results``), each imported inside the function that
+needs it, so that the inference path runs where matplotlib is absent.
 """
 
 from __future__ import annotations
@@ -167,3 +166,132 @@ def plot_apmeter_stats(stats: Dict, save_dir: str, prefix: str = "",
     plot_mc_curve(stats["px"], stats["f1"], j(save_dir, f"{prefix}F1_curve.png"), names, ylabel="F1")
     plot_mc_curve(stats["px"], stats["p"], j(save_dir, f"{prefix}P_curve.png"), names, ylabel="Precision")
     plot_mc_curve(stats["px"], stats["r"], j(save_dir, f"{prefix}R_curve.png"), names, ylabel="Recall")
+
+
+def feature_visualization(fmap: np.ndarray, save_path: str, n_max: int = 32):
+    """Per-stage channel grid: fmap (H, W, C), the first ``n_max`` channels."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    c = min(fmap.shape[-1], n_max)
+    cols = 8
+    rows = int(np.ceil(c / cols))
+    fig, axes = plt.subplots(rows, cols, figsize=(cols * 1.5, rows * 1.5), tight_layout=True)
+    for i, ax in enumerate(np.atleast_1d(axes).ravel()):
+        ax.axis("off")
+        if i < c:
+            ax.imshow(fmap[..., i], cmap="viridis")
+    os.makedirs(os.path.dirname(os.path.abspath(save_path)), exist_ok=True)
+    fig.savefig(save_path, dpi=150)
+    plt.close(fig)
+
+
+def plot_labels(labels: np.ndarray, names: Sequence[str] = (),
+                save_dir: str = "."):
+    """Dataset label statistics → labels.jpg:
+    class histogram, xy / wh 2-D densities, first-1000 box rectangles.
+    Matplotlib-only (the reference's seaborn correlogram is a styling layer
+    over the same marginals)."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    labels = np.asarray(labels, np.float64)
+    c, b = labels[:, 0].astype(int), labels[:, 1:5]
+    nc = int(c.max()) + 1 if len(c) else 1
+    fig, ax = plt.subplots(2, 2, figsize=(8, 8), tight_layout=True)
+    ax = ax.ravel()
+    ax[0].hist(c, bins=np.linspace(0, nc, nc + 1) - 0.5, rwidth=0.8)
+    ax[0].set_ylabel("instances")
+    if 0 < len(names) < 30:
+        ax[0].set_xticks(range(len(names)))
+        ax[0].set_xticklabels(list(names), rotation=90, fontsize=10)
+    else:
+        ax[0].set_xlabel("classes")
+    # first-1000 rectangles centred on a unit canvas
+    ax[1].set_xlim(0, 1); ax[1].set_ylim(0, 1); ax[1].axis("off")
+    for cls, x, y, w, h in labels[:1000, :5]:
+        ax[1].add_patch(plt.Rectangle((0.5 - w / 2, 0.5 - h / 2), w, h,
+                                      fill=False, linewidth=0.5))
+    if len(b):
+        ax[2].hist2d(b[:, 0], b[:, 1], bins=50, cmap="viridis")
+        ax[2].set_xlabel("x"); ax[2].set_ylabel("y")
+        ax[3].hist2d(b[:, 2], b[:, 3], bins=50, cmap="viridis")
+        ax[3].set_xlabel("width"); ax[3].set_ylabel("height")
+    os.makedirs(save_dir, exist_ok=True)
+    fig.savefig(os.path.join(save_dir, "labels.jpg"), dpi=200)
+    plt.close(fig)
+    return os.path.join(save_dir, "labels.jpg")
+
+
+def plot_evolve(evolve_csv: str):
+    """Hyp-evolution scatter grid → evolve.png:
+    one panel per evolved hyp, fitness on y, best generation marked."""
+    import csv as _csv
+
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    with open(evolve_csv) as f:
+        rows = list(_csv.DictReader(f))
+    if not rows:
+        return None
+    fit = np.asarray([float(r["fitness"]) for r in rows])
+    keys = [k for k in rows[0] if k not in ("generation", "fitness")]
+    j = int(np.argmax(fit))
+    ncol = 5
+    nrow = max((len(keys) + ncol - 1) // ncol, 1)
+    fig = plt.figure(figsize=(10, 2.2 * nrow), tight_layout=True)
+    for i, k in enumerate(keys):
+        v = np.asarray([float(r[k]) if r[k] not in ("", None) else np.nan
+                        for r in rows])
+        axp = fig.add_subplot(nrow, ncol, i + 1)
+        axp.scatter(v, fit, c=fit, cmap="viridis", alpha=0.8,
+                    edgecolors="none")
+        axp.plot(v[j], fit[j], "k+", markersize=15)
+        axp.set_title(f"{k} = {v[j]:.3g}", fontdict={"size": 9})
+        if i % ncol != 0:
+            axp.set_yticks([])
+    out = os.path.splitext(evolve_csv)[0] + ".png"
+    fig.savefig(out, dpi=200)
+    plt.close(fig)
+    return out
+
+
+def plot_results(results_json: str):
+    """Per-epoch training curves → results.png from the json-lines results
+    file the loggers write."""
+    import json as _json
+
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    rows = [_json.loads(ln) for ln in open(results_json) if ln.strip()]
+    if not rows:
+        return None
+    cols = [k for k in rows[0] if k != "epoch"
+            and isinstance(rows[0][k], (int, float))]
+    x = [r.get("epoch", i) for i, r in enumerate(rows)]
+    ncol = 4
+    nrow = max((len(cols) + ncol - 1) // ncol, 1)
+    fig, ax = plt.subplots(nrow, ncol, figsize=(ncol * 4, nrow * 3),
+                           tight_layout=True, squeeze=False)
+    ax = ax.ravel()
+    for i, k in enumerate(cols):
+        y = [r.get(k, np.nan) for r in rows]
+        ax[i].plot(x, y, marker=".", linewidth=2, markersize=6)
+        ax[i].set_title(k, fontsize=11)
+    for a in ax[len(cols):]:
+        a.axis("off")
+    out = os.path.join(os.path.dirname(os.path.abspath(results_json)),
+                       "results.png")
+    fig.savefig(out, dpi=200)
+    plt.close(fig)
+    return out

@@ -9,10 +9,14 @@ raises nothing else.  The flags are the JAX package's plus ``--device``.
 Per-header hyp rescaling is applied before the model is built: box·3/nl,
 cls·nc/80·3/nl, obj·(imgsz/640)²·3/nl.  A fresh model starts from
 ``Model.init_weights`` (flax's default distributions, seeded by ``--seed``);
-``--weights`` merges a port ``.pt`` state_dict or a pickled flax
-``{'params', 'batch_stats'}`` tree into it, tensor by tensor where the
-shapes agree.  Validation runs ``engines/val.run`` on the EMA parameters
-with the live BatchNorm statistics.  Checkpoints: ``last`` / ``best``
+``--weights`` (a path, or a bare name searched by
+``utils/downloads.attempt_download``) merges into it, tensor by tensor
+where the shapes agree, a ``.pt`` checkpoint through
+``utils/import_torch`` (a port or reference metayolo state_dict, an
+ultralytics ``model.{i}`` one, a pickled module, bare or under ``ema`` /
+``model`` / ``state_dict``) or a pickled flax ``{'params', 'batch_stats'}``
+tree.  Validation runs ``engines/val.run`` on the EMA parameters with the
+live BatchNorm statistics.  Checkpoints: ``last`` / ``best``
 (``.pt`` + ``.json``, the whole train state) and ``final.pt`` (the EMA
 inference weights).
 
@@ -25,10 +29,10 @@ drawn from 0.5-1.5x ``--img-size`` (dropped under ``--cache-device``).
 ``--batch-size -1`` fits the batch to the card's memory
 (``engines/autobatch.py``), ``--autoanchor`` reports the anchors' fit
 (``engines/autoanchor.py``) and ``--evolve N`` evolves the hyperparameters
-over N trainings (``engines/evolve.py``).
-
-Still not ported, raising ``NotImplementedError`` naming ROADMAP A.5:
-``--plots`` and a reference training ``.pt`` as ``--weights``.
+over N trainings (``engines/evolve.py``).  ``--plots`` writes the
+dataset's display dumps and ``labels.jpg`` at the start and
+``results.png`` at the end (``engines/plots.py``); it needs matplotlib and
+raises ``ImportError`` before the first step where matplotlib is missing.
 """
 
 from __future__ import annotations
@@ -48,7 +52,9 @@ from ..data.preproc import model_input
 from ..detector import resolve_device
 from ..models.builder import parse_model_cfg
 from ..models.yolo import Model
+from ..utils.downloads import attempt_download
 from ..utils.general import check_img_size
+from ..utils.import_torch import import_state_dict, read_checkpoint
 from . import val as val_engine
 from .callbacks import Callbacks
 from .checkpoint import restore_train_state, save_checkpoint, save_inference, wait_for_saves
@@ -95,11 +101,44 @@ class EarlyStopping:
         return stop
 
 
-def _deferred(opt) -> None:
-    """Raise for the flags whose modules are not ported yet."""
-    if getattr(opt, "plots", False):
-        raise NotImplementedError("--plots (training plots need matplotlib) is not ported to "
-                                  "hd_yolo_tpu_torch yet (ROADMAP A.5)")
+def _check_plots(opt) -> None:
+    """``--plots`` draws with matplotlib: raise before the first step where
+    it does not import."""
+    if opt.plots:
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError as e:
+            raise ImportError("--plots draws its plots with matplotlib, which does not import "
+                              "here; install it or leave --plots out") from e
+
+
+def plot_dataset(train_ds, val_ds, data_info: Dict, img_size: int, save_dir: str) -> None:
+    """``--plots`` at the start: the first 16 validation tiles with their
+    boxes under ``display_dataset/``, and ``labels.jpg`` of the first 128
+    training samples' first task."""
+    from .plots import plot_labels, save_detection_overlay
+
+    disp = os.path.join(save_dir, "display_dataset")
+    meta0 = next(iter((data_info.get("meta_info") or {}).values()), {})
+    for di in range(min(len(val_ds), 16)):
+        s = val_ds[di]
+        t = next(iter(s["targets"].values()))
+        v = np.asarray(t["valid"])
+        save_detection_overlay(os.path.join(disp, f"val_{di:04d}.png"),
+                               np.asarray(s["image"], np.uint8),
+                               {"boxes": np.asarray(t["boxes"])[v] * img_size,
+                                "labels": np.asarray(t["labels"])[v]}, meta=meta0)
+    rows = []
+    for di in range(min(len(train_ds), 128)):
+        t = next(iter(train_ds[di]["targets"].values()))
+        v = np.asarray(t["valid"])
+        b = np.asarray(t["boxes"])[v]                      # normalized xyxy
+        if len(b):
+            xywh = np.stack([(b[:, 0] + b[:, 2]) / 2, (b[:, 1] + b[:, 3]) / 2,
+                             b[:, 2] - b[:, 0], b[:, 3] - b[:, 1]], 1)
+            rows.append(np.concatenate([np.asarray(t["labels"])[v][:, None], xywh], 1))
+    if rows:
+        plot_labels(np.concatenate(rows), save_dir=save_dir)
 
 
 def autobatch_size(model: Model, hyp: dict, opt, device, info: Optional[Dict] = None) -> int:
@@ -129,21 +168,16 @@ def autobatch_size(model: Model, hyp: dict, opt, device, info: Optional[Dict] = 
         model.load_state_dict(saved)
 
 
-def load_pretrained(model: Model, path: str) -> int:
-    """Merge a port ``.pt`` state_dict or a pickled flax tree into ``model``
-    where names and shapes agree; returns the tensors loaded.  A reference
-    training checkpoint (a pickled module, not a flat state_dict) raises."""
+def load_pretrained(model: Model, name: str) -> int:
+    """Resolve ``name`` (``utils/downloads.attempt_download``) and merge its
+    weights into ``model`` where names and shapes agree
+    (``utils/import_torch.import_state_dict``): a ``.pt`` / ``.pth``
+    checkpoint (port, metayolo or ultralytics layout, a state_dict or a
+    pickled module, bare or under ``ema`` / ``model`` / ``state_dict``),
+    anything else as a pickled flax tree.  Returns the tensors loaded."""
+    path = str(attempt_download(name))
     if path.endswith((".pt", ".pth")):
-        import pickle
-
-        try:
-            sd = torch.load(path, map_location="cpu", weights_only=True)
-        except pickle.UnpicklingError:
-            sd = None
-        if not isinstance(sd, dict) or not all(torch.is_tensor(v) for v in sd.values()):
-            raise NotImplementedError(
-                f"{path} is not a state_dict of this package; importing reference training "
-                f"checkpoints (utils/import_torch.py) is not ported yet (ROADMAP A.5)")
+        sd = read_checkpoint(path)
     else:
         import pickle
 
@@ -151,19 +185,12 @@ def load_pretrained(model: Model, path: str) -> int:
 
         with open(path, "rb") as f:
             sd = state_dict_from_flax(pickle.load(f), model.spec)
-    own = model.state_dict()
-    hits = 0
-    with torch.no_grad():
-        for k, v in sd.items():
-            if k in own and own[k].shape == v.shape:
-                own[k].copy_(v)
-                hits += 1
-    return hits
+    return import_state_dict(model, sd)[0]
 
 
 def train(opt, callbacks: Optional[Callbacks] = None) -> Dict[str, float]:
     callbacks = callbacks or Callbacks()
-    _deferred(opt)
+    _check_plots(opt)
     device = resolve_device(opt.device)
     save_dir = opt.save_dir
     if (os.path.exists(save_dir) and os.listdir(save_dir) and not opt.resume
@@ -224,6 +251,8 @@ def train(opt, callbacks: Optional[Callbacks] = None) -> Dict[str, float]:
                     check_anchors(wh, h.anchors, h.strides,
                                   anchor_t=float(dict(h.loss_hyp).get("anchor_t", 4.0)),
                                   imgsz=opt.img_size)
+    if opt.plots:
+        plot_dataset(train_ds, val_ds, data_info, opt.img_size, save_dir)
     train_dl = DataLoader(train_ds, opt.batch_size, workers=opt.workers, infinite=True,
                           shuffle=True, seed=opt.seed)
     val_dl = DataLoader(val_ds, opt.batch_size, workers=opt.workers, drop_last=False)
@@ -360,6 +389,14 @@ def train(opt, callbacks: Optional[Callbacks] = None) -> Dict[str, float]:
     wait_for_saves()
     with swap_ema(state):
         save_inference(os.path.join(save_dir, "final.pt"), model)
+    rj = os.path.join(save_dir, "results.json")
+    if opt.plots and os.path.exists(rj):
+        from .plots import plot_results
+
+        try:
+            plot_results(rj)
+        except Exception as e:   # a plot never fails the training it reports on
+            LOGGER.warning(f"plot_results failed: {e}")
     callbacks.run("on_train_end")
     out = {"best_fitness": best_fitness, "save_dir": save_dir, **final_stats}
     if upload:
@@ -384,8 +421,10 @@ def argument_parser() -> argparse.ArgumentParser:
     p.add_argument("--data", required=True, help="data yaml")
     p.add_argument("--cfg", default="yolov5l6-mask", help="model yaml")
     p.add_argument("--hyp", default="hyp-nuclei", help="hyp yaml")
-    p.add_argument("--weights", default="", help="pretrained weights (a .pt state_dict of this "
-                   "package, or a pickled flax {'params', 'batch_stats'} tree)")
+    p.add_argument("--weights", default="", help="pretrained weights, a path or a bare name "
+                   "searched in $HD_YOLO_WEIGHTS_DIR, <repo>/weights/ and the cache: a .pt of "
+                   "this package, the reference (metayolo) or ultralytics, or a pickled flax "
+                   "{'params', 'batch_stats'} tree")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--epochs", type=int, default=100)
     p.add_argument("--batch-size", dest="batch_size", type=int, default=32,
@@ -432,7 +471,9 @@ def argument_parser() -> argparse.ArgumentParser:
                    help="reuse --save-dir as it is instead of exp -> exp2")
     p.add_argument("--optimizer", choices=["sgd", "adam", "adamw"], default="sgd")
     p.add_argument("--verbose", action="store_true")
-    p.add_argument("--plots", action="store_true", help="training plots (not ported)")
+    p.add_argument("--plots", action="store_true",
+                   help="display dumps and labels.jpg at the start, results.png at the end "
+                        "(needs matplotlib)")
     p.add_argument("--autoanchor", action="store_true",
                    help="report the anchors' best possible recall on the val set")
     p.add_argument("--freeze", nargs="*", default=[],

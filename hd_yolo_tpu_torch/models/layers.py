@@ -23,10 +23,15 @@ also keeps its stem kernel off).  The statistics are f32 whatever the
 activation dtype and the output is in that dtype, as flax's BatchNorm; the
 running statistics follow flax: ``mean ← 0.97·mean + 0.03·batch_mean`` and
 ``var ← 0.97·var + 0.03·batch_var`` with the biased batch variance.
+
+The hub zoo (``DWConv`` to ``MixConv2d``, at the end) is plain torch ops on
+the same conventions: the JAX package's arithmetic, the reference's
+submodule names, the activation table of ``get_activation``.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import torch
@@ -97,24 +102,57 @@ def _pair(v):
     return (v, v) if isinstance(v, int) else tuple(v)
 
 
-def autopad(k: int, p: Optional[int] = None) -> int:
-    """'same' padding for odd kernels."""
-    return k // 2 if p is None else p
+def autopad(k, p=None):
+    """'same' padding for odd kernels (a pair for a (kh, kw) kernel)."""
+    if p is not None:
+        return p
+    return k // 2 if isinstance(k, int) else tuple(v // 2 for v in k)
+
+
+def _identity(x: Tensor) -> Tensor:
+    return x
+
+
+# the JAX package's activation table (``get_activation``); its ``gelu`` is the
+# tanh approximation and its ``leaky_relu`` has slope 0.1
+ACTIVATIONS = {
+    True: F.silu,
+    "silu": F.silu,
+    "relu": F.relu,
+    "relu6": F.relu6,
+    "leaky_relu": lambda x: F.leaky_relu(x, 0.1),
+    "hardswish": F.hardswish,
+    "mish": F.mish,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "sigmoid": torch.sigmoid,
+    "tanh": torch.tanh,
+    False: _identity,
+    None: _identity,
+    "identity": _identity,
+}
 
 
 def _act(act):
-    if act is True or act == "silu":
-        return F.silu
-    if act is False or act is None or act == "identity":
-        return lambda x: x
-    raise ValueError(f"unsupported activation {act!r}")
+    if callable(act) and not isinstance(act, bool):
+        return act
+    if act in ACTIVATIONS:
+        return ACTIVATIONS[act]
+    raise ValueError(f"unknown activation {act!r}")
+
+
+def batch_norm(x: Tensor, bn: nn.BatchNorm2d) -> Tensor:
+    """A standalone BatchNorm of the NCHW ``x``: on the batch's statistics in
+    training mode (``batch_norm_train``), on the running ones otherwise."""
+    if bn.training:
+        return batch_norm_train(x, bn)
+    return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias, False, 0.0,
+                        BN_EPS)
 
 
 class ConvBnAct(nn.Module):
     """Conv2d(bias=False) + BatchNorm + activation — the reference ``Conv``."""
 
-    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, p: Optional[int] = None,
-                 g: int = 1, act=True):
+    def __init__(self, c1: int, c2: int, k=1, s=1, p=None, g: int = 1, act=True):
         super().__init__()
         self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p), groups=g, bias=False)
         self.bn = nn.BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
@@ -143,8 +181,10 @@ class ConvBnAct(nn.Module):
 
     def is_stem(self, x: Tensor) -> bool:
         """The yolov5 stem shape family: few input channels, k % s == 0, s > 1."""
-        k, s = self.conv.kernel_size[0], self.conv.stride[0]
-        return (x.shape[1] <= 4 and x.dtype == torch.float32 and self.conv.groups == 1
+        c = self.conv
+        k, s = c.kernel_size[0], c.stride[0]
+        square = (c.kernel_size[1] == k and c.stride[1] == s and c.padding[0] == c.padding[1])
+        return (square and x.shape[1] <= 4 and x.dtype == torch.float32 and c.groups == 1
                 and k % s == 0 and k >= s > 1 and self.act_name in (True, "silu")
                 and self.conv.out_channels % 8 == 0)
 
@@ -199,7 +239,11 @@ class C3(nn.Module):
         self.cv1 = ConvBnAct(c1, c_, 1, 1)
         self.cv2 = ConvBnAct(c1, c_, 1, 1)
         self.cv3 = ConvBnAct(2 * c_, c2, 1, 1)
-        self.m = nn.Sequential(*(Bottleneck(c_, c_, shortcut, g, e=1.0) for _ in range(n)))
+        self.m = self.inner(c_, n, shortcut, g)
+
+    @staticmethod
+    def inner(c_: int, n: int, shortcut: bool, g: int) -> nn.Module:
+        return nn.Sequential(*(Bottleneck(c_, c_, shortcut, g, e=1.0) for _ in range(n)))
 
     def forward(self, x: Tensor) -> Tensor:
         if self.training:
@@ -253,3 +297,305 @@ class Upsample(nn.Module):
 
     def forward(self, x: Tensor) -> Tensor:
         return F.interpolate(x, scale_factor=self.scale, mode="nearest")
+
+
+# --- the hub zoo: the rest of the JAX package's layers -----------------------
+# Submodules carry the reference torch modules' attribute names, so a
+# reference ``state_dict`` loads by key; the arithmetic is the JAX package's
+# where it departs from the reference (noted in each docstring).
+
+
+def cast(module: nn.Module, name: str, dtype: torch.dtype) -> Tensor:
+    """``module``'s parameter ``name`` in ``dtype``, cast once per state of
+    the parameter (``cached``)."""
+    p = getattr(module, name)
+    return cached(module, f"{name}_{dtype}", (p,), lambda: p.to(dtype))
+
+
+def bare_conv(c: nn.Conv2d, x: Tensor) -> Tensor:
+    """A conv with no BatchNorm (and no bias) in ``x``'s dtype."""
+    return conv(x, cast(c, "weight", x.dtype), None, c.stride, c.padding, c.groups)
+
+
+def linear(lin: nn.Linear, x: Tensor) -> Tensor:
+    b = None if lin.bias is None else cast(lin, "bias", x.dtype)
+    return F.linear(x, cast(lin, "weight", x.dtype), b)
+
+
+class DWConv(ConvBnAct):
+    """Depthwise-ish conv: groups = gcd(c1, c2)."""
+
+    def __init__(self, c1: int, c2: int, k=1, s=1, act=True):
+        super().__init__(c1, c2, k, s, g=math.gcd(c1, c2), act=act)
+
+
+class BottleneckCSP(nn.Module):
+    """CSP bottleneck, original formulation: ``cv3(m(cv1(x)))`` beside
+    ``cv2(x)`` (both bare 1x1 convs), BatchNorm and SiLU over the two, then
+    ``cv4`` (the reference's v3.1 form applies LeakyReLU there; the JAX
+    package applies SiLU)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1,
+                 e: float = 0.5):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = ConvBnAct(c1, c_, 1, 1)
+        self.cv2 = nn.Conv2d(c1, c_, 1, 1, bias=False)
+        self.cv3 = nn.Conv2d(c_, c_, 1, 1, bias=False)
+        self.cv4 = ConvBnAct(2 * c_, c2, 1, 1)
+        self.bn = nn.BatchNorm2d(2 * c_, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.m = nn.Sequential(*(Bottleneck(c_, c_, shortcut, g, e=1.0) for _ in range(n)))
+
+    def forward(self, x: Tensor) -> Tensor:
+        y = torch.cat([bare_conv(self.cv3, self.m(self.cv1(x))), bare_conv(self.cv2, x)], 1)
+        return self.cv4(F.silu(batch_norm(y, self.bn)))
+
+
+def attention(ma: nn.MultiheadAttention, q: Tensor, k: Tensor, v: Tensor) -> Tensor:
+    """Multi-head attention of (B, L, C) queries, keys and values through
+    ``ma``'s input and output projections, as flax's
+    ``MultiHeadDotProductAttention`` computes it (the query scaled by
+    1/sqrt(head dim) before the product)."""
+    h = ma.num_heads
+    d = q.shape[-1] // h
+    w = cast(ma, "in_proj_weight", q.dtype).chunk(3)
+    b = cast(ma, "in_proj_bias", q.dtype).chunk(3)
+    qh, kh, vh = (F.linear(t, wi, bi).unflatten(-1, (h, d)).transpose(1, 2)
+                  for t, wi, bi in zip((q, k, v), w, b))          # (B, h, L, d)
+    att = torch.softmax((qh / math.sqrt(d)) @ kh.transpose(-1, -2), -1)
+    return linear(ma.out_proj, (att @ vh).transpose(1, 2).flatten(2))
+
+
+class TransformerLayer(nn.Module):
+    """q / k / v projections, attention with a residual, then fc1 → fc2 with
+    a residual (no LayerNorm)."""
+
+    def __init__(self, c: int, num_heads: int):
+        super().__init__()
+        self.q = nn.Linear(c, c, bias=False)
+        self.k = nn.Linear(c, c, bias=False)
+        self.v = nn.Linear(c, c, bias=False)
+        self.ma = nn.MultiheadAttention(c, num_heads)
+        self.fc1 = nn.Linear(c, c, bias=False)
+        self.fc2 = nn.Linear(c, c, bias=False)
+
+    def forward(self, p: Tensor) -> Tensor:
+        p = attention(self.ma, linear(self.q, p), linear(self.k, p), linear(self.v, p)) + p
+        return linear(self.fc2, linear(self.fc1, p)) + p
+
+
+class TransformerBlock(nn.Module):
+    """ViT-style block on the flattened feature map: an optional ``conv`` to
+    ``c2`` channels, a learnable position embedding (``linear``), then
+    ``num_layers`` layers (``tr``)."""
+
+    def __init__(self, c1: int, c2: int, num_heads: int, num_layers: int):
+        super().__init__()
+        self.conv = ConvBnAct(c1, c2) if c1 != c2 else None
+        self.linear = nn.Linear(c2, c2)
+        self.tr = nn.Sequential(*(TransformerLayer(c2, num_heads) for _ in range(num_layers)))
+
+    def forward(self, x: Tensor) -> Tensor:
+        if self.conv is not None:
+            x = self.conv(x)
+        b, c, h, w = x.shape
+        p = x.flatten(2).transpose(1, 2)                  # (B, H·W, C), tokens row-major
+        p = self.tr(p + linear(self.linear, p))
+        return p.transpose(1, 2).reshape(b, c, h, w)
+
+
+class C3TR(C3):
+    """C3 with a 4-head ``TransformerBlock`` of ``n`` layers inside."""
+
+    @staticmethod
+    def inner(c_: int, n: int, shortcut: bool, g: int) -> nn.Module:
+        return TransformerBlock(c_, c_, 4, n)
+
+
+class SPP(nn.Module):
+    """Spatial pyramid pooling: ``cv1``, max pools of each size (stride 1,
+    'same' padding) concatenated with their input, ``cv2``."""
+
+    def __init__(self, c1: int, c2: int, k=(5, 9, 13)):
+        super().__init__()
+        k = (k,) if isinstance(k, int) else tuple(k)
+        c_ = c1 // 2
+        self.cv1 = ConvBnAct(c1, c_, 1, 1)
+        self.cv2 = ConvBnAct(c_ * (len(k) + 1), c2, 1, 1)
+        self.m = nn.ModuleList(nn.MaxPool2d(v, 1, v // 2) for v in k)
+
+    def forward(self, x: Tensor) -> Tensor:
+        x = self.cv1(x)
+        return self.cv2(torch.cat([x] + [m(x) for m in self.m], 1))
+
+
+class C3SPP(C3):
+    """C3 with an ``SPP`` (5, 9, 13) inside (the JAX package's signature:
+    the third argument is C3's ``n``, unused)."""
+
+    @staticmethod
+    def inner(c_: int, n, shortcut: bool, g: int) -> nn.Module:
+        return SPP(c_, c_)
+
+
+class Focus(nn.Module):
+    """Space-to-depth 2x, channel blocks in the order (::2, ::2), (1::2, ::2),
+    (::2, 1::2), (1::2, 1::2) of (y, x), then ``conv``."""
+
+    def __init__(self, c1: int, c2: int, k=1, s=1, p=None, g: int = 1, act=True):
+        super().__init__()
+        self.conv = ConvBnAct(c1 * 4, c2, k, s, p, g, act)
+
+    def forward(self, x: Tensor) -> Tensor:
+        return self.conv(torch.cat([x[..., ::2, ::2], x[..., 1::2, ::2], x[..., ::2, 1::2],
+                                    x[..., 1::2, 1::2]], 1))
+
+
+class GhostConv(nn.Module):
+    """Ghost convolution: ``cv1`` to half the channels, a depthwise 5x5
+    ``cv2`` on those, both concatenated."""
+
+    def __init__(self, c1: int, c2: int, k=1, s=1, g: int = 1, act=True):
+        super().__init__()
+        c_ = c2 // 2
+        self.cv1 = ConvBnAct(c1, c_, k, s, None, g, act)
+        self.cv2 = ConvBnAct(c_, c_, 5, 1, None, c_, act)
+
+    def forward(self, x: Tensor) -> Tensor:
+        y = self.cv1(x)
+        return torch.cat([y, self.cv2(y)], 1)
+
+
+class GhostBottleneck(nn.Module):
+    """``conv``: GhostConv, a depthwise conv at stride 2, GhostConv (linear);
+    plus ``shortcut``: at stride 2 a depthwise conv and a 1x1 conv, else the
+    input.  Where the channels differ at stride 1 the JAX package adds
+    ``0 * y`` in place of the input (the reference has no such case)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1):
+        super().__init__()
+        c_ = c2 // 2
+        self.conv = nn.Sequential(
+            GhostConv(c1, c_, 1, 1),
+            DWConv(c_, c_, k, s, act=False) if s == 2 else nn.Identity(),
+            GhostConv(c_, c2, 1, 1, act=False))
+        self.shortcut = nn.Sequential(DWConv(c1, c1, k, s, act=False),
+                                      ConvBnAct(c1, c2, 1, 1, act=False)) \
+            if s == 2 else nn.Identity()
+        self.zero_shortcut = s != 2 and c1 != c2
+
+    def forward(self, x: Tensor) -> Tensor:
+        y = self.conv(x)
+        return y + (0.0 * y if self.zero_shortcut else self.shortcut(x))
+
+
+class C3Ghost(C3):
+    """C3 with ``n`` GhostBottlenecks inside."""
+
+    @staticmethod
+    def inner(c_: int, n: int, shortcut: bool, g: int) -> nn.Module:
+        return nn.Sequential(*(GhostBottleneck(c_, c_) for _ in range(n)))
+
+
+class CrossConv(nn.Module):
+    """A (1, k) conv then a (k, 1) conv, with an optional residual."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1, g: int = 1, e: float = 1.0,
+                 shortcut: bool = False):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = ConvBnAct(c1, c_, (1, k), (1, s))
+        self.cv2 = ConvBnAct(c_, c2, (k, 1), (s, 1), g=g)
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x: Tensor) -> Tensor:
+        y = self.cv2(self.cv1(x))
+        return x + y if self.add else y
+
+
+class Contract(nn.Module):
+    """Space-to-depth by ``gain``: channel (sy·gain + sx)·C + c."""
+
+    def __init__(self, gain: int = 2):
+        super().__init__()
+        self.gain = int(gain)
+
+    def forward(self, x: Tensor) -> Tensor:
+        b, c, h, w = x.shape
+        s = self.gain
+        x = x.reshape(b, c, h // s, s, w // s, s).permute(0, 3, 5, 1, 2, 4)
+        return x.reshape(b, s * s * c, h // s, w // s)
+
+
+class Expand(nn.Module):
+    """Depth-to-space by ``gain``, the inverse of ``Contract``."""
+
+    def __init__(self, gain: int = 2):
+        super().__init__()
+        self.gain = int(gain)
+
+    def forward(self, x: Tensor) -> Tensor:
+        b, c, h, w = x.shape
+        s = self.gain
+        x = x.reshape(b, s, s, c // (s * s), h, w).permute(0, 3, 4, 1, 5, 2)
+        return x.reshape(b, c // (s * s), h * s, w * s)
+
+
+class MaxPool2d(nn.Module):
+    """``nn.MaxPool2d`` rows of legacy configs: kernel ``k``, stride ``s``,
+    symmetric padding ``p`` that never wins."""
+
+    def __init__(self, k: int = 2, s: int = 2, p: int = 0):
+        super().__init__()
+        self.k, self.s, self.p = int(k), int(s), int(p)
+
+    def forward(self, x: Tensor) -> Tensor:
+        return F.max_pool2d(x, self.k, self.s, self.p)
+
+
+class ZeroPad2d(nn.Module):
+    """``nn.ZeroPad2d`` rows of legacy configs: (left, right, top, bottom)."""
+
+    def __init__(self, pads=(0, 0, 0, 0)):
+        super().__init__()
+        self.pads = tuple(int(v) for v in pads)
+
+    def forward(self, x: Tensor) -> Tensor:
+        return F.pad(x, self.pads)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """A standalone BatchNorm row (eps 1e-3, flax's momentum)."""
+
+    def __init__(self, c1: int):
+        super().__init__(c1, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+    def forward(self, x: Tensor) -> Tensor:
+        return batch_norm(x, self)
+
+
+def mix_splits(c2: int, n: int) -> list:
+    """Output channels of each of ``n`` kernel sizes: the counts of
+    floor(linspace(0, n − 1e-6, c2)) == g, with linspace in f32 as
+    ``jnp.linspace`` forms it (start·(1 − t) + end·t)."""
+    end = torch.tensor(n - 1e-6, dtype=torch.float32)
+    t = torch.arange(c2 - 1, dtype=torch.float32) / float(max(c2 - 1, 1))
+    idx = torch.floor(torch.cat([end * t, end[None]]) if c2 > 1 else torch.zeros(1))
+    return [int((idx == g).sum()) for g in range(n)]
+
+
+class MixConv2d(nn.Module):
+    """Mixed kernel sizes, equal channel split, groups gcd(c1, split), then
+    BatchNorm and SiLU (the JAX package's form: no residual, SiLU where the
+    reference adds its input and applies LeakyReLU)."""
+
+    def __init__(self, c1: int, c2: int, k=(1, 3), s: int = 1):
+        super().__init__()
+        k = (k,) if isinstance(k, int) else tuple(k)
+        self.m = nn.ModuleList(
+            nn.Conv2d(c1, c_, kk, s, kk // 2, groups=math.gcd(c1, c_), bias=False)
+            for kk, c_ in zip(k, mix_splits(c2, len(k))))
+        self.bn = nn.BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+    def forward(self, x: Tensor) -> Tensor:
+        return F.silu(batch_norm(torch.cat([bare_conv(m, x) for m in self.m], 1), self.bn))

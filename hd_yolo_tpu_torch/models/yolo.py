@@ -28,6 +28,21 @@ from .detect_head import Detect
 Tensor = torch.Tensor
 
 
+# rows built as ``module(c_in, *args)`` (the JAX package's args after the
+# input channels, which flax infers) and as ``module(*args)``
+_WITH_C_IN = {
+    "DWConv": L.DWConv, "Bottleneck": L.Bottleneck, "BottleneckCSP": L.BottleneckCSP,
+    "C3": L.C3, "C3TR": L.C3TR, "C3SPP": L.C3SPP, "C3Ghost": L.C3Ghost, "SPP": L.SPP,
+    "SPPF": L.SPPF, "Focus": L.Focus, "GhostConv": L.GhostConv,
+    "GhostBottleneck": L.GhostBottleneck, "CrossConv": L.CrossConv, "MixConv2d": L.MixConv2d,
+    "BatchNorm2d": L.BatchNorm2d,
+}
+_NO_C_IN = {
+    "Contract": L.Contract, "Expand": L.Expand, "Concat": L.Concat, "Upsample": L.Upsample,
+    "MaxPool2d": L.MaxPool2d, "ZeroPad2d": L.ZeroPad2d,
+}
+
+
 def _build_layer(l, c_in: int) -> nn.Module:
     a = list(l.args)
     if l.module == "Conv":
@@ -37,17 +52,11 @@ def _build_layer(l, c_in: int) -> nn.Module:
         g = a[4] if len(a) > 4 else 1
         act = a[5] if len(a) > 5 else True
         return L.ConvBnAct(c_in, a[0], k, s, p, g, act)
-    if l.module == "C3":
-        return L.C3(c_in, a[0], *a[1:])
-    if l.module == "Bottleneck":
-        return L.Bottleneck(c_in, a[0], *a[1:])
-    if l.module == "SPPF":
-        return L.SPPF(c_in, a[0], *a[1:])
-    if l.module == "Concat":
-        return L.Concat()
-    if l.module == "Upsample":
-        return L.Upsample(*a)
-    raise NotImplementedError(f"module {l.module!r} is not ported yet")
+    if l.module in _WITH_C_IN:
+        return _WITH_C_IN[l.module](c_in, *a)
+    if l.module in _NO_C_IN:
+        return _NO_C_IN[l.module](*a)
+    raise KeyError(f"unknown module {l.module!r} at layer {l.index}")
 
 
 class Model(nn.Module):
@@ -155,55 +164,69 @@ class Model(nn.Module):
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
         """Seeded weights for training from scratch, from flax's default
-        distributions: each conv and deconv kernel lecun-normal on its fan-in
-        (a normal truncated at ±2 standard deviations, scaled to variance
-        1/fan_in), zero biases, BatchNorm scale 1 and shift 0 with running
-        statistics 0 / 1, and the Detect prior biases (an anchor-free
-        header has none)."""
+        distributions: each conv, deconv and dense kernel (an attention's
+        projections too) lecun-normal on its fan-in (a normal truncated at
+        ±2 standard deviations, scaled to variance 1/fan_in), zero biases,
+        BatchNorm scale 1 and shift 0 with running statistics 0 / 1, and the
+        Detect prior biases (an anchor-free header has none)."""
+        def lecun(w: Tensor, fan_in: int) -> None:
+            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978   # truncnorm(-2, 2) std
+            t = torch.empty(w.shape).normal_(generator=generator)
+            while True:                                  # redraw past ±2
+                bad = t.abs() > 2.0
+                if not bad.any():
+                    break
+                t[bad] = torch.empty(int(bad.sum())).normal_(generator=generator)
+            w.copy_(t * std)
+
         for mod in self.modules():
-            if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
-                w = mod.weight
-                # flax's fan-in: the kernel's (kh, kw, I) for a conv, the
-                # deconv's (kh, kw, I) too (its torch layout is (I, O, kh, kw))
-                fan_in = w[0].numel() if isinstance(mod, nn.Conv2d) else \
-                    w.shape[0] * w[0, 0].numel()
-                std = math.sqrt(1.0 / fan_in) / 0.87962566103423978   # truncnorm(-2, 2) std
-                t = torch.empty(w.shape).normal_(generator=generator)
-                while True:                                  # redraw past ±2
-                    bad = t.abs() > 2.0
-                    if not bad.any():
-                        break
-                    t[bad] = torch.empty(int(bad.sum())).normal_(generator=generator)
-                w.copy_(t * std)
-                if mod.bias is not None:
-                    mod.bias.zero_()
-            elif isinstance(mod, nn.BatchNorm2d):
+            for w, fan_in in _kernels(mod):
+                lecun(w, fan_in)
+            if isinstance(mod, nn.BatchNorm2d):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
                 mod.running_mean.zero_()
                 mod.running_var.fill_(1.0)
+            else:
+                for name, b in mod.named_parameters(recurse=False):
+                    if name.endswith("bias"):
+                        b.zero_()
         for det in self.headers.values():
             if isinstance(det, Detect):
                 det.init_det_bias()
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """Seeded random weights: He-normal convs, unit BN with light
+        """Seeded random weights: He-normal kernels, unit BN with light
         running stats, the Detect focal-style prior biases."""
         for name, mod in self.named_modules():
-            if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
-                fan_in = mod.weight[0].numel() if isinstance(mod, nn.Conv2d) else \
-                    mod.weight.shape[0] * mod.weight[0, 0].numel()
-                w = torch.randn(mod.weight.shape, generator=generator) * math.sqrt(2.0 / fan_in)
-                mod.weight.copy_(w)
-                if mod.bias is not None:
-                    mod.bias.zero_()
-            elif isinstance(mod, nn.BatchNorm2d):
+            for w, fan_in in _kernels(mod):
+                w.copy_(torch.randn(w.shape, generator=generator) * math.sqrt(2.0 / fan_in))
+            if isinstance(mod, nn.BatchNorm2d):
                 c = mod.num_features
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
                 mod.running_mean.copy_(torch.randn(c, generator=generator) * 0.1)
                 mod.running_var.copy_(torch.rand(c, generator=generator) * 0.5 + 0.75)
+            else:
+                for pname, b in mod.named_parameters(recurse=False):
+                    if pname.endswith("bias"):
+                        b.zero_()
         for det in self.headers.values():
             if isinstance(det, Detect):
                 det.init_det_bias()
+
+
+def _kernels(mod: nn.Module):
+    """(kernel, flax fan-in) of a module's own weights: a conv's kernel
+    (kh, kw, I), a deconv's too (its torch layout is (I, O, kh, kw)), a
+    dense layer's inputs, and each of an attention's q / k / v input
+    projections (rows of ``in_proj_weight``) on the embedding width."""
+    if isinstance(mod, nn.Conv2d):
+        yield mod.weight, mod.weight[0].numel()
+    elif isinstance(mod, nn.ConvTranspose2d):
+        yield mod.weight, mod.weight.shape[0] * mod.weight[0, 0].numel()
+    elif isinstance(mod, nn.Linear):
+        yield mod.weight, mod.weight.shape[1]
+    elif isinstance(mod, nn.MultiheadAttention):
+        yield mod.in_proj_weight, mod.in_proj_weight.shape[1]

@@ -1,5 +1,6 @@
 """Fused inference mask head on the card: wrapper of ``kernels/mask_head.cu``
-(the Hopper port of ``hd_yolo_tpu/ops/pallas_mask_head.py``).
+(bf16) and ``kernels/mask_head_f32.cu`` (f32), the Hopper ports of
+``hd_yolo_tpu/ops/pallas_mask_head.py``.
 
 ``fused_mask_probs(head, pooled, labels, active=None)`` computes
 ``sigmoid(MaskHead(pooled))[..., label]`` per ROI as (N, 2M, 2M) f32 for
@@ -11,7 +12,8 @@ function with the same rounding points: each GEMM on compute-dtype
 operands with f32 accumulation, the accumulator rounded to the compute
 dtype before the bias add, the selected-logit dot in f32.
 
-The kernel is the ``torch.library`` op ``hd_yolo_tpu_torch::mask_head``
+Each kernel is a ``torch.library`` op, ``hd_yolo_tpu_torch::mask_head`` or
+``::mask_head_f32``
 (the ``ctypes`` launch in its body, a fake implementation of its output
 shape), so ``torch.export`` keeps it as one call in the graph; eager calls
 on the card go through the same op.  Its packed weights are derived once
@@ -120,15 +122,23 @@ def fused_mask_probs(head, pooled: Tensor, labels: Tensor, active: Optional[Tens
     index on the device and does not check it); active: a 0-d integer
     tensor, how many leading ROIs to compute (the kernel reads it on the
     device, no host sync), or ``None`` for all.  Returns (N, 2M, 2M) f32 probabilities, exactly 0 for
-    ROIs at or past ``active``."""
+    ROIs at or past ``active``.
+
+    bf16 features run ``kernels/mask_head.cu``, f32 features (an f32 model)
+    its f32 form ``kernels/mask_head_f32.cu``: each computes in the pooled
+    dtype, as the JAX package's kernel does."""
     if pooled.device.type == "cpu":
         return fused_mask_probs_plain(head, pooled, labels, active)
     labels = labels.to(torch.int64).contiguous()
     N, M, M2, C = pooled.shape
-    if pooled.dtype != torch.bfloat16 or (M, M2, C) != (14, 14, 256):
-        raise ValueError(f"mask head kernel takes (N, 14, 14, 256) bf16, got "
+    if pooled.dtype not in (torch.bfloat16, torch.float32) or (M, M2, C) != (14, 14, 256):
+        raise ValueError(f"mask head kernels take (N, 14, 14, 256) bf16 or f32, got "
                          f"{tuple(pooled.shape)} {pooled.dtype}")
     pooled = pooled.contiguous()
+    if active is not None:
+        active = active.to(torch.int64).reshape(())  # the packed branch's sum is int64 already
+    if pooled.dtype == torch.float32:
+        return _fused_mask_probs_f32(head, pooled, labels, active)
 
     def weights():
         wf, bf, wd, bd = kernel_weights(head)
@@ -141,10 +151,31 @@ def fused_mask_probs(head, pooled: Tensor, labels: Tensor, active: Optional[Tens
     stream, bf, bd, wl, bl = cached(head, "kernel_weights", tuple(head.parameters()), weights)
     tensors = [pooled, stream, bf, bd, wl, bl, labels]
     if active is not None:
-        active = active.to(torch.int64).reshape(())  # the packed branch's sum is int64 already
         tensors.append(active)
     kernels.require_cuda(*tensors)
     return mask_head_op(pooled, stream, bf, bd, wl, bl, labels, active)
+
+
+def kernel_weights_f32(head):
+    """The f32 form's operand layouts: wf (4, 9, ci, co) with tap ky*3+kx,
+    bf (4, C), wd (ci, 4·co) with column (dy*2+dx)·C + co, bd (C,), the
+    logits' wl (classes, C) and bl (classes,), all f32."""
+    wf = torch.stack([c.weight.permute(2, 3, 1, 0).reshape(9, c.in_channels, c.out_channels)
+                      for c in head.fcn]).float().contiguous()
+    bf = torch.stack([c.bias for c in head.fcn]).float().contiguous()
+    deconv = head.maskrcnn_preds.conv5_mask
+    wd = deconv.weight.permute(0, 2, 3, 1).reshape(deconv.in_channels, 4 * deconv.out_channels)
+    logits = head.maskrcnn_preds.mask_fcn_logits
+    return (wf, bf, wd.float().contiguous(), deconv.bias.float().contiguous(),
+            logits.weight[:, :, 0, 0].float().contiguous(), logits.bias.float().contiguous())
+
+
+def _fused_mask_probs_f32(head, pooled: Tensor, labels: Tensor, active: Optional[Tensor]) -> Tensor:
+    weights = cached(head, "kernel_weights_f32", tuple(head.parameters()),
+                     lambda: kernel_weights_f32(head))
+    tensors = [pooled, *weights, labels] + ([] if active is None else [active])
+    kernels.require_cuda(*tensors)
+    return mask_head_f32_op(pooled, *weights, labels, active)
 
 
 def _launch(pooled, stream, bf, bd, wl, bl, labels, active) -> Tensor:
@@ -168,3 +199,29 @@ def _fake(pooled, stream, bf, bd, wl, bl, labels, active):
 mask_head_op = kernels.register_op(
     "mask_head", "(Tensor pooled, Tensor stream, Tensor bf, Tensor bd, Tensor wl, Tensor bl, "
                  "Tensor labels, Tensor? active) -> Tensor", _launch, _fake)
+
+
+def _launch_f32(pooled, wf, bf, wd, bd, wl, bl, labels, active) -> Tensor:
+    N, M = pooled.shape[:2]
+    out = torch.empty((N, 2 * M, 2 * M), dtype=torch.float32, device=pooled.device)
+    # the activations between layers and the deconv's partials
+    work = torch.empty(N * M * M * (2 * pooled.shape[3] + 16), dtype=torch.float32,
+                       device=pooled.device)
+    dev, stream_handle = kernels.device_and_stream(pooled)
+    code = kernels.fn("mask_head_f32")(
+        pooled.data_ptr(), wf.data_ptr(), bf.data_ptr(), wd.data_ptr(), bd.data_ptr(),
+        wl.data_ptr(), bl.data_ptr(), labels.data_ptr(), out.data_ptr(),
+        None if active is None else active.data_ptr(), work.data_ptr(), N, dev, stream_handle)
+    kernels.check(code, "mask_head_f32")
+    kernels.LAUNCHES["mask_head_f32"] += 1
+    return out
+
+
+def _fake_f32(pooled, wf, bf, wd, bd, wl, bl, labels, active):
+    N, M = pooled.shape[:2]
+    return pooled.new_empty((N, 2 * M, 2 * M), dtype=torch.float32)
+
+
+mask_head_f32_op = kernels.register_op(
+    "mask_head_f32", "(Tensor pooled, Tensor wf, Tensor bf, Tensor wd, Tensor bd, Tensor wl, "
+                     "Tensor bl, Tensor labels, Tensor? active) -> Tensor", _launch_f32, _fake_f32)

@@ -11,8 +11,16 @@ The key map and layout rules of ``hd_yolo_tpu/utils/export_torch.py``:
   ``reg_preds.i`` / ``obj_preds.i`` ↔ ``cls_pred{i}`` / ``reg_pred{i}`` /
   ``obj_pred{i}`` (the JAX package's exporter has no such map; these keys
   are the port's own)
-BatchNorm buffers also get ``num_batches_tracked`` = 0, so the converted
-tree loads with ``strict=True``.
+The hub zoo layers map from the tree ``model.init`` builds (not from the
+exporter's map, which lacks them): flax's auto-named submodules
+(``ConvBnAct_0``, ``GhostConv_1``, ``Bottleneck_{j}``, ``GhostBottleneck_{j}``,
+``SPP_0``, ``TransformerBlock_0``, ``BatchNorm_0``, ``m{i}``) to the
+reference's attribute names (``cv1``..``cv4``, ``conv.0/1/2``,
+``shortcut.0/1``, ``m.{j}``, ``bn``); a ``TransformerBlock``'s per-head
+attention kernels to ``nn.MultiheadAttention``'s ``in_proj_*`` and
+``out_proj``; a row repeated n > 1 times (``blocks_{i}_{r}``) to
+``{key}.{r}``.  BatchNorm buffers also get ``num_batches_tracked`` = 0, so
+the converted tree loads with ``strict=True``.
 
 ``hnet_state_dict_from_flax`` does the same for ``hnet.HNet``, with the key
 layouts of the JAX package's importers inverted (``utils/import_swin.py``,
@@ -78,6 +86,8 @@ class _Reader:
 
     def dense(self, tkey: str, *fpath):
         node = self._get(self.params, fpath)
+        if node is None:
+            return
         self.sd[tkey + ".weight"] = np.ascontiguousarray(np.asarray(node["kernel"]).T)
         if "bias" in node:
             self.sd[tkey + ".bias"] = np.asarray(node["bias"])
@@ -92,29 +102,135 @@ class _Reader:
         self.bn(tkey + ".bn", *fpath, "bn")
 
 
+def _j(*parts: str) -> str:
+    return ".".join(p for p in parts if p)
+
+
+def _numbered(node, prefix: str):
+    """j for each child ``{prefix}{j}`` of a flax node, in order."""
+    j = 0
+    while node is not None and f"{prefix}{j}" in node:
+        yield j
+        j += 1
+
+
+def _transformer(r: _Reader, tkey: str, fpath) -> None:
+    """flax ``TransformerBlock`` → ``conv`` / ``linear`` / ``tr.{i}``: each
+    layer's dense kernels transposed; its ``MultiHeadDotProductAttention``
+    per-head (C, heads, head_dim) query / key / value kernels flattened into
+    ``nn.MultiheadAttention``'s ``in_proj_weight`` rows (q, k, v) and the
+    (heads, head_dim, C) output kernel into ``out_proj``."""
+    node = r._get(r.params, fpath)
+    if "ConvBnAct_0" in node:
+        r.conv_block(_j(tkey, "conv"), fpath + ("ConvBnAct_0",))
+    r.dense(_j(tkey, "linear"), *fpath, "pos")
+    for i in _numbered(node, "ma"):
+        t = _j(tkey, f"tr.{i}")
+        for tk, fk in (("q", f"q{i}"), ("k", f"k{i}"), ("v", f"v{i}"), ("fc1", f"fc1_{i}"),
+                       ("fc2", f"fc2_{i}")):
+            r.dense(f"{t}.{tk}", *fpath, fk)
+        ma = node[f"ma{i}"]
+        c = np.asarray(ma["query"]["kernel"]).shape[0]
+        r.sd[f"{t}.ma.in_proj_weight"] = np.concatenate(
+            [np.asarray(ma[p]["kernel"]).reshape(c, -1).T for p in ("query", "key", "value")])
+        r.sd[f"{t}.ma.in_proj_bias"] = np.concatenate(
+            [np.asarray(ma[p]["bias"]).reshape(-1) for p in ("query", "key", "value")])
+        r.sd[f"{t}.ma.out_proj.weight"] = np.ascontiguousarray(
+            np.asarray(ma["out"]["kernel"]).reshape(-1, c).T)
+        r.sd[f"{t}.ma.out_proj.bias"] = np.asarray(ma["out"]["bias"])
+
+
+def _ghost_bottleneck(r: _Reader, tkey: str, fpath) -> None:
+    node = r._get(r.params, fpath)
+    for cv, sub in (("cv1", "ConvBnAct_0"), ("cv2", "ConvBnAct_1")):
+        r.conv_block(_j(tkey, "conv.0", cv), fpath + ("GhostConv_0", sub))
+        r.conv_block(_j(tkey, "conv.2", cv), fpath + ("GhostConv_1", sub))
+    if "DWConv_0" in node:                               # stride 2
+        r.conv_block(_j(tkey, "conv.1"), fpath + ("DWConv_0", "ConvBnAct_0"))
+        r.conv_block(_j(tkey, "shortcut.0"), fpath + ("DWConv_1", "ConvBnAct_0"))
+        r.conv_block(_j(tkey, "shortcut.1"), fpath + ("ConvBnAct_0",))
+
+
+def _spp(r: _Reader, tkey: str, fpath) -> None:
+    r.conv_block(_j(tkey, "cv1"), fpath + ("ConvBnAct_0",))
+    r.conv_block(_j(tkey, "cv2"), fpath + ("ConvBnAct_1",))
+
+
+def _bottlenecks(r: _Reader, tkey: str, fpath) -> None:
+    for j in _numbered(r._get(r.params, fpath), "Bottleneck_"):
+        _spp(r, _j(tkey, f"m.{j}"), fpath + (f"Bottleneck_{j}",))   # cv1, cv2 alike
+
+
+def layer_from_flax(r: _Reader, module: str, tkey: str, fpath) -> None:
+    """One layer row of the JAX package's ``Model`` at flax path ``fpath``
+    (its tree as ``model.init`` builds it) → the port's keys under
+    ``tkey``."""
+    if module == "Conv":
+        r.conv_block(tkey, fpath)
+    elif module == "DWConv":
+        r.conv_block(tkey, fpath + ("ConvBnAct_0",))
+    elif module in ("Bottleneck", "SPP", "GhostConv", "CrossConv"):
+        _spp(r, tkey, fpath)                             # ConvBnAct_0 / _1 → cv1 / cv2
+    elif module in ("C3", "C3TR", "C3SPP", "C3Ghost"):
+        for cv in ("cv1", "cv2", "cv3"):
+            r.conv_block(_j(tkey, cv), fpath + (cv,))
+        if module == "C3":
+            _bottlenecks(r, tkey, fpath)
+        elif module == "C3TR":
+            _transformer(r, _j(tkey, "m"), fpath + ("TransformerBlock_0",))
+        elif module == "C3SPP":
+            _spp(r, _j(tkey, "m"), fpath + ("SPP_0",))
+        else:
+            for j in _numbered(r._get(r.params, fpath), "GhostBottleneck_"):
+                _ghost_bottleneck(r, _j(tkey, f"m.{j}"), fpath + (f"GhostBottleneck_{j}",))
+    elif module == "BottleneckCSP":
+        r.conv_block(_j(tkey, "cv1"), fpath + ("ConvBnAct_0",))
+        r.conv(_j(tkey, "cv2"), *fpath, "cv2")
+        r.conv(_j(tkey, "cv3"), *fpath, "cv3")
+        r.conv_block(_j(tkey, "cv4"), fpath + ("ConvBnAct_1",))
+        r.bn(_j(tkey, "bn"), *fpath, "BatchNorm_0")
+        _bottlenecks(r, tkey, fpath)
+    elif module == "SPPF":
+        r.conv_block(_j(tkey, "cv1"), fpath + ("cv1",))
+        r.conv_block(_j(tkey, "cv2"), fpath + ("cv2",))
+    elif module == "Focus":
+        r.conv_block(_j(tkey, "conv"), fpath + ("ConvBnAct_0",))
+    elif module == "GhostBottleneck":
+        _ghost_bottleneck(r, tkey, fpath)
+    elif module == "BatchNorm2d":
+        r.bn(tkey, *fpath, "BatchNorm_0")
+    elif module == "MixConv2d":
+        for i in _numbered(r._get(r.params, fpath), "m"):
+            r.conv(_j(tkey, f"m.{i}"), *fpath, f"m{i}")
+        r.bn(_j(tkey, "bn"), *fpath, "BatchNorm_0")
+    elif module == "TransformerBlock":
+        _transformer(r, tkey, fpath)
+    elif module not in ("Concat", "Upsample", "Contract", "Expand", "MaxPool2d", "ZeroPad2d"):
+        raise NotImplementedError(f"no weight map for module {module!r}")
+
+
+def layer_state_dict_from_flax(variables_np: Mapping, module: str,
+                               prefix: str) -> Dict[str, torch.Tensor]:
+    """The flax variables of one layer (a ``models/layers.py`` module's own
+    tree at the root) → the port's keys for ``module`` under ``prefix``."""
+    r = _Reader(variables_np.get("params", {}), variables_np.get("batch_stats", {}))
+    layer_from_flax(r, module, prefix, ())
+    return {k: torch.from_numpy(np.array(v)) for k, v in r.sd.items()}
+
+
 def state_dict_from_flax(variables_np: Mapping, spec: NetworkSpec) -> Dict[str, torch.Tensor]:
-    """{'params', 'batch_stats'} numpy tree → reference-layout state_dict."""
+    """{'params', 'batch_stats'} numpy tree → reference-layout state_dict.
+    A row repeated ``n`` > 1 times (flax ``blocks_{i}_{r}``) maps to
+    ``{tkey}.{r}``."""
     r = _Reader(variables_np.get("params", {}), variables_np.get("batch_stats", {}))
     for l in spec.layers:
-        if l.module in ("Concat", "Upsample"):
-            continue
         tkey = f"backbone.{l.index}" if l.index < spec.n_backbone else \
             f"neck.{l.index - spec.n_backbone}"
-        fpath = (f"blocks_{l.index}",)
-        if l.module == "Conv":
-            r.conv_block(tkey, fpath)
-        elif l.module == "C3":
-            n = int(l.args[1]) if len(l.args) > 1 else 1
-            for cv in ("cv1", "cv2", "cv3"):
-                r.conv_block(f"{tkey}.{cv}", fpath + (cv,))
-            for j in range(n):
-                for cv, sub in (("cv1", "ConvBnAct_0"), ("cv2", "ConvBnAct_1")):
-                    r.conv_block(f"{tkey}.m.{j}.{cv}", fpath + (f"Bottleneck_{j}", sub))
-        elif l.module == "SPPF":
-            r.conv_block(tkey + ".cv1", fpath + ("cv1",))
-            r.conv_block(tkey + ".cv2", fpath + ("cv2",))
+        if l.n > 1:
+            for rep in range(l.n):
+                layer_from_flax(r, l.module, f"{tkey}.{rep}", (f"blocks_{l.index}_{rep}",))
         else:
-            raise NotImplementedError(f"no weight map for module {l.module!r}")
+            layer_from_flax(r, l.module, tkey, (f"blocks_{l.index}",))
 
     for h in spec.headers:
         hkey, fh, nl = f"headers.{h.tag}", f"header_{h.tag}", len(h.strides)
@@ -307,24 +423,15 @@ def train_state_from_flax(state, model, opt, ema) -> None:
 
 
 def load_weights(model, path: str) -> None:
-    """Load a port/reference ``.pt`` state_dict (also inside ``{'model'|'ema': ...}``)
-    or a pickled flax ``{'params', 'batch_stats'}`` tree into ``model``,
-    strictly.  A reference checkpoint whose single header is saved under
-    another tag (e.g. ``headers.det``) is renamed to the model's tag."""
+    """Load a port/reference ``.pt`` (``utils/import_torch.read_checkpoint``:
+    a state_dict or a pickled module, bare or under ``{'ema' | 'model' |
+    'state_dict': ...}``, ultralytics keys renumbered, a single header
+    renamed to the model's tag) or a pickled flax ``{'params',
+    'batch_stats'}`` tree into ``model``, strictly."""
+    from .import_torch import read_checkpoint, to_model_keys
+
     if path.endswith((".pt", ".pth")):
-        ckpt = torch.load(path, map_location="cpu", weights_only=False)
-        if isinstance(ckpt, dict):
-            for key in ("ema", "model"):
-                if ckpt.get(key) is not None:
-                    obj = ckpt[key]
-                    ckpt = obj.state_dict() if hasattr(obj, "state_dict") else obj
-                    break
-        sd = {k: torch.as_tensor(np.asarray(v)) for k, v in ckpt.items()}
-        tags = list(model.headers.keys())
-        saved = {k.split(".")[1] for k in sd if k.startswith("headers.")}
-        if len(tags) == 1 and saved and saved != {tags[0]} and len(saved) == 1:
-            old = saved.pop()
-            sd = {k.replace(f"headers.{old}.", f"headers.{tags[0]}.", 1): v for k, v in sd.items()}
+        sd = to_model_keys(model, read_checkpoint(path))
         for k, v in model.state_dict().items():   # reference files may omit the BN counters
             if k.endswith("num_batches_tracked") and k not in sd:
                 sd[k] = v

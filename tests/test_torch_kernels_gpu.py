@@ -350,6 +350,29 @@ def test_mask_head_kernel_matches_plain(cuda, N, nc, active):
     torch.testing.assert_close(got, want, rtol=0, atol=2e-2)
 
 
+@pytest.mark.parametrize("N,nc,active", [(1, 2, None), (30, 2, None), (30, 2, 0), (37, 3, 20),
+                                         (400, 5, None), (400, 5, 360)])
+def test_mask_head_f32_kernel_matches_plain(cuda, N, nc, active):
+    """The f32 form (an f32 model's features, as the fixtures of
+    ``chip_smoke.py`` phase 20 give it): within 1e-4 of the plain version
+    in f32 (TF32 off) on the active slots, exactly 0 past them, two
+    launches bit-identical, and the bf16 kernel not launched."""
+    head = _mask_head(nc, 4)
+    pooled = torch.randn((N, 14, 14, 256), generator=cuda, device="cuda")
+    labels = torch.randint(0, nc, (N,), generator=cuda, device="cuda")
+    act = None if active is None else torch.tensor(active, dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        n0, b0 = kernels.LAUNCHES["mask_head_f32"], kernels.LAUNCHES["mask_head"]
+        got = pallas_mask_head.fused_mask_probs(head, pooled, labels, act)
+        again = pallas_mask_head.fused_mask_probs(head, pooled, labels, act)
+        assert kernels.LAUNCHES["mask_head_f32"] == n0 + 2 and kernels.LAUNCHES["mask_head"] == b0
+        want = pallas_mask_head.fused_mask_probs_plain(head, pooled, labels, act)
+    k = N if active is None else active
+    assert got.dtype == torch.float32 and torch.equal(got, again)
+    assert bool((got[k:] == 0).all())
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
 @pytest.mark.parametrize("B,H,W", [(2, 64, 64), (1, 50, 94), (3, 36, 20), (16, 640, 640),
                                    (2, 61, 50), (1, 9, 6), (2, 255, 130)])
 def test_stem_k108_kernels_match_plain(cuda, B, H, W):
@@ -458,6 +481,9 @@ def test_custom_op_fakes_match_real_outputs(cuda):
                                torch.tensor(4, device="cuda"))),
         "mask_head": (ops.mask_head, (pooled, pallas_mask_head.mask_head_stream(wf, wd), bf, bd,
                                       wl, bl, labels, None)),
+        "mask_head_f32": (ops.mask_head_f32, (pooled.float(),
+                                              *pallas_mask_head.kernel_weights_f32(head), labels,
+                                              None)),
     }
     for name, (op, args) in calls.items():
         with torch.no_grad():

@@ -137,6 +137,40 @@ def test_det_loss(fl_gamma, smooth):
         np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=0, atol=1e-5)
 
 
+def test_det_loss_gradient_is_nan_where_a_predicted_height_underflows():
+    """Both packages alike: with one level's h logits at -60 the decoded
+    predicted height ``(2·sigmoid)² · anchor`` underflows to 0 in f32.  The
+    loss stays finite and equal, but the logits' gradient at that level
+    holds NaN (CIoU's ``arctan(w1 / h1)``: arctan's derivative 0 at inf
+    times the quotient's ``-w1 / h1²``), and the other level's stays finite.
+    The apply-if-finite rule then skips the step (ROADMAP C.2)."""
+    B, T, nc, A = 3, 6, 4, 3
+    boxes, valid = targets(4, B, T)
+    rng = np.random.default_rng(5)
+    dets = [rng.standard_normal((B, ny, nx, A, nc + 5)).astype(np.float32) for ny, nx in SHAPES]
+    dets[1][..., 3] = -60.0
+    onehot = np.eye(nc + 1, dtype=np.float32)[rng.integers(0, nc + 1, (B, T))]
+    active = np.array([True, True, True])
+    hyp = jl.get_loss_hyp({})
+    jmt = jmatch.match_targets(jnp.asarray(boxes), jnp.asarray(valid), [jnp.asarray(a) for a in ANCHORS],
+                               SHAPES, 4.0)
+    jloss, jgrad = jax.value_and_grad(lambda d: jl.det_loss(d, jmt, jnp.asarray(onehot),
+                                                            jnp.asarray(active), hyp, nc)[0])(
+        [jnp.asarray(d) for d in dets])
+    tmt = tmatch.match_targets(torch.from_numpy(boxes), torch.from_numpy(valid),
+                               [torch.from_numpy(a) for a in ANCHORS], SHAPES, 4.0)
+    td = [torch.from_numpy(d).requires_grad_() for d in dets]
+    tloss = tl.det_loss(td, tmt, torch.from_numpy(onehot), torch.from_numpy(active),
+                        tl.get_loss_hyp(dict(hyp)), nc)[0]
+    tgrad = torch.autograd.grad(tloss, td)
+    assert np.isfinite(float(jloss)) and np.isfinite(float(tloss.detach()))
+    np.testing.assert_allclose(float(tloss.detach()), float(jloss), rtol=1e-5)
+    for g in (np.asarray(jgrad[1]), tgrad[1].numpy()):
+        assert np.isnan(g).any()
+    for g in (np.asarray(jgrad[0]), tgrad[0].numpy()):
+        assert np.isfinite(g).all()
+
+
 @pytest.mark.parametrize("mask_type", ["bce", "dice"])
 def test_seg_loss(mask_type):
     rng = np.random.default_rng(6)

@@ -15,7 +15,7 @@ from hd_yolo_tpu.models.detect_head import MaskHead as JaxMaskHead
 from hd_yolo_tpu.ops.pallas_mask_head import fused_mask_probs as jax_fused_mask_probs
 from hd_yolo_tpu_torch.models.detect_head import MaskHead
 from hd_yolo_tpu_torch.ops.pallas_mask_head import (_deinterleave, fused_mask_probs, kernel_weights,
-                                                     mask_head_stream)
+                                                     kernel_weights_f32, mask_head_stream)
 
 N, M, C, NC = 11, 14, 32, 5
 
@@ -94,6 +94,30 @@ def test_kernel_weight_layouts(inputs):
         taps = torch.stack([torch.einsum("nhwi,oi->nohw", xt, wd[d]) for d in range(4)], 1)
         for o in range(3):
             torch.testing.assert_close(_deinterleave(taps[:, :, o]), full[:, o], rtol=1e-5, atol=1e-5)
+
+
+def test_f32_kernel_weight_layouts(inputs):
+    """The f32 kernel's operands, used as it uses them (each conv an implicit
+    GEMM over (tap, ci) rows of (9, ci, co), the deconv one product with its
+    4 taps as columns (dy*2+dx)·C + co, the selected logits column and bias
+    by label, the sigmoid), reproduce the JAX kernel (interpret mode)."""
+    head, v, th, x, labels = inputs
+    wf, bf, wd, bd, wl, bl = kernel_weights_f32(th)
+    assert wf.shape == (4, 9, C, C) and wd.shape == (C, 4 * C) and wl.shape == (NC, C)
+    h = torch.from_numpy(x).reshape(N, M * M, C)
+    with torch.no_grad():
+        for layer in range(4):
+            xp = torch.nn.functional.pad(h.reshape(N, M, M, C), (0, 0, 1, 1, 1, 1))
+            rows = torch.cat([xp[:, ky:ky + M, kx:kx + M].reshape(N, M * M, C)
+                              for ky in range(3) for kx in range(3)], -1)
+            h = torch.relu(rows @ wf[layer].reshape(9 * C, C) + bf[layer])
+        lab = torch.from_numpy(labels).long()
+        z = torch.relu((h @ wd).reshape(N, M * M, 4, C) + bd)
+        o = (z * wl[lab][:, None, None]).sum(-1) + bl[lab][:, None, None]
+        got = _deinterleave(torch.sigmoid(o).permute(0, 2, 1).reshape(N, 4, M, M))
+    want = jax_fused_mask_probs(v["params"], jnp.asarray(x), jnp.asarray(labels), g=4,
+                                interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("k", [0, 4, N])

@@ -3,13 +3,15 @@ end to end on the CPU at a tiny size — a synthetic labelled set written to
 ``tmp_path``, ``yolov5s-test`` at 128 px, 2 epochs with masks: ``last``,
 ``best`` and ``final`` written, ``results.json`` a row an epoch, a resume
 for a third epoch restoring step, parameters and EMA as saved, ``final.pt``
-loading into ``Detector`` — ``--plots`` raising ``NotImplementedError``
-with its ROADMAP item, and the card as the default device (no CUDA here:
-it raises).  The flags of the device data path: ``test_torch_train_flags.py``.
+loading into ``Detector`` — ``--plots`` raising ``ImportError`` before
+the first step where matplotlib does not import, reference checkpoints
+loading as ``--weights`` where a pickled class that cannot be imported
+raises, and the card as the default device (no CUDA here: it raises).  The flags of the device data path: ``test_torch_train_flags.py``.
 """
 
 import json
 import os
+import sys
 
 import cv2
 import numpy as np
@@ -100,14 +102,22 @@ def test_train_cli_end_to_end_and_resume(tmp_path):
     assert out["det"]["boxes"].shape[0] == 2
 
 
-@pytest.mark.parametrize("flag,item", [(["--plots"], "A.5")])
-def test_deferred_flags_raise(tmp_path, flag, item):
+@pytest.mark.parametrize("flag,missing", [pytest.param(["--plots"], "matplotlib",
+                                                         id="flag0-A.5")])
+def test_deferred_flags_raise(tmp_path, monkeypatch, flag, missing):
+    """A flag whose library does not import raises naming it, before the
+    first step (the card's machine has no matplotlib)."""
     data = make_dataset(tmp_path, 2)
-    with pytest.raises(NotImplementedError, match=item):
+    monkeypatch.setitem(sys.modules, missing, None)        # import raises ImportError
+    with pytest.raises(ImportError, match=missing):
         main(args(data, str(tmp_path / "run"), *flag))
+    assert not os.path.exists(tmp_path / "run" / "last.pt")
 
 
 def test_reference_weights_raise_and_port_weights_load(tmp_path):
+    """A port ``.pt`` and a reference checkpoint that pickles its model
+    (under ``ema``) load every tensor; a pickled class that cannot be
+    imported raises naming the file and the class."""
     m = Model.from_cfg("yolov5s-test", "hyp-nuclei")
     m.init_weights(torch.Generator().manual_seed(1))
     pt = checkpoint.save_inference(str(tmp_path / "w.pt"), m)
@@ -115,9 +125,23 @@ def test_reference_weights_raise_and_port_weights_load(tmp_path):
     assert load_pretrained(m2, pt) == len(m.state_dict())
     for k, v in m.state_dict().items():
         assert torch.equal(m2.state_dict()[k], v)
-    torch.save({"model": torch.nn.Conv2d(1, 1, 1), "epoch": 3}, str(tmp_path / "ref.pt"))
-    with pytest.raises(NotImplementedError, match="A.5"):
-        load_pretrained(m2, str(tmp_path / "ref.pt"))
+    torch.save({"ema": m, "model": None, "epoch": 3}, str(tmp_path / "ref.pt"))
+    m3 = Model.from_cfg("yolov5s-test", "hyp-nuclei")
+    assert load_pretrained(m3, str(tmp_path / "ref.pt")) == len(m.state_dict())
+    for k, v in m.state_dict().items():
+        assert torch.equal(m3.state_dict()[k], v)
+
+    (tmp_path / "gone_models.py").write_text(
+        "import torch\n\nclass RefModel(torch.nn.Conv2d):\n    pass\n")
+    sys.path.insert(0, str(tmp_path))
+    try:
+        import gone_models
+        torch.save({"model": gone_models.RefModel(1, 1, 1)}, str(tmp_path / "gone.pt"))
+    finally:
+        sys.path.remove(str(tmp_path))
+        sys.modules.pop("gone_models", None)
+    with pytest.raises(ImportError, match=r"gone\.pt.*gone_models\.RefModel"):
+        load_pretrained(m3, str(tmp_path / "gone.pt"))
 
 
 def test_runs_on_the_card_by_default(tmp_path):

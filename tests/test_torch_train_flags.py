@@ -5,7 +5,9 @@ on ``test_torch_train.py``'s synthetic set and arguments:
 ``--batch-size -1`` (the fallback off the card) and ``--autoanchor`` each
 training an epoch, a resident micro-step equal to a streamed one on the
 same rows and draws, the multi-scale resize against ``jax.image.resize``,
-``--evolve``'s files, and raw samples cached whole.
+``--evolve``'s files, raw samples cached whole, and a reference checkpoint
+fixture as ``--weights`` (by path, and by bare name through
+``$HD_YOLO_WEIGHTS_DIR``) with ``--plots`` for an epoch of ``tiny2l``.
 """
 
 import csv
@@ -140,3 +142,32 @@ def test_raw_samples_are_cached_whole(tmp_path):
         assert (a is b) == cache
         assert a["image"].shape == (128, 128, 3) and a["image"].dtype == np.uint8
         np.testing.assert_array_equal(a["targets"]["det"]["boxes"], b["targets"]["det"]["boxes"])
+
+
+FIXDIR = os.path.join(os.path.dirname(__file__), "fixtures")
+
+
+@pytest.mark.parametrize("fixture,by_name", [("metayolo_tiny", False), ("ultralytics_tiny", True)],
+                         ids=["metayolo-path", "ultralytics-bare-name"])
+def test_reference_weights_and_plots_train_an_epoch(tmp_path, caplog, monkeypatch, fixture,
+                                                    by_name):
+    """``--weights`` loads every tensor of the model from a reference
+    checkpoint; ``--plots`` writes the JAX package's files: the display
+    dumps and ``labels.jpg`` at the start, ``results.png`` at the end."""
+    data = make_dataset(tmp_path)
+    save_dir = str(tmp_path / "run")
+    weights = os.path.join(FIXDIR, f"{fixture}.pt")
+    if by_name:
+        monkeypatch.setenv("HD_YOLO_WEIGHTS_DIR", FIXDIR)
+        weights = f"{fixture}.pt"
+    a = args(data, save_dir, "--epochs", "1", "--weights", weights, "--plots")
+    a[a.index("yolov5s-test")] = os.path.join(FIXDIR, "tiny2l.yaml")
+    with caplog.at_level("INFO", logger="hd_yolo_tpu_torch"):
+        main(a)
+    n = len(Model.from_cfg(os.path.join(FIXDIR, "tiny2l.yaml"), "hyp-nuclei").state_dict())
+    assert f"{fixture}.pt ({n} tensors)" in caplog.text
+    files = {os.path.relpath(os.path.join(d, f), save_dir)
+             for d, _, fs in os.walk(save_dir) for f in fs}
+    assert {"labels.jpg", "results.png", "final.pt"} <= files
+    assert {f"display_dataset/val_{i:04d}.png" for i in range(4)} <= files
+

@@ -74,7 +74,8 @@ _SIGNATURES = {
     "roi_align_bounded": ("roi_align", [_P, _I] + [_P] * 6 + [_I] * 8 + [_P]),
     "roi_align_bounded_bwd": ("roi_align_bwd", [ctypes.c_char_p, _I] + [_P] * 7 + [_I] * 9 + [_P]),
     "mask_head": ("mask_head", [_P] * 9 + [_I, _I, _P]),
-    "mask_head_f32": ("mask_head_f32", [_P] * 11 + [_I, _I, _P]),
+    "mask_head_f32": ("mask_head_f32", [_P] * 10 + [_I, _I, _P]),
+    "mask_head_f32_smem_bytes": ("mask_head_f32", []),
     "roi_align_levels": ("roi_align_single", [ctypes.c_char_p, _I, _P] + [_I] * 7 + [_P]),
     "roi_align_levels_limits": ("roi_align_single", [_I]),
     "roi_align_levels_bwd": ("roi_align_single_bwd", [ctypes.c_char_p, _I, _P] + [_I] * 7 + [_P]),

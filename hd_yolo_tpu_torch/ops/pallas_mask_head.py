@@ -81,23 +81,27 @@ def kernel_weights(head, cd: torch.dtype = torch.bfloat16):
     return wf, bf, wd, deconv.bias.to(cd).contiguous()
 
 
-def _slices(w: Tensor) -> Tensor:
-    """(..., 256 co, 256 ci) → (..., pass 2, ks 16, 2048): each (pass, ks)
-    k-slice (co 128·pass.., ci 16·ks..) in wgmma's no-swizzle K-major layout,
-    8-co groups of two 8-ci core matrices of 8 rows x 16 bytes."""
+def _slices(w: Tensor, core: int = 8) -> Tensor:
+    """(..., 256 co, 256 ci) → (..., pass 2, ks, 256·core): each (pass, ks)
+    k-slice (co 128·pass.., 2·core ci from 2·core·ks) in wgmma's no-swizzle
+    K-major layout, 8-co groups of two core matrices of 8 rows x 16 bytes
+    (``core`` elements: 8 for bf16, 4 for 32-bit operands)."""
     lead = w.shape[:-2]
-    w = w.reshape(*lead, 2, 16, 8, 16, 2, 8)            # pass, co group, co row, ks, k half, ci
+    ks = 256 // (2 * core)
+    w = w.reshape(*lead, 2, 16, 8, ks, 2, core)         # pass, co group, co row, ks, k half, ci
     n = len(lead)
     perm = list(range(n)) + [n + i for i in (0, 3, 1, 4, 2, 5)]
-    return w.permute(*perm).reshape(*lead, 2, 16, 2048)
+    return w.permute(*perm).reshape(*lead, 2, ks, 256 * core)
 
 
-def mask_head_stream(wf: Tensor, wd: Tensor) -> Tensor:
-    """The kernel's weight stream: its 1280 k-slices of 4 KB in the order it
-    consumes them, (layer, pass, tap, ks) for the convs then (d, pass, ks)
-    for the deconv taps, as one contiguous (1280, 2048) tensor."""
-    conv = _slices(wf).permute(0, 2, 1, 3, 4)            # layer, pass, tap, ks
-    return torch.cat([conv.reshape(-1, 2048), _slices(wd).reshape(-1, 2048)]).contiguous()
+def mask_head_stream(wf: Tensor, wd: Tensor, core: int = 8) -> Tensor:
+    """The kernel's weight stream: its k-slices in the order it consumes
+    them, (layer, pass, tap, ks) for the convs then (d, pass, ks) for the
+    deconv taps, as one contiguous tensor: (1280, 2048) for the bf16 kernel
+    (16 ci a slice), (2560, 1024) at ``core`` 4 (8 ci a slice)."""
+    conv = _slices(wf, core).permute(0, 2, 1, 3, 4)      # layer, pass, tap, ks
+    return torch.cat([conv.reshape(-1, 256 * core),
+                      _slices(wd, core).reshape(-1, 256 * core)]).contiguous()
 
 
 def _active_count(active, N: int) -> int:
@@ -156,17 +160,34 @@ def fused_mask_probs(head, pooled: Tensor, labels: Tensor, active: Optional[Tens
     return mask_head_op(pooled, stream, bf, bd, wl, bl, labels, active)
 
 
+def tf32_round(x: Tensor) -> Tensor:
+    """f32 → the nearest TF32 value (ties away from zero, as ``cvt.rna``),
+    low 13 mantissa bits zero, as f32."""
+    b = x.float().contiguous().view(torch.int32)
+    return ((b + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(x: Tensor):
+    """(hi, lo): hi = tf32(x), lo = tf32(x - hi), the operands of a split
+    TF32 product lo·hi + hi·lo + hi·hi."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x.float() - hi)
+
+
+def mask_head_stream_f32(wf: Tensor, wd: Tensor) -> Tensor:
+    """The f32 kernel's weight stream: :func:`mask_head_stream`'s 2560
+    k8-slices for 32-bit operands, each split into its hi then its lo
+    half: (2560, 2, 1024)."""
+    return torch.stack(split_tf32(mask_head_stream(wf.float(), wd.float(), core=4)), 1).contiguous()
+
+
 def kernel_weights_f32(head):
-    """The f32 form's operand layouts: wf (4, 9, ci, co) with tap ky*3+kx,
-    bf (4, C), wd (ci, 4·co) with column (dy*2+dx)·C + co, bd (C,), the
-    logits' wl (classes, C) and bl (classes,), all f32."""
-    wf = torch.stack([c.weight.permute(2, 3, 1, 0).reshape(9, c.in_channels, c.out_channels)
-                      for c in head.fcn]).float().contiguous()
-    bf = torch.stack([c.bias for c in head.fcn]).float().contiguous()
-    deconv = head.maskrcnn_preds.conv5_mask
-    wd = deconv.weight.permute(0, 2, 3, 1).reshape(deconv.in_channels, 4 * deconv.out_channels)
+    """The f32 form's operands: the split weight stream of
+    :func:`mask_head_stream_f32`, bf (4, C), bd (C,), the logits' wl
+    (classes, C) and bl (classes,), all f32."""
+    wf, bf, wd, bd = kernel_weights(head, torch.float32)
     logits = head.maskrcnn_preds.mask_fcn_logits
-    return (wf, bf, wd.float().contiguous(), deconv.bias.float().contiguous(),
+    return (mask_head_stream_f32(wf, wd), bf, bd,
             logits.weight[:, :, 0, 0].float().contiguous(), logits.bias.float().contiguous())
 
 
@@ -201,27 +222,21 @@ mask_head_op = kernels.register_op(
                  "Tensor labels, Tensor? active) -> Tensor", _launch, _fake)
 
 
-def _launch_f32(pooled, wf, bf, wd, bd, wl, bl, labels, active) -> Tensor:
+def _launch_f32(pooled, stream, bf, bd, wl, bl, labels, active) -> Tensor:
     N, M = pooled.shape[:2]
     out = torch.empty((N, 2 * M, 2 * M), dtype=torch.float32, device=pooled.device)
-    # the activations between layers and the deconv's partials
-    work = torch.empty(N * M * M * (2 * pooled.shape[3] + 16), dtype=torch.float32,
-                       device=pooled.device)
+    # the activations between layers, ping-pong
+    work = torch.empty(2 * N * M * M * pooled.shape[3], dtype=torch.float32, device=pooled.device)
     dev, stream_handle = kernels.device_and_stream(pooled)
     code = kernels.fn("mask_head_f32")(
-        pooled.data_ptr(), wf.data_ptr(), bf.data_ptr(), wd.data_ptr(), bd.data_ptr(),
-        wl.data_ptr(), bl.data_ptr(), labels.data_ptr(), out.data_ptr(),
+        pooled.data_ptr(), stream.data_ptr(), bf.data_ptr(), bd.data_ptr(), wl.data_ptr(),
+        bl.data_ptr(), labels.data_ptr(), out.data_ptr(),
         None if active is None else active.data_ptr(), work.data_ptr(), N, dev, stream_handle)
     kernels.check(code, "mask_head_f32")
     kernels.LAUNCHES["mask_head_f32"] += 1
     return out
 
 
-def _fake_f32(pooled, wf, bf, wd, bd, wl, bl, labels, active):
-    N, M = pooled.shape[:2]
-    return pooled.new_empty((N, 2 * M, 2 * M), dtype=torch.float32)
-
-
 mask_head_f32_op = kernels.register_op(
-    "mask_head_f32", "(Tensor pooled, Tensor wf, Tensor bf, Tensor wd, Tensor bd, Tensor wl, "
-                     "Tensor bl, Tensor labels, Tensor? active) -> Tensor", _launch_f32, _fake_f32)
+    "mask_head_f32", "(Tensor pooled, Tensor stream, Tensor bf, Tensor bd, Tensor wl, Tensor bl, "
+                     "Tensor labels, Tensor? active) -> Tensor", _launch_f32, _fake)

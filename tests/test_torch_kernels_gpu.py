@@ -350,15 +350,23 @@ def test_mask_head_kernel_matches_plain(cuda, N, nc, active):
     torch.testing.assert_close(got, want, rtol=0, atol=2e-2)
 
 
-@pytest.mark.parametrize("N,nc,active", [(1, 2, None), (30, 2, None), (30, 2, 0), (37, 3, 20),
-                                         (400, 5, None), (400, 5, 360)])
-def test_mask_head_f32_kernel_matches_plain(cuda, N, nc, active):
+@pytest.mark.parametrize("N,nc,active,scale", [(1, 2, None, 1.0), (30, 2, None, 1.0),
+                                               (30, 2, 0, 1.0), (37, 3, 20, 1.0),
+                                               (400, 5, None, 1.0), (400, 5, 360, 1.0),
+                                               (3, 2, None, 1.0), (65, 3, None, 1.0),
+                                               (131, 2, None, 1.0), (131, 2, 65, 1.0),
+                                               (65, 3, None, 8.0)])
+def test_mask_head_f32_kernel_matches_plain(cuda, N, nc, active, scale):
     """The f32 form (an f32 model's features, as the fixtures of
     ``chip_smoke.py`` phase 20 give it): within 1e-4 of the plain version
-    in f32 (TF32 off) on the active slots, exactly 0 past them, two
-    launches bit-identical, and the bf16 kernel not launched."""
+    in f32 (TF32 off) on the active slots, and within 5e-6·scale, which a
+    build without the periodic promotion misses; exactly 0 past them, two
+    launches bit-identical, and the bf16 kernel not launched.  N·196 flat
+    rows in 128-row tiles: at N 3, 65 and 131 ROI boundaries fall inside a
+    tile and the last tile is partial; ``scale`` 8 gives features of large
+    magnitude (the split products' error grows with the operands')."""
     head = _mask_head(nc, 4)
-    pooled = torch.randn((N, 14, 14, 256), generator=cuda, device="cuda")
+    pooled = torch.randn((N, 14, 14, 256), generator=cuda, device="cuda") * scale
     labels = torch.randint(0, nc, (N,), generator=cuda, device="cuda")
     act = None if active is None else torch.tensor(active, dtype=torch.int32, device="cuda")
     with torch.no_grad():
@@ -371,6 +379,11 @@ def test_mask_head_f32_kernel_matches_plain(cuda, N, nc, active):
     assert got.dtype == torch.float32 and torch.equal(got, again)
     assert bool((got[k:] == 0).all())
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    # the tensor cores' f32 accumulate truncates: the partial promoted every
+    # 16 k-steps reads ~1.5e-6 at unit features, one accumulator over a conv's
+    # K ~2e-5; the limit scales with the features
+    err = (got - want).abs().max().item()
+    assert err <= 5e-6 * scale, f"max |d| {err:.3g}: the partial is not promoted often enough"
 
 
 @pytest.mark.parametrize("B,H,W", [(2, 64, 64), (1, 50, 94), (3, 36, 20), (16, 640, 640),
@@ -483,7 +496,7 @@ def test_custom_op_fakes_match_real_outputs(cuda):
                                       wl, bl, labels, None)),
         "mask_head_f32": (ops.mask_head_f32, (pooled.float(),
                                               *pallas_mask_head.kernel_weights_f32(head), labels,
-                                              None)),
+                                              torch.tensor(3, device="cuda"))),
     }
     for name, (op, args) in calls.items():
         with torch.no_grad():

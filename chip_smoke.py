@@ -9,8 +9,8 @@ Run from the repo root on a machine with one NVIDIA GPU:
 — for ``roi_align_bwd`` also phases 14 and 14b, for ``roi_align_single_bwd``
 also phases 15 and 15b; ``device_augment`` runs phase 16 with its own
 host-loader CLI, ``multihead``, ``anchor_free``, ``ensemble``,
-``pretrained``, ``nucls_finetune`` and ``hub`` phases 17–22 — and stop
-without the result lines.
+``pretrained``, ``nucls_finetune``, ``hub`` and ``hnet_darknet`` phases
+17–23 — and stop without the result lines.
 ``--hnet-loss-trials N``: phase 15's loss check N times, from the fresh
 model and 15 micro-steps in; ``--step-calls PATH``: both backwards timed at
 hnet training calls saved in PATH, captured first where it is absent, so
@@ -257,6 +257,22 @@ Phases (any failure raises and the script exits non-zero):
      same preset, ``tests/test_torch_hub_preset_train.py``); 8 updates
      in f32 on 2 x 256 on the card and on the CPU from one fresh model, each
      micro-step's loss within rtol 2e-3.
+ 23. hnet-darknet: ``hnet-nucls`` with the darknet backbone at its
+     defaults, 17 keypoints on ``det40x`` and an FCOS header ``fcos40x``
+     (``hnet_darknet_cfg``), bf16, seeded weights, 4 x 640 uint8 tiles: the
+     launches of one forward (``stem_tc`` 1, NMS 3, canvas ROI-align 3,
+     single-level ROI-align 2, mask head 1), every kernel call of it held
+     against its plain version on its own inputs and timed beside its plain
+     version and bound, the outputs (finite, keypoints inside their boxes
+     with scores in [0, 1], FCOS boxes inside the tile), the forward's
+     median / min / max and a profiled forward; training from the fresh
+     model (keypoint and FCOS targets on ``hnet_batch``'s nuclei): the loss
+     over 8 updates as phase 15's, every backward call shadowed, the
+     launches of a micro-step, its times; a small f32 card vs CPU check
+     (both headers' detections, keypoints); ``SRGenerator`` and the WGAN
+     ``SRDiscriminator`` at their defaults (16 x 320² → 640², one WGAN-GP
+     step) and card vs CPU; ``tests/fixtures/swin_tiny.pt`` through
+     ``utils/import_swin`` on the card against the CPU.
 
 Phase 3 also holds the single-level ROI-align's backward kernel
 (``roi_align_levels_bwd``) against its plain version at its two call sites:
@@ -278,7 +294,7 @@ bit-identical, timed), and the K=108 stem kernels 6 and 7 at (16, 640,
 640, 3), kernel 6 timed in turns with ``stem_tc``.
 
 The last lines are the script's wall time, the per-kernel JSON record
-(``launches_by_path`` with the paths of phases 17–22), the ``nvidia-smi``
+(``launches_by_path`` with the paths of phases 17–23), the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
@@ -4646,6 +4662,436 @@ def phase_hub(iters: int):
     return launches, info
 
 
+# ------------------------------------------------- hnet's remaining parts
+# launches of one bf16 forward of hnet-darknet: the stem of the darknet trunk
+# (the bf16 tensor-core form at N 32); the tile ROI's three levels once for
+# the Mask R-CNN header and once for FCOS; the canvas ROI-align at the box
+# head's, the mask head's and the keypoint head's ROIs; the RPN and
+# class-aware NMS and FCOS's class-aware NMS; one mask head
+HNET_DARKNET_LAUNCHES = {"stem": 0, "stem_tc": 1, "nms": 3, "roi_align": 3, "mask_head": 1,
+                         "roi_align_single": 2, "mask_head_f32": 0, "roi_align_bwd": 0,
+                         "roi_align_single_bwd": 0, "stem_k108": 0, "stem_dot108": 0}
+# launches of one hnet-darknet training micro-step (BatchNorm on the batch's
+# statistics: no stem kernel): the ROI pyramids of both passes of both
+# detection headers and the constrain's pooling (5), the backward of each
+# whose output reaches a loss (FCOS's pass 1 feeds none: 4); the canvas
+# ROI-align at the box, mask and keypoint ROIs of both passes (6), each
+# backward but pass 1's keypoints' (5); the Mask R-CNN header's RPN NMS in
+# both passes and its class-aware NMS and FCOS's in pass 1 (4); the cuDNN
+# mask-head chain
+HNET_DARKNET_TRAIN_LAUNCHES = {"stem": 0, "stem_tc": 0, "nms": 4, "roi_align": 6,
+                               "roi_align_bwd": 5, "mask_head": 0, "roi_align_single": 5,
+                               "roi_align_single_bwd": 4, "stem_k108": 0, "stem_dot108": 0,
+                               "mask_head_f32": 0}
+# the swin fixture's model (``tests/test_import_swin.py``'s synthetic layout)
+SWIN_FIXTURE_KW = dict(embed_dim=32, depths=(1, 1), num_heads=(2, 4), window_size=4,
+                       out_indices=(0, 1))
+
+
+def hnet_darknet_cfg() -> dict:
+    """hnet-nucls with the darknet backbone at its defaults (width 0.5,
+    depth 0.33), 17 keypoints on ``det40x`` (torchvision's KeypointRCNN
+    default) and an FCOS header ``fcos40x`` at its defaults; ``seg10x``,
+    ``cl5x`` and the mask-weighted constrain as shipped."""
+    cfg = load_cfg("hnet-nucls")
+    cfg["backbone"] = {"type": "darknet"}
+    cfg["headers"]["det40x"]["num_keypoints"] = 17
+    cfg["headers"]["fcos40x"] = {"type": "fcos", "num_classes": 4, "amplification": 1.0,
+                                 "roi_size": 640}
+    return cfg
+
+
+def keypoint_targets(boxes: np.ndarray, valid: np.ndarray, nk: int = 17) -> np.ndarray:
+    """(B, T, nk, 3) normalised keypoints of each box's inscribed ellipse:
+    its centre and nk - 1 points on its boundary, every fourth hidden."""
+    c = (boxes[..., :2] + boxes[..., 2:]) / 2
+    r = (boxes[..., 2:] - boxes[..., :2]) / 2
+    ang = np.linspace(0, 2 * np.pi, nk - 1, endpoint=False)
+    ring = np.stack([np.cos(ang), np.sin(ang)], -1)                        # (nk - 1, 2)
+    xy = np.concatenate([c[:, :, None], c[:, :, None] + 0.9 * r[:, :, None] * ring], 2)
+    vis = np.ones(boxes.shape[:2] + (nk,), np.float32)
+    vis[..., 3::4] = 0.0
+    return np.concatenate([xy, (vis * valid[..., None])[..., None]], -1).astype(np.float32)
+
+
+def hnet_darknet_batch(seed: int):
+    """``hnet_batch``'s 4 x 640 tiles with the seg map at the darknet
+    pyramid's stride 32, keypoints on ``det40x``'s nuclei and the same
+    nuclei as ``fcos40x``'s targets; on the card, with the object count."""
+    from hd_yolo_tpu_torch.engines.train_step import to_device
+
+    x, t = hnet_batch(seed, seg_stride=32)
+    d = t["det40x"]
+    d["keypoints"] = keypoint_targets(d["boxes"], d["valid"])
+    t["fcos40x"] = {k: d[k] for k in ("boxes", "labels", "valid")}
+    return to_device({"image": x, "targets": t}, "cuda"), int(d["valid"].sum())
+
+
+def time_call(name: str, fn, plain, b_ms: float, by: str, iters: int) -> dict:
+    """A kernel call's two readings, device time, its plain version's time
+    and the bound, logged."""
+    t = kernel_ms(fn, iters)
+    t.update(device_ms=device_ms(fn), plain_ms=cuda_ms(plain, 5), bound_ms=b_ms, bound_by=by)
+    log(f"    {name}: kernel {t['ms']:.4f} ms, {t['ms_back_to_back']:.4f} back to back, device "
+        f"{t['device_ms']:.4f} | plain {t['plain_ms']:.4f} | bound {b_ms:.4f} ({by})")
+    return t
+
+
+@torch.no_grad()
+def hold_hnet_darknet_calls(seen: dict, iters: int) -> dict:
+    """Every kernel call of one hnet-darknet forward on its own inputs
+    against the plain version: NMS, both ROI-aligns bit for bit, the mask
+    head as phase 5 holds masks (``hold_path_calls``), the stem within one
+    bf16 ulp; each call's times beside its plain version's and its bound."""
+    res = hold_path_calls(seen, "hnet-darknet")
+    times = {}
+    (a, k), = seen["stem_conv"]
+    xs, w, scale, bias = a
+    need(w.shape == (6, 6, 3, 32) and pallas_stem.stem_form(xs.shape, w.shape, 2, 2,
+                                                            torch.bfloat16) == "tc",
+         f"the darknet stem is not stem_tc at N 32: {tuple(w.shape)}")
+    got = pallas_stem.stem_conv(*a, **k)
+    res["stem_tc_max_abs_err"] = check_close(
+        "hnet-darknet: stem_tc at N 32 on the path's input", got,
+        pallas_stem.stem_conv_plain(*a, **k), atol=1e-3, rtol=2 ** -7)
+    times["stem_tc"] = time_call(
+        f"stem_tc {tuple(xs.shape)} N 32", lambda: pallas_stem.stem_conv(*a, **k),
+        lambda: pallas_stem.stem_conv_plain(*a, **k),
+        *bound(nbytes(xs, got, scale, bias) + stem_lab.KDIM * 32 * 2,
+               2.0 * got.numel() * stem_lab.KDIM, BF16_FLOPS), iters)
+    calls = seen["_levels_forward"]
+    need(len(calls) == 2, f"hnet-darknet: {len(calls)} ROI pyramids, expected 2")
+    res["roi_align_single"] = []
+    for i, (a, k) in enumerate(calls):
+        got = pallas_roi_align._levels_forward(*a, **k)
+        want = pallas_roi_align.roi_align_levels_plain(*a, **k)
+        for f, g, wt in zip(a[0], got, want):
+            check_equal(f"hnet-darknet: roi_align_single pyramid {i}, level {tuple(f.shape)}",
+                        g, wt)
+        res["roi_align_single"].append([tuple(f.shape) for f in a[0]])
+    a, k = calls[0]
+    outs = pallas_roi_align._levels_forward(*a, **k)
+    times["roi_align_single"] = time_call(
+        "roi_align_single, the three darknet levels in one launch",
+        lambda: pallas_roi_align._levels_forward(*a, **k),
+        lambda: pallas_roi_align.roi_align_levels_plain(*a, **k),
+        *bound(nbytes(*a[0], *outs, a[1]), sum(o.numel() for o in outs) * 4 * 4 * 2,
+               F32_FLOPS), iters)
+    for i, (a, k) in enumerate(seen["roi_align_bounded"]):
+        out = pallas_roi_align.roi_align_bounded(*a)
+        times[f"roi_align_{a[1].shape[0]}x{a[6]}"] = time_call(
+            f"roi_align canvas, {a[1].shape[0]} ROIs at {a[6]}x{a[6]}",
+            lambda: pallas_roi_align.roi_align_bounded(*a),
+            lambda: pallas_roi_align.roi_align_bounded_plain(*a),
+            *roi_bound(a, out), iters)
+    for i, (a, k) in enumerate(seen["nms_padded_pallas"]):
+        # the IoU of every valid upper-triangle pair (~20 f32 ops), as phase 3
+        nv = a[2].sum(1).double()
+        times[f"nms_{i}_{tuple(a[0].shape)}"] = time_call(
+            f"nms {tuple(a[0].shape)} -> {a[4]} at IoU {a[3]}, with its sort",
+            lambda: pallas_nms.nms_padded_pallas(*a, **k), lambda: nms_padded(*a, **k),
+            *bound(nbytes(*a[:3]), float((nv * (nv - 1) / 2).sum()) * 20, F32_FLOPS), iters)
+    (a, k), = seen["fused_mask_probs"]
+    probs = pallas_mask_head.fused_mask_probs(*a, **k)
+    wbytes = sum(p.numel() for p in a[0].parameters()) * 2
+    times["mask_head"] = time_call(
+        f"mask_head N {a[1].shape[0]}", lambda: pallas_mask_head.fused_mask_probs(*a, **k),
+        lambda: pallas_mask_head.fused_mask_probs_plain(*a, **k),
+        *bound(nbytes(a[1], probs) + wbytes, mask_head_flops(a[1].shape[0]), BF16_FLOPS), iters)
+    res["times"] = times
+    return res
+
+
+def check_hnet_darknet_outputs(out: dict, size: int = 640) -> dict:
+    """Finite outputs of the expected shapes; keypoints inside their boxes
+    with scores in [0, 1]; FCOS detections inside the tile."""
+    d, f, seg, cl = out["det40x"], out["fcos40x"], out["seg10x"], out["cl5x"]
+    need(d["boxes"].shape == (4, 100, 4) and d["masks"].shape == (4, 100, 28, 28)
+         and d["keypoints"].shape == (4, 100, 17, 3) and f["boxes"].shape == (4, 100, 4)
+         and seg["probs"].shape == (4, 20, 20, 5) and cl["probs"].shape == (4, 3),
+         f"unexpected hnet-darknet shapes "
+         f"{[tuple(t.shape) for t in (d['boxes'], d['keypoints'], f['boxes'], seg['probs'])]}")
+    for name, t in (("det boxes", d["boxes"]), ("masks", d["masks"]), ("keypoints", d["keypoints"]),
+                    ("fcos boxes", f["boxes"]), ("fcos scores", f["scores"]),
+                    ("seg", seg["probs"]), ("cl", cl["probs"])):
+        need(bool(torch.isfinite(t.float()).all()), f"non-finite hnet-darknet {name}")
+    v, fv = d["valid"], f["valid"]
+    need(int(v.sum()) >= 4 and int(fv.sum()) >= 4, "hnet-darknet: too few detections")
+    kp, bx = d["keypoints"][v], d["boxes"][v]
+    inside = ((kp[..., 0] >= bx[:, None, 0]) & (kp[..., 0] <= bx[:, None, 2])
+              & (kp[..., 1] >= bx[:, None, 1]) & (kp[..., 1] <= bx[:, None, 3]))
+    need(bool(inside.all()), f"hnet-darknet: {int((~inside).sum())} keypoints outside their box")
+    need(bool(((kp[..., 2] >= 0) & (kp[..., 2] <= 1)).all()), "keypoint scores outside [0, 1]")
+    need(bool((d["keypoints"][~v] == 0).all()), "keypoints of invalid detections not 0")
+    fb = f["boxes"][fv]
+    need(bool(((fb >= 0) & (fb <= size)).all() and (fb[:, 2:] >= fb[:, :2]).all()),
+         "hnet-darknet: FCOS detections outside the tile")
+    need(bool((f["labels"][fv] >= 1).all() & (f["labels"][fv] <= 4).all()
+              & (f["labels"][~fv] == -100).all()), "hnet-darknet: FCOS labels")
+    info = {"det_per_image": v.sum(1).tolist(), "fcos_per_image": fv.sum(1).tolist(),
+            "keypoint_score_mean": float(kp[..., 2].mean()),
+            "fcos_score_max": float(f["scores"][fv].max())}
+    log(f"  outputs: Mask R-CNN detections per image {info['det_per_image']}, FCOS "
+        f"{info['fcos_per_image']}; every keypoint inside its box, scores mean "
+        f"{info['keypoint_score_mean']:.4f}; FCOS boxes inside the tile, max score "
+        f"{info['fcos_score_max']:.4f}")
+    return info
+
+
+def match_keypoints(a: dict, b: dict):
+    """b's valid detections that a finds again (same label, IoU >= 0.9) and,
+    for those, the largest |keypoint x, y difference| of each (px)."""
+    diffs = []
+    for i in range(len(b["valid"])):
+        va, vb = a["valid"][i], b["valid"][i]
+        if vb.any() and va.any():
+            best, j = box_iou(b["boxes"][i][vb].float(), a["boxes"][i][va].float()).max(1)
+            ok = (best >= 0.9) & (a["labels"][i][va][j] == b["labels"][i][vb])
+            ka, kb = a["keypoints"][i][va][j[ok]], b["keypoints"][i][vb][ok]
+            diffs += (ka[..., :2] - kb[..., :2]).abs().amax((1, 2)).tolist()
+    return diffs
+
+
+@torch.no_grad()
+def hnet_darknet_reference() -> dict:
+    """A small hnet-darknet (width 0.25, FPN 256, Mask R-CNN with masks and 5
+    keypoints, FCOS, panoptic) in f32 on 2 x 128 px, the card (the direct
+    f32 stem, the mask head's f32 form; cuDNN without TF32) against the
+    port's plain path on the CPU from the same weights: >= 98% of the CPU's
+    detections of each header found again (same label, IoU >= 0.9), and of
+    those the keypoints within 0.05 px for >= 98%.  FCOS's own init
+    (N(0, 0.01) convs) scores every location within rounding of the same
+    value, so any rounding step reorders its top-k, and half its random
+    ltrb regressions are cut to 0 by the ReLU, which leaves boxes of no
+    height that match nothing; here its convs are He-normal, which spreads
+    the scores, and its regression bias 3, which opens the boxes."""
+    cfg = {"backbone": {"type": "darknet", "width": 0.25, "depth": 0.33},
+           "fpn": {"out_channels": 256},
+           "headers": {
+               "det": {"type": "maskrcnn", "num_classes": 4, "pre_nms_topk": 256,
+                       "num_proposals": 64, "num_detections": 24, "num_keypoints": 5,
+                       "anchor_sizes": [16.0, 32.0, 64.0]},
+               "fcos": {"type": "fcos", "num_classes": 3, "pre_nms_topk": 256,
+                        "num_detections": 24},
+               "seg": {"type": "panoptic", "num_classes": 5, "channels": 64,
+                       "amplification": 0.25}}}
+    x = torch.randint(0, 256, (2, 128, 128, 3), generator=torch.Generator().manual_seed(9),
+                      dtype=torch.uint8)
+    gpu = HNet.from_cfg(cfg, seed=11)
+    g = torch.Generator().manual_seed(12)
+    for mod in gpu.headers["fcos"].modules():
+        if isinstance(mod, torch.nn.Conv2d):
+            mod.weight.copy_(torch.randn(mod.weight.shape, generator=g)
+                             * math.sqrt(2.0 / mod.weight[0].numel()))
+    gpu.headers["fcos"].bbox_pred.bias.fill_(3.0)
+    cpu = HNet(cfg, device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    kernels.reset_launches()
+    _, a = gpu(x.cuda())
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    need(launches["stem"] == 1 and launches["mask_head_f32"] == 1,
+         f"f32 hnet-darknet: expected the direct stem and the f32 mask head, got {launches}")
+    a = cpu_tree(a)
+    _, b = cpu(x)
+    res = {}
+    for task in ("det", "fcos"):
+        matched, total, mask_d = match_detections(a[task], b[task])
+        res[task] = {"matched": matched, "total": total}
+        log(f"  f32 {task}: {total} valid on the CPU, {matched / max(total, 1):.3f} found again on "
+            f"the card (need >= 0.98)" + (f"; masks mean |d| {mask_d:.2e}" if task == "det" else ""))
+        need(total >= 8 and matched >= 0.98 * total, f"f32 hnet-darknet {task}: card vs CPU")
+    kd = match_keypoints(a["det"], b["det"])
+    close = sum(d <= 0.05 for d in kd) / max(len(kd), 1)
+    res["keypoints_within_0.05px"] = close
+    log(f"  f32 keypoints of the matched detections: {close:.3f} of {len(kd)} within 0.05 px "
+        f"(need >= 0.98), largest |d| {max(kd):.3g} px")
+    need(close >= 0.98, "f32 hnet-darknet keypoints: card vs CPU")
+    res["seg_max_abs_d"] = float((a["seg"]["probs"] - b["seg"]["probs"]).abs().max())
+    need(res["seg_max_abs_d"] <= 1e-4, f"f32 seg probabilities card vs CPU {res['seg_max_abs_d']}")
+    return res
+
+
+@torch.no_grad()
+def he_normal(module: torch.nn.Module, gen: torch.Generator) -> None:
+    """Seeded He-normal conv weights and zero biases.  (torch's default
+    init shrinks the signal through the critic's eight layers until its
+    score no longer depends on its input at f32 resolution.)"""
+    for mod in module.modules():
+        if isinstance(mod, torch.nn.Conv2d):
+            mod.weight.copy_(torch.randn(mod.weight.shape, generator=gen)
+                             * math.sqrt(2.0 / mod.weight[0].numel()))
+            mod.bias.zero_()
+
+
+def srgan_check(iters: int) -> dict:
+    """``SRGenerator`` and ``SRDiscriminator(wgan=True)`` at their defaults
+    on the card in f32 (cuDNN, TF32 off) with seeded He-normal weights: the
+    generator on 16 x 320² → 640² (finite, in [0, 1], timed), one WGAN-GP
+    critic step on its output against 16 real 640² tiles (Adam 1e-4; the
+    critic objective on the same batch and α before and after, finite, and
+    falling), and a small card vs CPU check of both modules (2 x 24², 2 x
+    48²): the generator within 2e-4 (the CPU's own f32 output is 3.8e-5
+    off its f64 one at these weights, so two f32 results may differ by
+    some multiple of that), the critic's scores within 1e-4 of their
+    size."""
+    from hd_yolo_tpu_torch.hnet import srgan
+
+    g, d = srgan.SRGenerator(), srgan.SRDiscriminator(wgan=True)
+    he_normal(g, torch.Generator().manual_seed(23))
+    he_normal(d, torch.Generator().manual_seed(24))
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    lr = torch.rand((16, 320, 320, 3), generator=gen, device="cuda")
+    hr = torch.rand((16, 640, 640, 3), generator=gen, device="cuda")
+    g.eval()
+    with torch.no_grad():
+        fake = g(lr)
+    need(fake.shape == (16, 640, 640, 3) and bool(torch.isfinite(fake).all())
+         and float(fake.min()) >= 0 and float(fake.max()) <= 1, "SRGAN generator output")
+    with torch.no_grad():
+        t = timed_steps(lambda: g(lr), iters)
+    log(f"  SRGenerator 16 x 320² -> 640² f32: median {t['median_ms']:.2f} ms (min "
+        f"{t['min_ms']:.2f}, max {t['max_ms']:.2f})")
+    opt = torch.optim.Adam(d.parameters(), 1e-4)
+
+    def critic_loss():
+        gp = srgan.gradient_penalty(d, hr, fake, torch.Generator(device="cuda").manual_seed(1))
+        return d(fake).mean() - d(hr).mean() + 10.0 * gp
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = critic_loss()
+    opt.zero_grad()
+    loss.backward()
+    opt.step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    before = float(loss.detach())
+    after = float(critic_loss().detach())
+    log(f"  WGAN-GP critic step (16 x 640², f32, Adam 1e-4): {step_ms:.1f} ms; objective "
+        f"{before:.4f} -> {after:.4f}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    need(math.isfinite(before) and math.isfinite(after) and after < before,
+         "the WGAN-GP critic objective did not fall over one step")
+    gc, dc = srgan.SRGenerator(device="cpu"), srgan.SRDiscriminator(wgan=True, device="cpu")
+    gc.load_state_dict(g.state_dict())
+    dc.load_state_dict(d.state_dict())
+    gc.eval()
+    xs = torch.rand((2, 24, 24, 3), generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        eg = float((g(xs.cuda()).cpu() - gc(xs)).abs().max())
+        xd = torch.rand((2, 48, 48, 3), generator=torch.Generator().manual_seed(3))
+        sd_cpu = dc(xd)
+        ed = float((d(xd.cuda()).cpu() - sd_cpu).abs().max())
+    scale = max(1.0, float(sd_cpu.abs().max()))
+    log(f"  SRGAN card vs CPU: generator max |d| {eg:.2e} (need <= 2e-4), critic {ed:.2e} on "
+        f"scores {[round(v, 4) for v in sd_cpu.tolist()]} (need <= 1e-4 x {scale:.3g})")
+    need(eg <= 2e-4 and ed <= 1e-4 * scale, "SRGAN card vs CPU")
+    del g, d, opt
+    torch.cuda.empty_cache()
+    return {"generator": t, "critic_step_ms": step_ms, "critic_before": before,
+            "critic_after": after, "card_vs_cpu": {"generator": eg, "critic": ed}}
+
+
+@torch.no_grad()
+def swin_import_check() -> dict:
+    """``tests/fixtures/swin_tiny.pt`` (the upstream key layout) through
+    ``utils/import_swin`` into a port Swin on the card: every key used, and
+    its two output levels on 2 x 32² against the same import run on the CPU
+    (the fixture bundles no outputs; ``tests/test_torch_importers.py`` holds
+    the CPU import against JAX's), within 1e-4."""
+    from hd_yolo_tpu_torch.hnet import SwinTransformer
+    from hd_yolo_tpu_torch.utils.import_swin import import_swin_state_dict
+
+    sd = torch.load(os.path.join(FIXTURES, "swin_tiny.pt"), map_location="cpu",
+                    weights_only=False)["state_dict"]
+    gpu, cpu = SwinTransformer(**SWIN_FIXTURE_KW).cuda(), SwinTransformer(**SWIN_FIXTURE_KW)
+    unused = import_swin_state_dict(sd, gpu) + import_swin_state_dict(sd, cpu)
+    need(not unused, f"swin import left keys unused: {unused}")
+    x = torch.rand((2, 32, 32, 3), generator=torch.Generator().manual_seed(4))
+    errs = [float((a.cpu() - b).abs().max()) for a, b in zip(gpu(x.cuda()), cpu(x))]
+    log(f"  swin_tiny.pt imported on the card: {len(sd)} keys, none unused; outputs vs the "
+        f"CPU's max |d| {errs} (need <= 1e-4)")
+    need(max(errs) <= 1e-4, "swin import: card vs CPU")
+    return {"keys": len(sd), "max_abs_d": errs}
+
+
+def phase_hnet_darknet(iters: int):
+    """Phase 23: hnet-darknet (``hnet_darknet_cfg``) at bf16 on 4 x 640
+    uint8 tiles with seeded weights: the launches of one forward (asserted),
+    every kernel call on the path held against its plain version and timed,
+    the outputs checked, the forward timed and profiled; a training
+    micro-step from the fresh model (launches asserted, every backward call
+    shadowed, the loss falling over 8 updates as phase 15's), timed; a small
+    f32 card vs CPU check; SRGAN; the swin importer."""
+    from hd_yolo_tpu_torch.engines.optim import build_optimizer
+    from hd_yolo_tpu_torch.engines.train_step import TrainState, make_train_step
+    from hd_yolo_tpu_torch.hnet import mask_rcnn
+    from hd_yolo_tpu_torch.models import layers
+
+    t0 = time.perf_counter()
+    info = {"card": CARD.get("smi")}
+    cfg = hnet_darknet_cfg()
+    model = HNet.from_cfg(cfg, dtype=torch.bfloat16, seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    x = torch.randint(0, 256, (4, 640, 640, 3), generator=gen, device="cuda", dtype=torch.uint8)
+    model(x)                                          # warm-up (cuDNN/cuBLAS algorithm choice)
+    with capture_calls((pallas_nms, "nms_padded_pallas"), (pallas_roi_align, "roi_align_bounded"),
+                       (mask_rcnn, "fused_mask_probs"), (layers, "stem_conv"),
+                       (pallas_roi_align, "_levels_forward")) as seen:
+        launches, (losses, out) = path_launches(lambda: model(x))
+    log(f"  launches in one forward: {launches}")
+    for k, n in HNET_DARKNET_LAUNCHES.items():
+        need(launches[k] == n, f"hnet-darknet: kernel {k} launched {launches[k]} times in one "
+                               f"forward, expected {n}")
+    need(losses == {"seg10x": {}, "det40x": {}, "fcos40x": {}, "cl5x": {}},
+         f"unexpected losses {losses}")
+    info["outputs"] = check_hnet_darknet_outputs(out)
+    info["held"] = hold_hnet_darknet_calls(seen, 20)
+    info["infer"] = timed_steps(lambda: model(x), iters)
+    log(f"  batch-4 forward: median {info['infer']['median_ms']:.2f} ms over {iters} (min "
+        f"{info['infer']['min_ms']:.2f}, max {info['infer']['max_ms']:.2f}); tiles/s "
+        f"{4e3 / info['infer']['median_ms']:.1f}")
+    info["infer"].update(profile_step(lambda: model(x)))
+    del model
+    torch.cuda.empty_cache()
+
+    model = HNet.from_cfg(cfg, dtype=torch.bfloat16, seed=0)
+    state = TrainState.create(model, build_optimizer(model, HNET_HYP, 80, 12))
+    step = make_train_step()
+    batch, n_obj = hnet_darknet_batch(0)
+    r = loss_runs(step, state, batch, hnet_batch_loss(model, batch))
+    r.pop("metrics")
+    log(f"  loss on the batch ({n_obj} nuclei, eval mode) before 8 updates (the fresh model) "
+        f"{r['before']:.4f}; after them through the kernels {r['kernel']:.4f} (their "
+        f"{r['held']['calls']} backward calls each held against the plain version, worst |d| / "
+        f"max|plain|: {r['held']}), through the plain backwards {r['plain']:.4f}, through the "
+        f"kernels again {r['kernel_again']:.4f}; the updates' losses "
+        f"{[round(v, 4) for v in r['kernel_per_update']]}")
+    need(r["kernel"] < r["before"], "hnet-darknet: the loss did not fall over 8 updates")
+    fall = r["before"] - r["plain"]
+    need(fall > 0 and abs(r["kernel"] - r["plain"]) <= 0.1 * fall,
+         f"hnet-darknet: the loss after 8 updates through the kernels, {r['kernel']:.4f}, is not "
+         f"within a tenth of the fall of the plain backwards' {r['plain']:.4f}")
+    t_launches, info["train"] = train_timing(step, state, batch, iters)
+    log(f"  launches of one training micro-step: {t_launches}")
+    for k, n in HNET_DARKNET_TRAIN_LAUNCHES.items():
+        need(t_launches[k] == n, f"hnet-darknet training: kernel {k} launched {t_launches[k]} "
+                                 f"times in one micro-step, expected {n}")
+    info["train"].update(loss_runs=r, objects=n_obj)
+    log(f"  train micro-step (batch 4 x 640, bf16, {n_obj} nuclei): median "
+        f"{info['train']['median_ms']:.2f} ms over {iters} (min {info['train']['min_ms']:.2f}, "
+        f"max {info['train']['max_ms']:.2f}); {info['train']['img_per_s']:.1f} img/s; peak "
+        f"{info['train']['peak_gib']:.2f} GiB; items {info['train']['last_items']}")
+    del model, state, step, batch
+    torch.cuda.empty_cache()
+    info["reference"] = hnet_darknet_reference()
+    info["srgan"] = srgan_check(iters)
+    info["swin_import"] = swin_import_check()
+    info["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 23: {info['phase_s']:.1f} s")
+    return launches, t_launches, info
+
+
 ONLY_PATHS = {
     "device_augment": "[16] device augmentation: yolov5l6-mask, batch 16 x 640, bf16, masks, "
                       "raw mode",
@@ -4660,10 +5106,13 @@ ONLY_PATHS = {
                       "flagship from the ultralytics .pt, batch 16 x 640, bf16, masks",
     "hub": "[22] hub presets at published widths: yolov5s-ghost (v6.0), yolov5s (v3.1), batch "
            "16 x 640, bf16",
+    "hnet_darknet": "[23] hnet-darknet: darknet trunk, 17 keypoints, FCOS header, batch 4 x 640, "
+                    "bf16; SRGAN; the swin importer",
 }
 PATH_PHASES = {"multihead": phase_multihead, "anchor_free": phase_anchor_free,
                "ensemble": phase_ensemble, "pretrained": phase_pretrained,
-               "nucls_finetune": phase_nucls_finetune, "hub": phase_hub}
+               "nucls_finetune": phase_nucls_finetune, "hub": phase_hub,
+               "hnet_darknet": phase_hnet_darknet}
 
 
 def main(argv=None) -> int:
@@ -4672,7 +5121,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch/H100 port.")
     ap.add_argument("--only", default="",
                     help="comma-separated phase-3 kernel names or paths (device_augment, "
-                         "multihead, anchor_free, ensemble, pretrained, nucls_finetune, hub): "
+                         "multihead, anchor_free, ensemble, pretrained, nucls_finetune, hub, "
+                         "hnet_darknet): "
                          "build, run only their phases and stop (no result lines); without it, "
                          "every phase")
     ap.add_argument("--hnet-loss-trials", type=int, default=0, metavar="N",
@@ -4814,6 +5264,9 @@ def main(argv=None) -> int:
     log(ONLY_PATHS["hub"])
     hub_launches, hub_info = phase_hub(10)
     log("  " + json.dumps({"hub": hub_info}, default=float))
+    log(ONLY_PATHS["hnet_darknet"])
+    hd_launches, hd_train_launches, hd_info = phase_hnet_darknet(10)
+    log("  " + json.dumps({"hnet_darknet": hd_info}, default=float))
 
     paths = {"flagship": launches, "defaults": default_launches, "hnet": hnet_launches,
              "lab": lab_launches, "slide": slide_launches, "val": val_launches,
@@ -4825,7 +5278,8 @@ def main(argv=None) -> int:
              "ensemble": ens_launches, "pretrained": pre_launches["metayolo_tiny"],
              "nucls_finetune": nucls_launches["micro_step"],
              "nucls_finetune_val": nucls_launches["val"],
-             "hub_ghost": hub_launches["yolov5s-ghost"], "hub_v3.1": hub_launches["yolov5s-v3.1"]}
+             "hub_ghost": hub_launches["yolov5s-ghost"], "hub_v3.1": hub_launches["yolov5s-v3.1"],
+             "hnet_darknet": hd_launches, "hnet_darknet_train": hd_train_launches}
     main_path = {k: "flagship" for k in FLAGSHIP_KERNELS}
     main_path.update(mask_head_f32="pretrained", roi_align_single="hnet", stem_k108="lab",
                      stem_dot108="lab", stem="lab", roi_align_bwd="train",
@@ -4841,6 +5295,14 @@ def main(argv=None) -> int:
     for k in ("nms", "roi_align", "mask_head"):
         results[k]["multihead_calls_held"] = {
             b: mh_info[f"held_{b}"].get(k, []) for b in ("packed", "defaults")}
+    hd_times = hd_info["held"]["times"]
+    results["stem_tc"]["hnet_darknet_n32"] = dict(
+        hd_times["stem_tc"], max_abs_err=hd_info["held"]["stem_tc_max_abs_err"])
+    results["roi_align_single"]["hnet_darknet"] = hd_times["roi_align_single"]
+    results["mask_head"]["hnet_darknet"] = hd_times["mask_head"]
+    for k in ("roi_align", "nms"):
+        results[k]["hnet_darknet"] = {c: v for c, v in hd_times.items()
+                                      if c.startswith(k + "_")}
     for k, pre in (("roi_align", "fwd"), ("roi_align_bwd", "bwd")):
         results[k]["hnet_train"] = {c: v for c, v in hnet_train_info["canvas_at_step"].items()
                                     if c.startswith(pre)}

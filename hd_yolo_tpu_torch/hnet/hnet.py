@@ -1,6 +1,6 @@
-"""HNet container (port of ``hd_yolo_tpu/hnet/hnet.py``): Swin backbone →
-FPN → per-task headers at their own amplifications, and the cross-header
-constrain losses in training.
+"""HNet container (port of ``hd_yolo_tpu/hnet/hnet.py``): a Swin or darknet
+backbone → FPN → per-task headers at their own amplifications, and the
+cross-header constrain losses in training.
 
 ``HNet.from_cfg(load_cfg("hnet-nucls"), dtype=torch.bfloat16)`` builds the
 model on the card with seeded weights; ``forward(x, targets=None)`` takes a
@@ -11,13 +11,17 @@ outputs)`` as ``HNet.apply`` does.  Per task:
   ``_maskrcnn_task``: the image is cut into ``roi_size`` windows, each
   window is ROI-aligned from every pyramid level at the task amplification
   (``extract_roi_feature_maps``, the single-level ROI-align kernel), the
-  header runs on that virtual batch and its boxes are projected back to
-  image pixels: ``boxes``, ``scores``, ``labels``, ``valid``, ``masks``.
-  With targets, pass 2 pools the annotation ROIs (``targets[task]['rois']``
-  with ``roi_valid``, else the whole image), projects the GT into each
-  ROI's virtual frame (``_project_gt_to_rois``) and computes the header's
-  losses (``rpn_obj_loss``, ``rpn_reg_loss``, ``roi_cls_loss``,
-  ``roi_reg_loss``, ``mask_loss``);
+  header runs on that virtual batch and its boxes (and keypoints) are
+  projected back to image pixels: ``boxes``, ``scores``, ``labels``,
+  ``valid``, ``masks``, with ``num_keypoints`` > 0 ``keypoints``.  With
+  targets, pass 2 pools the annotation ROIs (``targets[task]['rois']``
+  with ``roi_valid``, else the whole image), projects the GT boxes and
+  keypoints into each ROI's virtual frame (``_project_gt_to_rois``) and
+  computes the header's losses (``rpn_obj_loss``, ``rpn_reg_loss``,
+  ``roi_cls_loss``, ``roi_reg_loss``, ``mask_loss``, ``keypoint_loss``);
+* ``fcos`` — the same double pass with the FCOS header (``boxes``,
+  ``scores``, ``labels``, ``valid``; ``fcos_cls_loss``, ``fcos_reg_loss``,
+  ``fcos_ctr_loss``);
 * ``panoptic`` — ``probs`` and ``logits`` over the pyramid resized by the
   amplification (bilinear, antialiased); with a ``seg_map`` target,
   ``seg_loss``;
@@ -33,10 +37,13 @@ the backbone's drop path and dropouts, drawn from the ``generator`` given),
 and pass 1 keeps the gradients of the detections' scores and masks that
 the constrain losses use.  ``total_loss`` weighs the terms as JAX does.
 
-On the card inference runs the mask-head kernel, which takes bf16 ROIs of
-256 channels (``fpn.out_channels`` 256); a differentiable forward runs the
-cuDNN chain instead.  Not ported, and raising when asked for: the
-``darknet`` backbone, the ``fcos`` header and keypoints.
+The ``darknet`` backbone (``DarkNetBackbone``) is the yolo layer kit's CSP
+trunk at ``width`` and ``depth``, levels /8, /16, /32; in eval mode its
+first layer is the stem kernel (the f32 image in, the compute dtype out),
+in training mode its BatchNorms use the batch's statistics and update
+their running ones.  On the card inference runs the mask-head kernel,
+which takes bf16 ROIs of 256 channels (``fpn.out_channels`` 256); a
+differentiable forward runs the cuDNN chain instead.
 """
 
 from __future__ import annotations
@@ -48,7 +55,9 @@ import torch
 from torch import nn
 
 from ..detector import resolve_device
+from ..models.layers import C3, ConvBnAct
 from ..wsi.tiling import sliding_window_grid
+from .fcos import FCOS
 from .feature_mosaic import extract_roi_feature_maps
 from .fpn import FeaturePyramidNetwork
 from .heads import (ClassificationHead, ConstrainModule, DynamicConstrainModule,
@@ -58,6 +67,38 @@ from .mask_rcnn import MaskRCNN
 from .swin import SwinTransformer
 
 Tensor = torch.Tensor
+
+
+class DarkNetBackbone(nn.Module):
+    """The CSP trunk of the yolo layer kit: a 6x6/s2 ``ConvBnAct`` stem, then
+    four [3x3/s2 ``ConvBnAct``, ``C3``] stages on channels ``c(v) =
+    max(int(v · width // 8) · 8, 8)`` of 64..1024 and ``max(round(3 ·
+    depth), 1)`` bottlenecks; the outputs of the last three stages (/8, /16,
+    /32) as NHWC levels.  ``layers`` is that sequence; ``dtype`` the compute
+    dtype (the stem takes the f32 image)."""
+
+    def __init__(self, width: float = 0.5, depth: float = 0.33,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        c = lambda v: max(int(v * width // 8) * 8, 8)                        # noqa: E731
+        n = max(round(3 * depth), 1)
+        layers, c_in = [ConvBnAct(3, c(64), 6, 2, 2)], c(64)
+        for ch in (128, 256, 512, 1024):
+            layers += [ConvBnAct(c_in, c(ch), 3, 2), C3(c(ch), c(ch), n)]
+            c_in = c(ch)
+        self.layers = nn.ModuleList(layers)
+        self.channels = tuple(c(ch) for ch in (256, 512, 1024))
+
+    def forward(self, x: Tensor, generator=None) -> List[Tensor]:
+        """(B, H, W, 3) f32 → [(B, H/8, W/8, c(256)), /16, /32] in ``dtype``."""
+        y = self.layers[0](x.float().permute(0, 3, 1, 2), dtype=self.dtype)
+        outs = []
+        for i in range(1, len(self.layers), 2):
+            y = self.layers[i + 1](self.layers[i](y))
+            if i >= 3:
+                outs.append(y.permute(0, 2, 3, 1).contiguous())
+        return outs
 
 
 class HNet(nn.Module):
@@ -71,19 +112,22 @@ class HNet(nn.Module):
         device = resolve_device(device)
         self.dtype = dtype
         b = cfg.get("backbone", {"type": "swin"})
-        if b.get("type", "swin") != "swin":
-            raise NotImplementedError(f"backbone type {b.get('type')!r} is not ported yet "
-                                      "(the port has the swin backbone)")
-        depths = tuple(b.get("depths", (2, 2, 6, 2)))
-        self.backbone = SwinTransformer(
-            embed_dim=b.get("embed_dim", 96), depths=depths,
-            num_heads=tuple(b.get("num_heads", (3, 6, 12, 24))),
-            window_size=b.get("window_size", 7), drop_path_rate=b.get("drop_path_rate", 0.0),
-            drop_rate=b.get("drop_rate", 0.0), attn_drop_rate=b.get("attn_drop_rate", 0.0))
-        self.stochastic = any(b.get(k, 0.0) > 0 for k in ("drop_path_rate", "drop_rate",
-                                                          "attn_drop_rate"))
-        # one pyramid level per swin stage (stride 4 · 2^stage)
-        self.backbone_strides = tuple(4.0 * 2.0 ** i for i in range(len(depths)))
+        self.stochastic = False
+        if b.get("type", "swin") == "swin":
+            depths = tuple(b.get("depths", (2, 2, 6, 2)))
+            self.backbone = SwinTransformer(
+                embed_dim=b.get("embed_dim", 96), depths=depths,
+                num_heads=tuple(b.get("num_heads", (3, 6, 12, 24))),
+                window_size=b.get("window_size", 7),
+                drop_path_rate=b.get("drop_path_rate", 0.0), drop_rate=b.get("drop_rate", 0.0),
+                attn_drop_rate=b.get("attn_drop_rate", 0.0))
+            self.stochastic = any(b.get(k, 0.0) > 0 for k in ("drop_path_rate", "drop_rate",
+                                                              "attn_drop_rate"))
+            # one pyramid level per swin stage (stride 4 · 2^stage)
+            self.backbone_strides = tuple(4.0 * 2.0 ** i for i in range(len(depths)))
+        else:
+            self.backbone = DarkNetBackbone(b.get("width", 0.5), b.get("depth", 0.33), dtype)
+            self.backbone_strides = (8.0, 16.0, 32.0)
 
         f = cfg.get("fpn", {})
         self.fpn_type = f.get("type", "fpn")
@@ -97,23 +141,27 @@ class HNet(nn.Module):
         for task, h in self.header_cfg.items():
             kind = h.get("type", "maskrcnn")
             if kind == "maskrcnn":
-                if h.get("num_keypoints", 0) > 0:
-                    raise NotImplementedError("Mask R-CNN keypoints are not ported yet")
                 headers[task] = MaskRCNN(
                     C, h["num_classes"], strides=self.backbone_strides,
                     anchor_sizes=tuple(h.get("anchor_sizes", (32.0, 64.0, 128.0, 256.0))),
                     pre_nms_topk=h.get("pre_nms_topk", 1024),
                     num_proposals=h.get("num_proposals", 256),
                     num_detections=h.get("num_detections", 100),
-                    with_masks=h.get("with_masks", True))
+                    with_masks=h.get("with_masks", True),
+                    num_keypoints=h.get("num_keypoints", 0))
+            elif kind == "fcos":
+                headers[task] = FCOS(
+                    C, h["num_classes"], strides=self.backbone_strides,
+                    pre_nms_topk=h.get("pre_nms_topk", 512),
+                    num_detections=h.get("num_detections", 100),
+                    score_thresh=h.get("score_thresh", 0.05), nms_thresh=h.get("nms_thresh", 0.5),
+                    size_base=h.get("size_base", 64.0))
             elif kind == "panoptic":
                 headers[task] = PanopticSegHead(C, h["num_classes"], h.get("channels", 128),
                                                 int(h.get("scale_factor", 1)),
                                                 self.fpn.num_outputs)
             elif kind in ("cl", "classification"):
                 headers[task] = ClassificationHead(C, h["num_classes"], h.get("hidden", 256))
-            elif kind == "fcos":
-                raise NotImplementedError(f"header {task!r}: the fcos header is not ported yet")
             else:
                 raise ValueError(f"unknown header type {kind!r}")
         self.headers = nn.ModuleDict(headers)
@@ -137,7 +185,8 @@ class HNet(nn.Module):
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Seeded random weights: He-normal convs, N(0, 0.02) linear layers
-        and relative-position tables, unit norms, zero biases."""
+        and relative-position tables, unit norms, zero biases; an FCOS
+        header JAX's own init (``FCOS.reset_parameters``)."""
         for mod in self.modules():
             if isinstance(mod, nn.Conv2d):
                 fan_in = mod.weight[0].numel()
@@ -157,6 +206,9 @@ class HNet(nn.Module):
         for name, p in self.named_parameters():
             if name.endswith("relative_position_bias_table"):
                 p.copy_(torch.randn(p.shape, generator=generator) * 0.02)
+        for h in self.headers.values():
+            if isinstance(h, FCOS):
+                h.reset_parameters(generator)
 
     # ---------------------------------------------------------- amplification
     def extract_amplified(self, feats: Sequence[Tensor], amp: float) -> List[Tensor]:
@@ -230,16 +282,29 @@ class HNet(nn.Module):
         boxes = torch.where(ok[..., None], clipped / v_px, torch.zeros_like(clipped))
         out = {"boxes": boxes.reshape(B * R, T, 4), "valid": ok.reshape(B * R, T),
                "labels": t["labels"][:, None].expand(B, R, T).reshape(B * R, T)}
+        if "keypoints" in t:
+            # normalised image-frame (x, y, visibility) → the ROI's virtual
+            # frame; a point outside the ROI loses its visibility
+            kp = t["keypoints"].float()                                      # (B, T, nk, 3)
+            kp_px = kp[..., :2] * torch.tensor([W, H], dtype=torch.float32, device=dev)
+            scale = torch.stack([sw, sh], -1)[:, :, None, None]
+            klocal = (kp_px[:, None] - r[..., :2][:, :, None, None]) * scale  # (B, R, T, nk, 2)
+            kin = ((klocal >= 0) & (klocal < v_px)).all(-1)
+            kvis = kp[..., 2][:, None] * kin
+            out["keypoints"] = torch.cat([klocal / v_px, kvis[..., None]], -1).reshape(
+                (B * R,) + kp.shape[1:])
         if "masks" in t:
             m = t["masks"]
             out["masks"] = m[:, None].expand((B, R) + m.shape[1:]).reshape((B * R,) + m.shape[1:])
         return out
 
-    def _maskrcnn_task(self, header: MaskRCNN, hcfg: Dict, feats: Sequence[Tensor],
-                       img_hw: Tuple[int, int], t: Optional[Dict[str, Tensor]] = None):
+    def _maskrcnn_task(self, header: Union[MaskRCNN, FCOS], hcfg: Dict,
+                       feats: Sequence[Tensor], img_hw: Tuple[int, int],
+                       t: Optional[Dict[str, Tensor]] = None):
         """Pass 1, tile-grid inference projected back to the image frame;
         with targets ``t``, pass 2, the losses over the annotation ROIs →
-        (losses, outputs)."""
+        (losses, outputs).  The detection headers' double pass (Mask R-CNN
+        and FCOS)."""
         H, W = img_hw
         amp = float(hcfg.get("amplification", 1.0))
         win = min(int(hcfg.get("roi_size") or min(H, W)), H, W)
@@ -251,9 +316,16 @@ class HNet(nn.Module):
         o = header.infer(pyr, (v_px, v_px))
         K = o["boxes"].shape[1]
         shift = tiles[:, :2].repeat(1, 2)                      # (Nt, 4) x, y, x, y origin
-        boxes = o["boxes"].reshape(B, nt, K, 4) * (float(win) / float(v_px)) + shift[None, :, None]
+        scale = float(win) / float(v_px)
+        boxes = o["boxes"].reshape(B, nt, K, 4) * scale + shift[None, :, None]
         o = {k: v.reshape((B, nt * K) + v.shape[2:]) for k, v in o.items()}
         o["boxes"] = boxes.reshape(B, nt * K, 4)
+        if "keypoints" in o:
+            # the keypoints share the boxes' frame: the same scale and tile
+            # origin for x, y; the score as it is
+            kp = o["keypoints"].reshape((B, nt, K) + o["keypoints"].shape[2:])
+            kxy = kp[..., :2] * scale + tiles[None, :, None, None, :2]
+            o["keypoints"] = torch.cat([kxy, kp[..., 2:]], -1).reshape((B, nt * K) + kp.shape[3:])
 
         losses: Dict[str, Tensor] = {}
         if t is not None:
@@ -292,8 +364,10 @@ class HNet(nn.Module):
         H, W = x.shape[1:3]
         if not x.is_floating_point():
             x = x.float() / 255.0
-        raw = self.backbone(x.to(self.dtype), generator)
-        dense_tasks = any(not isinstance(h, MaskRCNN) for h in self.headers.values())
+        # the darknet stem takes the f32 image (the stem kernel rounds it)
+        raw = self.backbone(x if isinstance(self.backbone, DarkNetBackbone) else x.to(self.dtype),
+                            generator)
+        dense_tasks = any(not isinstance(h, (MaskRCNN, FCOS)) for h in self.headers.values())
         feats = self.fpn(raw) if (self.fpn_type == "fpn" or dense_tasks) else raw
         det_feats = raw if self.fpn_type == "dynamic" else feats
 
@@ -302,7 +376,7 @@ class HNet(nn.Module):
         for task, header in self.headers.items():
             hcfg = self.header_cfg[task]
             t = targets.get(task) if targets is not None else None
-            if isinstance(header, MaskRCNN):
+            if isinstance(header, (MaskRCNN, FCOS)):
                 losses[task], outputs[task] = self._maskrcnn_task(header, hcfg, det_feats, (H, W),
                                                                   t)
             else:

@@ -9,11 +9,16 @@ calls go through ``ops/nms.nms_dispatch`` (the NMS kernel on the card), the
 ROI pooling through ``multiscale_roi_align_canvas`` (the canvas ROI-align
 kernel) and the masks through ``fused_mask_probs`` (the mask-head kernel).
 ``infer`` runs the stages ``propose`` (``proposals``), ``classify``,
-``select`` and ``masks``.
+``select``, ``masks`` and, with ``num_keypoints`` > 0, ``keypoints``: the
+KeypointRCNN branch on 14x14 ROIs (8 x [3x3 conv 512 + ReLU], a 4x4
+stride-2 transposed conv, bilinear x2 to 56² heatmaps; the convs are
+cuDNN's, as JAX runs them outside any Pallas kernel), each keypoint at its
+heatmap's argmax in the box frame with the softmax maximum as its score.
 
 ``compute_losses`` is the JAX package's: RPN objectness and box regression
 against the anchors, and the RoI head's classification, box regression and
-mask losses on the proposals with the GT boxes added, each under the
+mask losses on the proposals with the GT boxes added (and the keypoint
+heatmap cross-entropy over the visible keypoints), each under the
 deterministic expectation of torchvision's random pos/neg sampler
 (``sampler_weights``), so the port's losses are JAX's exactly, not in
 distribution.  Under autograd both the pooling (``RoiAlignBoundedFn``: the
@@ -30,7 +35,9 @@ Key layout (``hd_yolo_tpu/utils/import_maskrcnn.py``, torchvision's):
 ``roi_heads.box_predictor.{cls_score,bbox_pred}``; ``fc6`` takes the
 reference's (C, 7, 7) flattening.  The mask head is the port's
 ``MaskHead`` (``roi_heads.mask_head.maskrcnn_heads.mask_fcn{1..4}``,
-``...maskrcnn_preds.{conv5_mask,mask_fcn_logits}``).
+``...maskrcnn_preds.{conv5_mask,mask_fcn_logits}``); the keypoint branch
+torchvision's (``roi_heads.keypoint_head.{0,2,..,14}``,
+``roi_heads.keypoint_predictor.kps_score_lowres``).
 """
 
 from __future__ import annotations
@@ -48,7 +55,7 @@ from ..ops.boxes import box_iou, clip_boxes, xywh2xyxy, xyxy2xywh
 from ..ops.nms import batched_nms_padded, nms_dispatch
 from ..ops.pallas_mask_head import fused_mask_probs
 from ..ops.roi_align import multiscale_roi_align_canvas
-from .layers import conv, dense
+from .layers import cast_params, conv, dense
 
 Tensor = torch.Tensor
 
@@ -227,23 +234,65 @@ class BoxPredictor(nn.Module):
         self.bbox_pred = nn.Linear(hidden, num_classes * 4)
 
 
+class KeypointHead(nn.Sequential):
+    """torchvision's KeypointRCNNHeads: 8 x [3x3 conv 512 + ReLU]."""
+
+    def __init__(self, in_channels: int, width: int = 512, depth: int = 8):
+        layers = []
+        for i in range(depth):
+            layers += [nn.Conv2d(in_channels if i == 0 else width, width, 3, 1, 1), nn.ReLU()]
+        super().__init__(*layers)
+
+    def forward(self, x: Tensor) -> Tensor:             # NHWC
+        for m in self:
+            if isinstance(m, nn.Conv2d):
+                x = torch.relu(conv(m, x))
+        return x
+
+
+class KeypointPredictor(nn.Module):
+    """The 4x4 stride-2 transposed conv (flax SAME: torch padding 1) to
+    ``num_keypoints`` channels, then bilinear x2 in f32: (R, S, S, C) NHWC →
+    (R, 4S, 4S, num_keypoints) heatmap logits."""
+
+    def __init__(self, in_channels: int, num_keypoints: int):
+        super().__init__()
+        self.kps_score_lowres = nn.ConvTranspose2d(in_channels, num_keypoints, 4, 2, 1)
+
+    def forward(self, x: Tensor) -> Tensor:
+        m = self.kps_score_lowres
+        w, b = cast_params(m, x.dtype)
+        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w, b, stride=2, padding=1)
+        y = F.interpolate(y.float(), scale_factor=2, mode="bilinear", align_corners=False)
+        return y.permute(0, 2, 3, 1)
+
+
 class _RoIHeads(nn.Module):
-    def __init__(self, in_channels: int, num_classes: int, with_masks: bool):
+    def __init__(self, in_channels: int, num_classes: int, with_masks: bool,
+                 num_keypoints: int = 0):
         super().__init__()
         self.box_head = BoxHead(in_channels)
         self.box_predictor = BoxPredictor(1024, num_classes)
         if with_masks:
             self.mask_head = MaskHead(num_classes, 256, in_channels)
+        if num_keypoints > 0:
+            self.keypoint_head = KeypointHead(in_channels)
+            self.keypoint_predictor = KeypointPredictor(512, num_keypoints)
+
+    def heatmaps(self, rois: Tensor) -> Tensor:
+        """(R, 14, 14, C) ROIs → (R, 56, 56, num_keypoints) f32 logits."""
+        return self.keypoint_predictor(self.keypoint_head(rois))
 
 
 class MaskRCNN(nn.Module):
-    """Per-task Mask R-CNN header over NHWC pyramid levels (inference)."""
+    """Per-task Mask R-CNN header over NHWC pyramid levels; with
+    ``num_keypoints`` > 0 also the KeypointRCNN branch."""
 
     def __init__(self, in_channels: int, num_classes: int,
                  strides: Sequence[float] = (4.0, 8.0, 16.0, 32.0),
                  anchor_sizes: Sequence[float] = (32.0, 64.0, 128.0, 256.0),
                  pre_nms_topk: int = 1024, num_proposals: int = 256, num_detections: int = 100,
-                 with_masks: bool = True):
+                 with_masks: bool = True, num_keypoints: int = 0):
         super().__init__()
         self.num_classes = num_classes                  # foreground classes (no bg)
         self.strides = tuple(strides)
@@ -252,8 +301,9 @@ class MaskRCNN(nn.Module):
         self.num_proposals = num_proposals
         self.num_detections = num_detections
         self.with_masks = with_masks
+        self.num_keypoints = num_keypoints
         self.rpn = _RPN(RPNHead(in_channels, len(ASPECT_RATIOS)))
-        self.roi_heads = _RoIHeads(in_channels, num_classes + 1, with_masks)
+        self.roi_heads = _RoIHeads(in_channels, num_classes + 1, with_masks, num_keypoints)
 
     def anchors(self, level_shapes: Sequence[Tuple[int, int]], device) -> Tensor:
         """(N, 4) anchors of all levels, made once per level shapes and device."""
@@ -302,12 +352,16 @@ class MaskRCNN(nn.Module):
     def infer(self, feats: Sequence[Tensor], image_size: Tuple[int, int]) -> Dict[str, Tensor]:
         """Detections: boxes (B, D, 4) xyxy, scores (B, D), labels (B, D) in
         1..num_classes (-100 where invalid), valid (B, D) and, with masks,
-        masks (B, D, 28, 28) in-box probabilities (0 where invalid)."""
+        masks (B, D, 28, 28) in-box probabilities (0 where invalid) and,
+        with keypoints, keypoints (B, D, num_keypoints, 3): x, y px and score
+        (0 where invalid)."""
         proposals, pvalid = self.propose(feats, image_size)
         probs, box_deltas = self.classify(feats, proposals)
         out = self.select(probs, box_deltas, proposals, pvalid, image_size)
         if self.with_masks:
             out["masks"] = self.masks(feats, out["boxes"], out["labels"], out["valid"])
+        if self.num_keypoints > 0:
+            out["keypoints"] = self.keypoints(feats, out["boxes"], out["valid"])
         return out
 
     def classify(self, feats: Sequence[Tensor], proposals: Tensor) -> Tuple[Tensor, Tensor]:
@@ -359,20 +413,51 @@ class MaskRCNN(nn.Module):
             probs = fused_mask_probs(head, flat, ch)
         return probs.reshape(B, K, *probs.shape[1:]) * valid[..., None, None]
 
+    def heatmaps(self, feats: Sequence[Tensor], boxes: Tensor) -> Tensor:
+        """(B, K, 4) boxes → their (B, K, nk, 56²) f32 heatmap logits, each
+        keypoint's map flattened row-major."""
+        pooled = self.pool(feats, boxes, 14)
+        B, K = boxes.shape[:2]
+        hm = self.roi_heads.heatmaps(pooled.reshape((B * K,) + pooled.shape[2:]))
+        S = hm.shape[1]
+        return hm.reshape(B, K, S * S, self.num_keypoints).transpose(2, 3)
+
+    def keypoints(self, feats: Sequence[Tensor], boxes: Tensor, valid: Tensor) -> Tensor:
+        """(B, D, nk, 3): each keypoint at its heatmap's argmax, the cell
+        centre mapped into the box, and its softmax maximum as the score;
+        zero where not ``valid``."""
+        flat = self.heatmaps(feats, boxes)
+        S = math.isqrt(flat.shape[-1])
+        prob = torch.softmax(flat, -1)
+        idx = flat.argmax(-1)
+        u = (idx % S).float() + 0.5
+        v = torch.div(idx, S, rounding_mode="floor").float() + 0.5
+        w = (boxes[..., 2] - boxes[..., 0]).clamp(min=1e-6)[..., None]
+        h = (boxes[..., 3] - boxes[..., 1]).clamp(min=1e-6)[..., None]
+        kx = boxes[..., 0][..., None] + u / S * w
+        ky = boxes[..., 1][..., None] + v / S * h
+        kp = torch.stack([kx, ky, prob.amax(-1)], -1)
+        return kp * valid[..., None, None]
+
     # ---------------------------------------------------------------- losses
     def compute_losses(self, feats: Sequence[Tensor], image_size: Tuple[int, int],
                        targets: Dict[str, Tensor],
                        image_weight: Optional[Tensor] = None) -> Dict[str, Tensor]:
         """RPN and RoI-head losses (f32 0-d tensors ``rpn_obj_loss``,
         ``rpn_reg_loss``, ``roi_cls_loss``, ``roi_reg_loss`` and, with masks
-        and ``targets['masks']``, ``mask_loss``).  ``targets``: ``boxes``
+        and ``targets['masks']``, ``mask_loss``; with keypoints and
+        ``targets['keypoints']``, ``keypoint_loss``).  ``targets``: ``boxes``
         (B, T, 4) normalised xyxy, ``labels`` (B, T), ``valid`` (B, T),
-        ``masks`` (B, T, 28, 28) in-box; ``image_weight`` (B,) weighs each
+        ``masks`` (B, T, 28, 28) in-box, ``keypoints`` (B, T, nk, 3)
+        normalised x, y and visibility; ``image_weight`` (B,) weighs each
         image's losses (0 for padded annotation ROIs)."""
         anchors, logits, deltas, proposals, pvalid = self.rpn_outputs(feats, image_size)
         h, w = image_size
         gt_boxes = targets["boxes"].float() * torch.tensor([w, h, w, h], dtype=torch.float32,
                                                            device=proposals.device)
+        if self.num_keypoints > 0 and "keypoints" in targets:
+            targets = {**targets, "keypoints": targets["keypoints"].float() * torch.tensor(
+                [w, h, 1.0], dtype=torch.float32, device=proposals.device)}
         gt_valid = targets["valid"].bool()
         losses = self._rpn_loss(anchors, logits.float(), deltas.float(), gt_boxes, gt_valid,
                                 image_weight)
@@ -422,17 +507,22 @@ class MaskRCNN(nn.Module):
         losses = {"roi_cls_loss": _wmean(cls_l, image_weight),
                   "roi_reg_loss": _wmean(reg_l, image_weight)}
 
-        if self.with_masks and "masks" in targets:
-            # up to num_detections fg ROIs an image; lax.top_k's order:
-            # descending, ties to the lower index (a stable sort)
-            K = min(self.num_detections, R)
-            score = torch.where(fg, 1.0, -math.inf)
-            sel = torch.sort(score, dim=1, descending=True, stable=True)[1][:, :K]
-            mb = _take(roi_boxes, sel)
-            mv = torch.gather(fg, 1, sel)
-            if image_weight is not None:
-                mv = mv & (image_weight > 0)[:, None]
-            mmatch = torch.gather(match, 1, sel)
+        with_masks = self.with_masks and "masks" in targets
+        with_kp = self.num_keypoints > 0 and "keypoints" in targets
+        if not (with_masks or with_kp):
+            return losses
+        # the masks and keypoints train on up to num_detections fg ROIs an
+        # image; lax.top_k's order: descending, ties to the lower index (a
+        # stable sort)
+        K = min(self.num_detections, R)
+        score = torch.where(fg, 1.0, -math.inf)
+        sel = torch.sort(score, dim=1, descending=True, stable=True)[1][:, :K]
+        mb = _take(roi_boxes, sel)
+        mv = torch.gather(fg, 1, sel)
+        if image_weight is not None:
+            mv = mv & (image_weight > 0)[:, None]
+        mmatch = torch.gather(match, 1, sel)
+        if with_masks:
             pooled_m = self.pool(feats, mb, 14)
             head = self.roi_heads.mask_head
             mlogits = head(pooled_m.reshape((B * K,) + pooled_m.shape[2:])).float()
@@ -445,4 +535,24 @@ class MaskRCNN(nn.Module):
             per = bce.mean((-1, -2))
             mvf = mv.float()
             losses["mask_loss"] = (per * mvf).sum() / mvf.sum().clamp(min=1.0)
+        if with_kp:
+            losses["keypoint_loss"] = self._keypoint_loss(feats, mb, mv, _take(
+                targets["keypoints"].float(), mmatch))
         return losses
+
+    def _keypoint_loss(self, feats, kb: Tensor, kv: Tensor, gt_kp: Tensor) -> Tensor:
+        """Heatmap cross-entropy of the (B, K) boxes ``kb`` (``kv``: those
+        that train) against their GT keypoints (B, K, nk, 3) px: each visible
+        keypoint inside its box, discretised into the 56² grid, is the target
+        of its map's spatial softmax; the mean over them (0 when none)."""
+        flat = self.heatmaps(feats, kb)
+        S = math.isqrt(flat.shape[-1])
+        w = (kb[..., 2] - kb[..., 0]).clamp(min=1e-6)[..., None]
+        h = (kb[..., 3] - kb[..., 1]).clamp(min=1e-6)[..., None]
+        u = torch.floor((gt_kp[..., 0] - kb[..., 0][..., None]) / w * S)
+        v = torch.floor((gt_kp[..., 1] - kb[..., 1][..., None]) / h * S)
+        inside = (u >= 0) & (u < S) & (v >= 0) & (v < S)
+        visible = ((gt_kp[..., 2] > 0) & inside & kv[..., None]).float()
+        idx = (v.clamp(0, S - 1) * S + u.clamp(0, S - 1)).long()
+        ce = -torch.gather(torch.log_softmax(flat, -1), -1, idx[..., None])[..., 0]
+        return (ce * visible).sum() / visible.sum().clamp(min=1.0)

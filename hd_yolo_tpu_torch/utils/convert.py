@@ -27,8 +27,14 @@ layouts of the JAX package's importers inverted (``utils/import_swin.py``,
 ``utils/import_maskrcnn.py``): dense kernel (I, O) → weight (O, I), norm
 {scale, bias} → weight / bias, the box head's fc6 input columns (7, 7, C) →
 the reference's (C, 7, 7); the Mask R-CNN mask head takes the port's
-``MaskHead`` names and the flipped deconv, the panoptic and cl headers their
-flax names.
+``MaskHead`` names and the flipped deconv, its keypoint branch torchvision's
+names (flax ``kp{i}`` → ``keypoint_head.{2i}``, the flipped ``deconv`` →
+``keypoint_predictor.kps_score_lowres``), FCOS, the panoptic and cl
+headers their flax names (FCOS's ``scale{i}`` → ``scales.{i}.scale``); the
+darknet backbone's flax auto-names (``ConvBnAct_0``, then ``ConvBnAct_{i}``
+and ``C3_{i-1}`` a stage) → ``layers.{j}`` in call order, with its
+BatchNorm statistics.  ``srgan_state_dict_from_flax`` maps the SRGAN
+generator and critic, whose names are the flax ones.
 """
 
 from __future__ import annotations
@@ -314,7 +320,60 @@ def maskrcnn_state_dict_from_flax(params: Mapping) -> Dict[str, np.ndarray]:
             r.conv(f"{m}.maskrcnn_heads.mask_fcn{j + 1}", "mask_head", f"fcn{j}")
         r.deconv(f"{m}.maskrcnn_preds.conv5_mask", "mask_head", "deconv")
         r.conv(f"{m}.maskrcnn_preds.mask_fcn_logits", "mask_head", "logits")
+    if "keypoint_head" in params:
+        for j in _numbered(params["keypoint_head"], "kp"):
+            r.conv(f"roi_heads.keypoint_head.{2 * j}", "keypoint_head", f"kp{j}")
+        r.deconv("roi_heads.keypoint_predictor.kps_score_lowres", "keypoint_head", "deconv")
     return r.sd
+
+
+def fcos_state_dict_from_flax(params: Mapping) -> Dict[str, np.ndarray]:
+    """flax ``FCOS`` params → ``hnet.fcos.FCOS`` keys."""
+    r = _Reader(params, {})
+    for tower in ("cls_tower", "bbox_tower"):
+        for i in _numbered(params[tower], "conv"):
+            r.conv(f"{tower}.conv{i}", tower, f"conv{i}")
+            r.norm(f"{tower}.gn{i}", tower, f"gn{i}")
+    for name in ("cls_logits", "bbox_pred", "centerness"):
+        r.conv(name, name)
+    for i in _numbered(params, "scale"):
+        r.sd[f"scales.{i}.scale"] = np.asarray(params[f"scale{i}"]["scale"])
+    return r.sd
+
+
+def darknet_state_dict_from_flax(params: Mapping, stats: Mapping) -> Dict[str, np.ndarray]:
+    """flax ``DarkNetBackbone`` variables → ``hnet.hnet.DarkNetBackbone``
+    keys: ``layers.0`` the stem, then ``layers.{2i-1}`` / ``layers.{2i}``
+    the ``ConvBnAct_{i}`` / ``C3_{i-1}`` of stage i."""
+    r = _Reader(params, stats)
+    layer_from_flax(r, "Conv", "layers.0", ("ConvBnAct_0",))
+    for i in _numbered(params, "C3_"):
+        layer_from_flax(r, "Conv", f"layers.{2 * i + 1}", (f"ConvBnAct_{i + 1}",))
+        layer_from_flax(r, "C3", f"layers.{2 * i + 2}", (f"C3_{i}",))
+    return r.sd
+
+
+def srgan_state_dict_from_flax(variables_np: Mapping) -> Dict[str, torch.Tensor]:
+    """flax ``SRGenerator`` / ``SRDiscriminator`` variables → the port's
+    modules (``hnet/srgan.py``, the same names): convs, BatchNorms with
+    their statistics, PReLU ``alpha``."""
+    params, stats = variables_np["params"], variables_np.get("batch_stats", {})
+    r = _Reader(params, stats)
+
+    def walk(node, path):
+        for k, v in node.items():
+            p = path + (k,)
+            if "kernel" in v:
+                r.conv(".".join(p), *p)
+            elif "scale" in v:
+                r.bn(".".join(p), *p)
+            elif "alpha" in v:
+                r.sd[".".join(p) + ".alpha"] = np.asarray(v["alpha"])
+            else:
+                walk(v, p)
+
+    walk(params, ())
+    return {k: torch.from_numpy(np.array(v)) for k, v in r.sd.items()}
 
 
 def panoptic_state_dict_from_flax(params: Mapping) -> Dict[str, np.ndarray]:
@@ -331,13 +390,20 @@ def hnet_state_dict_from_flax(variables_np: Mapping, cfg: Mapping) -> Dict[str, 
     """flax ``HNet`` variables (numpy) → ``hnet.HNet`` state_dict, loadable
     with ``strict=True``."""
     params = variables_np["params"]
-    sd = {f"backbone.{k}": v for k, v in swin_state_dict_from_flax(params["backbone"]).items()}
+    if cfg.get("backbone", {"type": "swin"}).get("type", "swin") == "swin":
+        back = swin_state_dict_from_flax(params["backbone"])
+    else:
+        back = darknet_state_dict_from_flax(params["backbone"],
+                                            variables_np.get("batch_stats", {}).get("backbone", {}))
+    sd = {f"backbone.{k}": v for k, v in back.items()}
     sd.update({f"fpn.{k}": v for k, v in fpn_state_dict_from_flax(params["fpn"]).items()})
     for task, h in cfg.get("headers", {}).items():
         node = params[f"header_{task}"]
         kind = h.get("type", "maskrcnn")
         if kind == "maskrcnn":
             part = maskrcnn_state_dict_from_flax(node)
+        elif kind == "fcos":
+            part = fcos_state_dict_from_flax(node)
         elif kind == "panoptic":
             part = panoptic_state_dict_from_flax(node)
         elif kind in ("cl", "classification"):

@@ -7,8 +7,9 @@ against the JAX package on the same numpy inputs and weights, on the CPU.
   tied costs (identical predictions, so ``top_k``'s lowest-index-first
   order decides) and with no valid target;
 * the ``yolov6s-af`` model at 128 px in f32 with JAX's weights carried by
-  ``state_dict_from_flax``: inference outputs (boxes within 1e-3 px,
-  scores 1e-5, labels / levels / valid equal), the training losses
+  ``state_dict_from_flax``: inference outputs (each box corner within
+  1e-4 of the box's width or height, ``BOX_RTOL``; scores 1e-5, labels /
+  levels / valid equal), the training losses
   (rtol 1e-4) and every parameter's gradient within 1e-3·max|g|, with
   the assignment of each image equal to JAX's.
 
@@ -30,6 +31,11 @@ from torch_port_common import random_variables
 
 SIZE, B, T = 128, 2, 8
 X_SHAPE = (B, SIZE, SIZE, 3)
+# Against the JAX package run in f64 on the same weights and input, JAX's own
+# f32 corners are up to 2.4e-5 of the box's width or height off (1.2e-3 px)
+# and the port's up to 1.7e-5: summation order, not a fault.  The two f32
+# results may then differ by their sum; BOX_RTOL leaves that a factor ~2.4.
+BOX_RTOL = 1e-4
 
 
 def t(a):
@@ -141,7 +147,14 @@ def test_outputs_match_jax(pair):
     assert np.array_equal(got["valid"].numpy(), want["valid"])
     assert np.array_equal(got["labels"].numpy(), want["labels"])
     assert np.array_equal(got["levels"].numpy(), want["levels"])
-    np.testing.assert_allclose(got["boxes"].numpy(), want["boxes"], rtol=0, atol=1e-3)
+    # the decode is exp(reg) · stride, so the f32 rounding of the deep random
+    # trunk reaches the corners in proportion to the box: each coordinate is
+    # held within BOX_RTOL of its box's width (x) or height (y)
+    v = want["valid"]
+    wh = np.concatenate([want["boxes"][..., 2:] - want["boxes"][..., :2]] * 2, -1)[v]
+    err = np.abs(got["boxes"].numpy() - want["boxes"])[v]
+    assert (err <= BOX_RTOL * wh).all(), float((err / wh).max())
+    assert np.array_equal(got["boxes"].numpy()[~v], want["boxes"][~v])
     np.testing.assert_allclose(got["scores"].numpy(), want["scores"], rtol=0, atol=1e-5)
 
 

@@ -269,14 +269,30 @@ def test_hnet_from_cfg_defaults_to_cuda_and_raises_without_it(monkeypatch):
     assert next(m.parameters()).device.type == "cpu" and not m.training
 
 
-def test_hnet_raises_for_what_is_not_ported():
-    det = {**CFG["headers"]["det40x"], "num_keypoints": 5}
-    with pytest.raises(NotImplementedError):
-        HNet({**CFG, "headers": {"det40x": det}}, device="cpu")
-    with pytest.raises(NotImplementedError):
-        HNet({**CFG, "backbone": {"type": "darknet"}}, device="cpu")
-    with pytest.raises(NotImplementedError):
-        HNet({**CFG, "headers": {"d": {"type": "fcos", "num_classes": 2}}}, device="cpu")
+NEW_PARTS = {
+    "darknet": {**CFG, "backbone": {"type": "darknet"}},
+    "keypoints": {**CFG, "headers": {"det40x": {**CFG["headers"]["det40x"], "num_keypoints": 5}}},
+    "fcos": {**CFG, "headers": {**CFG["headers"], "d": {"type": "fcos", "num_classes": 2}}},
+}
+
+
+@pytest.mark.parametrize("part", list(NEW_PARTS))
+def test_hnet_builds_each_part_from_jax_weights(part):
+    """The darknet backbone (at its defaults), the keypoint branch and the
+    FCOS header each build and take JAX's weights with ``strict=True``, with
+    JAX's parameter count (the whole model's, from ``jax.eval_shape``)."""
+    cfg = NEW_PARTS[part]
+    jm = JaxHNet.from_cfg(cfg)
+    variables = random_variables(jm, X_SHAPE, seed=1)
+    model = HNet(cfg, device="cpu")
+    model.load_state_dict(hnet_state_dict_from_flax(variables, cfg), strict=True)
+    n_jax = sum(int(np.prod(v.shape)) for v in jax.tree.leaves(variables["params"]))
+    assert sum(p.numel() for p in model.parameters()) == n_jax
+    keys = set(model.state_dict())
+    want = {"darknet": "backbone.layers.8.m.0.cv2.bn.running_var",
+            "keypoints": "headers.det40x.roi_heads.keypoint_predictor.kps_score_lowres.weight",
+            "fcos": "headers.d.scales.3.scale"}[part]
+    assert want in keys
 
 
 @pytest.mark.parametrize("h,w,tile,overlap", [(640, 640, 640, 0), (1000, 700, 640, 64),

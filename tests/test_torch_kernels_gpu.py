@@ -289,6 +289,76 @@ def test_roi_align_levels_kernel_hnet_pyramid(cuda, C, dtype):
             torch.testing.assert_close(g, w, rtol=0, atol=1e-5)
 
 
+# hnet on the darknet backbone at 640 px: the tile ROI's three levels (size,
+# stride) and their channels in 'fpn' mode (the fused pyramid) and in
+# 'dynamic' mode (darknet's raw levels at width 0.5)
+DARKNET_PYRAMID = ((80, 8.0), (40, 16.0), (20, 32.0))
+DARKNET_CHANNELS = {"fpn": (256, 256, 256), "dynamic": (128, 256, 512)}
+
+
+@pytest.mark.parametrize("mode", list(DARKNET_CHANNELS))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_roi_align_levels_kernel_darknet_pyramid(cuda, mode, dtype):
+    """The darknet hnet's ROI pyramid: each of 4 images' 640 px tile pooled
+    from the three levels at M = the level's size, in ONE launch, forward
+    bit for bit the plain version at bf16 and within 1e-5 at f32; the
+    backward (one launch) bit for bit the plain version's at bf16 and within
+    1e-5·max|g| of the CPU's at f32."""
+    chans = DARKNET_CHANNELS[mode]
+    feats = [torch.randn((4, s, s, c), generator=cuda, device="cuda").to(dtype)
+             for (s, _), c in zip(DARKNET_PYRAMID, chans)]
+    rois = torch.tensor([0.0, 0.0, 640.0, 640.0], device="cuda").expand(4, 1, 4).contiguous()
+    sizes, scales = [s for s, _ in DARKNET_PYRAMID], [1.0 / st for _, st in DARKNET_PYRAMID]
+    n0 = kernels.LAUNCHES["roi_align_single"]
+    got = pallas_roi_align.roi_align_levels(feats, rois, sizes, scales, 2)
+    assert kernels.LAUNCHES["roi_align_single"] == n0 + 1
+    want = pallas_roi_align.roi_align_levels_plain(feats, rois, sizes, scales, 2)
+    for g, w, s, c in zip(got, want, sizes, chans):
+        assert g.dtype == dtype and g.shape == (4, 1, s, s, c)
+        if dtype == torch.bfloat16:
+            assert torch.equal(g, w)
+        else:
+            torch.testing.assert_close(g, w, rtol=0, atol=1e-5)
+    gs = [torch.randn(g.shape, generator=cuda, device="cuda").to(dtype) for g in got]
+    n0 = kernels.LAUNCHES["roi_align_single_bwd"]
+    gb = pallas_roi_align.roi_align_levels_bwd(gs, feats, rois, sizes, scales, 2)
+    assert kernels.LAUNCHES["roi_align_single_bwd"] == n0 + 1
+    if dtype == torch.bfloat16:
+        wb = pallas_roi_align.roi_align_levels_bwd_plain(gs, feats, rois, sizes, scales, 2)
+        assert all(torch.equal(a, b) for a, b in zip(gb, wb))
+    else:
+        wb = pallas_roi_align.roi_align_levels_bwd_plain(
+            [g.cpu() for g in gs], [f.cpu() for f in feats], rois.cpu(), sizes, scales, 2)
+        for a, b in zip(gb, wb):
+            assert float((a.cpu() - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_roi_align_kernel_darknet_keypoint_call(cuda, dtype):
+    """The keypoint branch's pooling on the darknet hnet: 4 images x 100
+    detections at 14x14 from the FPN's three levels (80/40/20 cells, 256
+    channels, strides 8/16/32) on torchvision's level rule clipped to
+    three levels: bf16 bit for bit, f32 within 1e-4 (another summation
+    order over up to 56 taps)."""
+    feats = [torch.randn((4, s, s, 256), generator=cuda, device="cuda").to(dtype)
+             for s, _ in DARKNET_PYRAMID]
+    strides = tuple(st for _, st in DARKNET_PYRAMID)
+    xy = torch.rand((4, 100, 2), generator=cuda, device="cuda") * 600
+    wh = torch.exp(torch.rand((4, 100, 2), generator=cuda, device="cuda") * math.log(40.0)) * 4
+    rois = torch.cat([xy, xy + wh], -1)
+    area = torch.sqrt((wh[..., 0] * wh[..., 1]).clamp(min=1e-6))
+    levels = (torch.floor(4.0 + torch.log2(area / 224.0) + 1e-6) - 2).clamp(0, 2).to(torch.int32)
+    n0 = kernels.LAUNCHES["roi_align"]
+    got = multiscale_roi_align_canvas(feats, rois, levels, strides, 14)
+    assert kernels.LAUNCHES["roi_align"] == n0 + 1
+    want = _multiscale_roi_align_canvas(feats, rois, levels, strides, 14)
+    assert got.dtype == dtype and got.shape == want.shape == (4, 100, 14, 14, 256)
+    if dtype == torch.bfloat16:
+        assert torch.equal(got, want)
+    else:
+        assert ((got.float() - want.float()).abs() <= 1e-4).all()
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_roi_align_levels_kernel_ragged_levels(cuda, dtype):
     """Three maps of other sizes and channel counts in one launch, boxes

@@ -273,6 +273,29 @@ Phases (any failure raises and the script exits non-zero):
      ``SRDiscriminator`` at their defaults (16 x 320² → 640², one WGAN-GP
      step) and card vs CPU; ``tests/fixtures/swin_tiny.pt`` through
      ``utils/import_swin`` on the card against the CPU.
+ 24. ddp: the flagship across processes at world 1 on NCCL (``parallel/``):
+     (a) a one-rank group from torchrun's environment
+     (``parallel.maybe_initialize_distributed``); (b) the training
+     micro-step (``yolov5l6-mask`` + ``hyp-nuclei``, bf16, 16 x 640, masks)
+     through ``make_train_step(distributed=True)`` (BatchNorm on the
+     card's global form, the gradients summed in buckets, the metrics
+     summed) against the plain step from the same state: loss items,
+     BatchNorm running statistics and the update, in f32 (TF32 off) within
+     2x of what moving the BatchNorm scales by +/-2^-16 makes of the plain
+     step, in bf16 within the bf16 plain step's distance from the f32 one;
+     the largest differences and the worst tensors printed; both bf16
+     steps timed in
+     turns, a profiled step of each (the NCCL kernels' device time and
+     launches, the launches the path adds) and its kernel launches; (c)
+     ``python -m torch.distributed.run --standalone --nproc_per_node 1 -m
+     hd_yolo_tpu_torch.engines.train`` for one epoch on phase 14's
+     synthetic set, then ``--resume`` to a second (rank 0 writes
+     ``last.pt``); (d) ``wsi.slide_inference_sharded`` at world 1 on phase
+     9's 4096 px slide, bit for bit against ``Detector.slide``'s stitched
+     result, with its launches; (e) ``utils/profiling.flops_of`` of the
+     flagship's forward at 16 x 640 (the PyTorch ops it dispatches; the
+     hand kernels' operations added from their formulas) and
+     ``device_memory_stats`` after (b).
 
 Phase 3 also holds the single-level ROI-align's backward kernel
 (``roi_align_levels_bwd``) against its plain version at its two call sites:
@@ -294,7 +317,7 @@ bit-identical, timed), and the K=108 stem kernels 6 and 7 at (16, 640,
 640, 3), kernel 6 timed in turns with ``stem_tc``.
 
 The last lines are the script's wall time, the per-kernel JSON record
-(``launches_by_path`` with the paths of phases 17–23), the ``nvidia-smi``
+(``launches_by_path`` with the paths of phases 17–24), the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
@@ -331,6 +354,7 @@ from hd_yolo_tpu_torch.ops.roi_align import (_multiscale_roi_align_canvas,  # no
                                              multiscale_roi_align_packed, roi_align,
                                              sample_coords)
 from hd_yolo_tpu_torch.tools import stem_lab  # noqa: E402
+from hd_yolo_tpu_torch.utils.profiling import device_memory_stats, flops_of  # noqa: E402
 from hd_yolo_tpu_torch.wsi import tiling  # noqa: E402
 
 # H100 SXM published peaks (dense): HBM bytes/s, bf16 and TF32 tensor-core and
@@ -3711,10 +3735,10 @@ def two_task_batch(seed: int, B: int = 16, max_t: int = 64):
                for task, rows in (("det", first), ("detSC", ~first))}
 
 
-def train_phase_state(cfg: str, seed: int = 0):
+def train_phase_state(cfg: str, seed: int = 0, dtype=torch.bfloat16):
     """``cfg`` at full width for training as the CLI builds it (hyp scaled
-    for 640 px, flax-default init from ``seed``), bf16, on the card, with
-    its optimizer (an update a micro-step) and step."""
+    for 640 px, flax-default init from ``seed``), in ``dtype`` (bf16), on
+    the card, with its optimizer (an update a micro-step) and step."""
     from hd_yolo_tpu_torch.engines.optim import build_optimizer
     from hd_yolo_tpu_torch.engines.train import scale_task_hyp
     from hd_yolo_tpu_torch.engines.train_step import TrainState, make_train_step
@@ -3722,7 +3746,7 @@ def train_phase_state(cfg: str, seed: int = 0):
     from hd_yolo_tpu_torch.models.yolo import Model
 
     hyp = scale_task_hyp(load_cfg("hyp-nuclei"), parse_model_cfg(cfg, "hyp-nuclei"), 640)
-    model = Model.from_cfg(cfg, hyp, dtype=torch.bfloat16, mask_rois=64)
+    model = Model.from_cfg(cfg, hyp, dtype=dtype, mask_rois=64)
     model.init_weights(torch.Generator().manual_seed(seed))
     model.cuda()
     return TrainState.create(model, build_optimizer(model, hyp, 2, 4)), make_train_step()
@@ -5092,6 +5116,269 @@ def phase_hnet_darknet(iters: int):
     return launches, t_launches, info
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def step_delta(m, sd, m_ref, sd_ref, p0) -> dict:
+    """How far one update (its metrics ``m`` and state dict ``sd``) is from
+    another's from the same start ``p0``: the largest relative difference of
+    the loss items (to 1e-3 of the total at least), of the BatchNorm running statistics (to each tensor's
+    largest), the norm of the parameters' differences over the reference
+    update's, and the worst tensors."""
+    need(set(m) == set(m_ref), f"metrics {sorted(m)} vs {sorted(m_ref)}")
+    stats, params, num, den = {}, {}, 0.0, 0.0
+    for k, v in sd_ref.items():
+        d = sd[k] - v
+        if "running_" in k:
+            stats[k] = float(d.abs().max()) / max(float(v.abs().max()), 1e-12)
+        elif v.is_floating_point():
+            u = v - p0[k]
+            if float(u.abs().max()) > 0:
+                params[k] = float(d.abs().max()) / float(u.abs().max())
+            num, den = num + float(d.square().sum()), den + float(u.square().sum())
+    worst = lambda d: sorted(((v, k) for k, v in d.items()), reverse=True)[:3]  # noqa: E731
+    floor = 1e-3 * abs(m_ref["loss"])           # an item near 0 against the total's scale
+    return {"loss_items_rel": max(abs(m[k] - m_ref[k]) / max(abs(m_ref[k]), floor)
+                                  for k in m_ref),
+            "bn_stats_rel": max(stats.values()), "update_norm_rel": (num / max(den, 1e-30)) ** .5,
+            "worst_stats": worst(stats), "worst_params_rel_to_update": worst(params),
+            "loss": m["loss"]}
+
+
+def one_updates(state, batch, plain_step, dist_step) -> dict:
+    """From one state: one update through the plain step, the distributed
+    step, and the plain step with every
+    BatchNorm scale moved by +2^-16 and by -2^-16 of itself (changes at the
+    level of rounding); each as (metrics, f32 state dict), and the start."""
+    snap = train_snapshot(state)
+
+    def run(step, move=0.0):
+        train_restore(state, snap)
+        if move:
+            with torch.no_grad():
+                for name, p in state.model.named_parameters():
+                    if name.endswith("bn.weight"):
+                        p.mul_(1 + move)
+        _, m = step(state, batch)
+        torch.cuda.synchronize()
+        return ({k: float(v) for k, v in m.items()},
+                {k: v.detach().float().clone() for k, v in state.model.state_dict().items()})
+
+    out = {"start": {k: v.float().clone() for k, v in snap[0].items()}}
+    out.update(plain=run(plain_step), distributed=run(dist_step),
+               moved=[run(plain_step, mv) for mv in (2 ** -16, -2 ** -16)])
+    return out
+
+
+def ddp_step_check(iters: int) -> tuple:
+    """Phase 24 (b): the flagship's micro-step through the distributed path
+    (a group of one) against the plain step from the same state.  In f32
+    (TF32 off): within 2x of what moving the BatchNorm scales by +/-2^-16
+    makes of the plain step, for the loss items, the running statistics and
+    the update.  In bf16, as it trains: within the bf16 plain step's own
+    distance from the f32 one.  (At a fresh init the flagship's first update
+    is that sensitive: in f32 such a move shifts running means by 3e-04 of
+    their largest and the update by 3%, in bf16 the update by over 100%; the
+    exact checks of the path are the world-2 tests against JAX on the CPU
+    and against the whole batch on the card.)"""
+    from hd_yolo_tpu_torch.engines.train_step import make_train_step, to_device
+
+    dist_step = make_train_step(distributed=True)
+    x, t = hnet_batch(24, B=16, max_t=64)
+    batch = to_device({"image": x, "targets": {"detSC": t["det40x"]}}, "cuda")
+    keys = ("loss_items_rel", "bn_stats_rel", "update_norm_rel")
+    res, ref = {}, None
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        state, plain_step = train_phase_state("yolov5l6-mask", dtype=dtype)
+        u = one_updates(state, batch, plain_step, dist_step)
+        got = step_delta(*u["distributed"], *u["plain"], u["start"])
+        if name == "f32":
+            moved = [step_delta(*mv, *u["plain"], u["start"]) for mv in u["moved"]]
+            scale = {k: 2 * max(d[k] for d in moved) for k in keys}
+            what = "2x the larger of the plain step's moves of the BatchNorm scales by +/-2^-16"
+            ref = u["plain"]
+            del state
+            torch.cuda.empty_cache()
+        else:
+            own = step_delta(*u["plain"], *ref, u["start"])
+            scale = {k: own[k] for k in keys}
+            what = "the bf16 plain step's distance from the f32 one"
+        log(f"  (b) {name}, the distributed step vs the plain one, one update from the same "
+            f"state: {got}; bound ({what}): {scale}")
+        for k in keys:
+            need(got[k] <= scale[k], f"{name}: the distributed step's {k} {got[k]:.3g} is past "
+                                     f"{what}, {scale[k]:.3g}")
+        res[name], res[f"{name}_bound"] = got, scale
+    del ref, u
+
+    launches, _ = path_launches(lambda: dist_step(state, batch))
+    plain_launches, _ = path_launches(lambda: plain_step(state, batch))
+    need(launches == plain_launches and launches["roi_align"] == 1
+         and launches["roi_align_bwd"] == 1,
+         f"the distributed step's kernel launches {launches} are not the plain step's "
+         f"{plain_launches}")
+    log(f"  kernel launches of the distributed micro-step (the plain step's): {launches}")
+    times = step_turns({"plain": lambda: plain_step(state, batch),
+                        "distributed": lambda: dist_step(state, batch)}, iters // 2)
+    log(f"  step times in turns over {iters // 2}: {times}")
+    prof = {k: nccl_profile(fn) for k, fn in (("plain", lambda: plain_step(state, batch)),
+                                              ("distributed", lambda: dist_step(state, batch)))}
+    log(f"  profiled steps: {prof}")
+    mem = device_memory_stats()
+    mem = {k: mem[k] / 2 ** 30 for k in ("allocated_bytes.all.current",
+                                          "allocated_bytes.all.peak",
+                                          "reserved_bytes.all.current") if k in mem}
+    log(f"  (e) device_memory_stats after (b), GiB: {mem}")
+    info = {**res, "times": times, "profile": prof, "memory_gib": mem}
+    del state, batch
+    torch.cuda.empty_cache()
+    return launches, info
+
+
+def nccl_profile(fn) -> dict:
+    """One profiled ``fn()``: its CUDA kernel launches and device time, and
+    those of the NCCL kernels among them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    nccl = [e for e in rows if "nccl" in e.key.lower()]
+    return {"launches": sum(e.count for e in rows),
+            "device_ms": sum(e.self_device_time_total for e in rows) / 1e3,
+            "nccl_launches": sum(e.count for e in nccl),
+            "nccl_device_ms": sum(e.self_device_time_total for e in nccl) / 1e3}
+
+
+def ddp_cli(tmp: str) -> dict:
+    """Phase 24 (c): the train CLI under torchrun at one process, one epoch on
+    phase 14's synthetic set, then ``--resume`` to a second."""
+    data = make_train_set(tmp)
+    save_dir = os.path.join(tmp, "run")
+    res = {}
+    for epochs, extra in ((1, []), (2, ["--resume"])):
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", "1", "-m", "hd_yolo_tpu_torch.engines.train",
+               "--data", data, "--save-dir", save_dir, "--epochs", str(epochs),
+               "--dist-timeout", "300", *TRAIN_CLI, *extra]
+        t0 = time.perf_counter()
+        p = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                           env={**os.environ, "PYTHONPATH": os.path.dirname(
+                               os.path.abspath(__file__))})
+        dt = time.perf_counter() - t0
+        need(p.returncode == 0, f"torchrun train exited {p.returncode}:\n{p.stderr[-3000:]}")
+        saved = torch.load(os.path.join(save_dir, "last.pt"), map_location="cpu",
+                           weights_only=False)
+        meta = json.load(open(os.path.join(save_dir, "last.json")))
+        # the resumed run continues the same directory's state (a fresh run would
+        # have moved to run2 and left last.pt at step 4)
+        need(meta["epoch"] == epochs - 1 and int(saved["step"]) == 4 * epochs,
+             f"torchrun train, {epochs} epoch(s): last.json {meta}, step {int(saved['step'])}")
+        res[f"epochs_{epochs}_s"] = dt
+    log(f"  (c) torchrun --nproc_per_node 1 engines.train: one epoch {res['epochs_1_s']:.1f} s, "
+        f"--resume to a second {res['epochs_2_s']:.1f} s (wall, the process start included); "
+        f"rank 0 wrote last.pt, the resume restored it")
+    return res
+
+
+def ddp_slide(iters: int) -> tuple:
+    """Phase 24 (d): ``slide_inference_sharded`` at world 1 on phase 9's slide
+    against ``Detector.slide``."""
+    from hd_yolo_tpu_torch.wsi import slide_inference_sharded
+
+    det = Detector("yolov5l6-mask", "hyp-nuclei", device="cuda", seed=0, pre_nms_topk=1024,
+                   max_masks=100, mask_budget=768, mask_window=16)
+    slide = np.random.default_rng(9).integers(0, 256, (4096, 4096, 3), dtype=np.uint8)
+    grid = tiling.sliding_window_grid(4096, 4096, 640, 64)
+    x = tiling.extract_tiles(torch.from_numpy(slide).cuda(), torch.from_numpy(grid[:16]), 640)
+    calibrate_detections(det, x, 20.0)
+    want = det.slide(slide, tile=640, overlap=64, batch=16)[0]["detSC"]
+    dev_slide = torch.from_numpy(slide).cuda()
+
+    def sharded():
+        return slide_inference_sharded(lambda t: det.model(t)["detSC"], dev_slide, tile=640,
+                                       overlap=64, batch_per_device=16, fused=True)
+
+    launches, out = path_launches(sharded)
+    v = out["valid"] & (out["boxes"][:, 0] < 4096) & (out["boxes"][:, 1] < 4096)
+    got = {"boxes": np.minimum(out["boxes"][v], 4096), "scores": out["scores"][v],
+           "labels": out["labels"][v], "masks": out["masks"][v], "has_mask": out["mask_valid"][v]}
+    for k, w in want.items():
+        need(np.array_equal(got[k], w), f"slide_inference_sharded at world 1: {k} differs from "
+                                        f"Detector.slide's")
+    t = timed_steps(sharded, iters)
+    log(f"  (d) slide_inference_sharded at world 1, 4096 x 4096, 16 tiles a batch: "
+        f"{len(want['boxes'])} detections bit for bit Detector.slide's; launches {launches}; "
+        f"{t}")
+    for k, n in slide_launches(-(-len(grid) // 16)).items():
+        need(launches[k] == n, f"sharded slide: kernel {k} launched {launches[k]}, expected {n}")
+    flops = ddp_flops(det)
+    del det, dev_slide
+    torch.cuda.empty_cache()
+    return launches, {"detections": len(want["boxes"]), "times": t, **flops}
+
+
+def ddp_flops(det) -> dict:
+    """Phase 24 (e): the flagship forward's FLOPs at 16 x 640 (packed branch,
+    768 mask slots): ``flops_of`` counts the PyTorch ops, the stem and the
+    mask head (hand kernels) are added from their formulas."""
+    x = torch.from_numpy(np.random.default_rng(3).integers(0, 256, (16, 640, 640, 3),
+                                                           dtype=np.uint8)).cuda()
+    with torch.no_grad():
+        counted = flops_of(lambda: det.model(x))
+    stem = 2.0 * 16 * 320 * 320 * 64 * 6 * 6 * 3
+    mask = mask_head_flops(768)
+    total = counted + stem + mask
+    log(f"  (e) flops_of the flagship forward at 16 x 640: {counted / 1e12:.4f} TFLOP counted "
+        f"(cuDNN / cuBLAS ops) + stem kernel {stem / 1e12:.4f} + mask head at 768 slots "
+        f"{mask / 1e12:.4f} = {total / 1e12:.4f} TFLOP")
+    return {"flops_counted": counted, "flops_stem": stem, "flops_mask_head": mask,
+            "flops_total": total}
+
+
+def phase_ddp(iters: int):
+    """Phase 24: the flagship across processes at world 1 on NCCL."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from hd_yolo_tpu_torch import parallel
+
+    env = {"RANK": "0", "LOCAL_RANK": "0", "WORLD_SIZE": "1", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(free_port())}
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        t0 = time.perf_counter()
+        rank_world = parallel.maybe_initialize_distributed("cuda", timeout=300)
+        need(rank_world == (0, 1) and dist.get_backend() == "nccl",
+             f"a one-rank NCCL group: got {rank_world}, {dist.get_backend()}")
+        log(f"  (a) one-rank NCCL group from torchrun's environment in "
+            f"{time.perf_counter() - t0:.2f} s")
+        step_launches, info = ddp_step_check(iters)
+        slide_l, info["slide"] = ddp_slide(5)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    with tempfile.TemporaryDirectory() as tmp:
+        info["cli"] = ddp_cli(tmp)
+    return step_launches, slide_l, info
+
+
 ONLY_PATHS = {
     "device_augment": "[16] device augmentation: yolov5l6-mask, batch 16 x 640, bf16, masks, "
                       "raw mode",
@@ -5108,11 +5395,13 @@ ONLY_PATHS = {
            "16 x 640, bf16",
     "hnet_darknet": "[23] hnet-darknet: darknet trunk, 17 keypoints, FCOS header, batch 4 x 640, "
                     "bf16; SRGAN; the swin importer",
+    "ddp": "[24] ddp: the flagship across processes at world 1 on NCCL, batch 16 x 640, bf16, "
+           "masks; torchrun; the sharded slide",
 }
 PATH_PHASES = {"multihead": phase_multihead, "anchor_free": phase_anchor_free,
                "ensemble": phase_ensemble, "pretrained": phase_pretrained,
                "nucls_finetune": phase_nucls_finetune, "hub": phase_hub,
-               "hnet_darknet": phase_hnet_darknet}
+               "hnet_darknet": phase_hnet_darknet, "ddp": phase_ddp}
 
 
 def main(argv=None) -> int:
@@ -5122,7 +5411,7 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default="",
                     help="comma-separated phase-3 kernel names or paths (device_augment, "
                          "multihead, anchor_free, ensemble, pretrained, nucls_finetune, hub, "
-                         "hnet_darknet): "
+                         "hnet_darknet, ddp): "
                          "build, run only their phases and stop (no result lines); without it, "
                          "every phase")
     ap.add_argument("--hnet-loss-trials", type=int, default=0, metavar="N",
@@ -5267,6 +5556,9 @@ def main(argv=None) -> int:
     log(ONLY_PATHS["hnet_darknet"])
     hd_launches, hd_train_launches, hd_info = phase_hnet_darknet(10)
     log("  " + json.dumps({"hnet_darknet": hd_info}, default=float))
+    log(ONLY_PATHS["ddp"])
+    ddp_step_launches, ddp_slide_launches, ddp_info = phase_ddp(10)
+    log("  " + json.dumps({"ddp": ddp_info}, default=float))
 
     paths = {"flagship": launches, "defaults": default_launches, "hnet": hnet_launches,
              "lab": lab_launches, "slide": slide_launches, "val": val_launches,
@@ -5279,7 +5571,8 @@ def main(argv=None) -> int:
              "nucls_finetune": nucls_launches["micro_step"],
              "nucls_finetune_val": nucls_launches["val"],
              "hub_ghost": hub_launches["yolov5s-ghost"], "hub_v3.1": hub_launches["yolov5s-v3.1"],
-             "hnet_darknet": hd_launches, "hnet_darknet_train": hd_train_launches}
+             "hnet_darknet": hd_launches, "hnet_darknet_train": hd_train_launches,
+             "ddp_step": ddp_step_launches, "ddp_slide": ddp_slide_launches}
     main_path = {k: "flagship" for k in FLAGSHIP_KERNELS}
     main_path.update(mask_head_f32="pretrained", roi_align_single="hnet", stem_k108="lab",
                      stem_dot108="lab", stem="lab", roi_align_bwd="train",

@@ -357,11 +357,13 @@ class DataLoader:
     failure in a worker is raised in the caller.  ``shuffle`` draws each
     epoch's order from ``random.Random(seed + epoch)``; ``infinite`` runs
     epoch after epoch (the training loader); ``drop_last`` drops a partial
-    last batch."""
+    last batch.  ``shard=(rank, world)``: this process's slice of each
+    epoch's order, ``idx[rank::world]`` — every rank shuffles with the same
+    seed, so the slices are disjoint and cover the epoch."""
 
     def __init__(self, dataset: DetectionDataset, batch_size: int = 8, workers: int = 4,
                  drop_last: bool = True, shuffle: bool = False, infinite: bool = False,
-                 seed: int = 0):
+                 seed: int = 0, shard: Optional[Tuple[int, int]] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.workers = max(workers, 1)
@@ -369,15 +371,22 @@ class DataLoader:
         self.shuffle = shuffle
         self.infinite = infinite
         self.seed = seed
+        self.shard = shard if shard and shard[1] > 1 else None
 
     def __len__(self) -> int:
         n = len(self.dataset)
+        if self.shard:
+            rank, world = self.shard
+            n = (n - rank + world - 1) // world
         return n // self.batch_size if self.drop_last else (n + self.batch_size - 1) // self.batch_size
 
     def _epoch_indices(self, epoch: int) -> List[int]:
         idx = list(range(len(self.dataset)))
         if self.shuffle:
             random.Random(self.seed + epoch).shuffle(idx)
+        if self.shard:
+            rank, world = self.shard
+            idx = idx[rank::world]
         return idx[: len(self) * self.batch_size] if self.drop_last else idx
 
     def __iter__(self) -> Iterator[Dict[str, object]]:

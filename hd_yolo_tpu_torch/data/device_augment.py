@@ -30,7 +30,7 @@ them), as does a ``k_mosaic`` other than 1 or 2.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -290,61 +290,82 @@ def gather_rows(tree: Dict, idx: Tensor) -> Dict:
             for k, v in tree.items()}
 
 
-def apply_augment(batch: Dict, draws: Dict[str, Tensor]) -> Dict:
+def _mosaics(img: Tensor, tgts0: Dict, draws: Dict[str, Tensor], rows: Optional[Tensor]):
+    """The per-tile chains, the 2 x 2 mosaic and its crop of the batch's rows
+    ``rows`` (all rows where None): each row's draws are its own, its
+    partners any rows of the batch.  Returns (images, px targets)."""
+    take = (lambda a: a) if rows is None else (lambda a: a.index_select(0, rows))  # noqa: E731
+    quad = lambda q: {k: take(draws[k][q]) for k in QUAD_KEYS if k in draws}    # noqa: E731
+    own_img = take(img)
+    own_t = tgts0 if rows is None else gather_rows(tgts0, rows)
+    if "partners" not in draws:                          # k_mosaic 1
+        return _augment_tiles(own_img, own_t, quad(0))
+    # 2 x 2 batch-internal mosaic: quadrant 0 is the batch itself, the
+    # partners of quadrants 1-3 are permutations of it
+    S = img.shape[1]
+    quads_img, quads_tgt = [], []
+    for q in range(4):
+        if q == 0:
+            gi, gt = own_img, own_t
+        else:
+            perm = take(draws["partners"][q - 1])
+            gi, gt = img.index_select(0, perm), gather_rows(tgts0, perm)
+        wi, wt = _augment_tiles(gi, gt, quad(q))
+        off = _const([(q % 2) * S, (q // 2) * S] * 2, wi)
+        quads_img.append(wi)
+        quads_tgt.append({t: {**tg, "boxes": tg["boxes"] + off} for t, tg in wt.items()})
+    canvas = torch.cat([torch.cat(quads_img[0:2], 2), torch.cat(quads_img[2:4], 2)], 1)
+    merged = {t: _concat_tasks([qt[t] for qt in quads_tgt]) for t in tgts0}
+
+    # a random S-crop of each image's canvas, as one gather
+    yx0 = take(draws["crop"])
+    ar = torch.arange(S, device=img.device)
+    rws, cols = yx0[:, 0, None] + ar, yx0[:, 1, None] + ar
+    bi = torch.arange(yx0.shape[0], device=img.device)[:, None, None]
+    out_img = canvas[bi, rws[:, :, None], cols[:, None, :]]
+    off = torch.stack([yx0[:, 1], yx0[:, 0], yx0[:, 1], yx0[:, 0]], -1).float()[:, None, :]
+    for t, tg in merged.items():
+        moved = tg["boxes"] - off
+        clipped, masks = _clip_boxes_recrop_masks(moved, tg["masks"], float(S))
+        w = clipped[..., 2] - clipped[..., 0]
+        h = clipped[..., 3] - clipped[..., 1]
+        a0 = ((moved[..., 2] - moved[..., 0]) * (moved[..., 3] - moved[..., 1])).clamp_min(1e-9)
+        vis = (w * h / a0 > 0.1) & (w > 2) & (h > 2)
+        merged[t] = {**tg, "boxes": clipped, "masks": masks, "valid": tg["valid"] & vis}
+    return out_img, merged
+
+
+def apply_augment(batch: Dict, draws: Dict[str, Tensor], rows: Optional[Tensor] = None) -> Dict:
     """The recipe on a raw-mode batch, on its device: ``batch`` = {'image':
     (B, S, S, 3) uint8 or float, 'targets': {task: {boxes (normalized
     xyxy), labels, masks (B, T, 28, 28), valid, active}}}; ``draws`` from
     ``draw_augment`` on the same device.  Returns the float32 image in
-    [0, 1] and the compacted, normalized targets, T slots a task."""
+    [0, 1] and the compacted, normalized targets, T slots a task.
+
+    ``rows`` (an int64 index on the device): only those rows of the
+    batch's result, computed alone: their own chains and mosaics and those
+    of their mixup partners (one process of several, which gathered the
+    global batch and drew for it, computes its own rows)."""
     img = batch["image"]
     if not img.is_floating_point():
         img = img.float() / 255.0
-    B, S = img.shape[0], img.shape[1]
+    S = img.shape[1]
     tgts0 = {t: {**tg, "boxes": tg["boxes"] * S} for t, tg in batch["targets"].items()}
     T = next(iter(tgts0.values()))["boxes"].shape[1]
-    quad = lambda q: {k: draws[k][q] for k in QUAD_KEYS if k in draws}    # noqa: E731
-
-    if "partners" not in draws:                          # k_mosaic 1
-        out_img, merged = _augment_tiles(img, tgts0, quad(0))
-    else:
-        # 2 x 2 batch-internal mosaic: quadrant 0 is the batch itself, the
-        # partners of quadrants 1-3 are permutations of it
-        quads_img, quads_tgt = [], []
-        for q in range(4):
-            if q == 0:
-                gi, gt = img, tgts0
-            else:
-                perm = draws["partners"][q - 1]
-                gi, gt = img.index_select(0, perm), gather_rows(tgts0, perm)
-            wi, wt = _augment_tiles(gi, gt, quad(q))
-            off = _const([(q % 2) * S, (q // 2) * S] * 2, wi)
-            quads_img.append(wi)
-            quads_tgt.append({t: {**tg, "boxes": tg["boxes"] + off} for t, tg in wt.items()})
-        canvas = torch.cat([torch.cat(quads_img[0:2], 2), torch.cat(quads_img[2:4], 2)], 1)
-        merged = {t: _concat_tasks([qt[t] for qt in quads_tgt]) for t in tgts0}
-
-        # a random S-crop of each image's canvas, as one gather
-        yx0 = draws["crop"]
-        ar = torch.arange(S, device=img.device)
-        rows, cols = yx0[:, 0, None] + ar, yx0[:, 1, None] + ar
-        bi = torch.arange(B, device=img.device)[:, None, None]
-        out_img = canvas[bi, rows[:, :, None], cols[:, None, :]]
-        off = torch.stack([yx0[:, 1], yx0[:, 0], yx0[:, 1], yx0[:, 0]], -1).float()[:, None, :]
-        for t, tg in merged.items():
-            moved = tg["boxes"] - off
-            clipped, masks = _clip_boxes_recrop_masks(moved, tg["masks"], float(S))
-            w = clipped[..., 2] - clipped[..., 0]
-            h = clipped[..., 3] - clipped[..., 1]
-            a0 = ((moved[..., 2] - moved[..., 0]) * (moved[..., 3] - moved[..., 1])).clamp_min(1e-9)
-            vis = (w * h / a0 > 0.1) & (w > 2) & (h > 2)
-            merged[t] = {**tg, "boxes": clipped, "masks": masks, "valid": tg["valid"] & vis}
+    out_img, merged = _mosaics(img, tgts0, draws, rows)
 
     if "mix_perm" in draws:                              # mixup: a Beta(32, 32) blend
-        perm, do = draws["mix_perm"], draws["mix_do"]
-        lam = torch.where(do, draws["mix_lam"], 1.0)[:, None, None, None]
-        out_img = lam * out_img + (1 - lam) * out_img.index_select(0, perm)
+        perm, do, lam = draws["mix_perm"], draws["mix_do"], draws["mix_lam"]
+        if rows is None:
+            mix_img = out_img.index_select(0, perm)
+            mix_t = {t: gather_rows(tg, perm) for t, tg in merged.items()}
+        else:
+            perm, do, lam = perm.index_select(0, rows), do[rows], lam[rows]
+            mix_img, mix_t = _mosaics(img, tgts0, draws, perm)
+        lam = torch.where(do, lam, 1.0)[:, None, None, None]
+        out_img = lam * out_img + (1 - lam) * mix_img
         for t, tg in merged.items():
-            other = gather_rows(tg, perm)
+            other = dict(mix_t[t])
             other["valid"] = other["valid"] & do[:, None]
             other["active"] = tg["active"]
             merged[t] = _concat_tasks([tg, other])
@@ -370,10 +391,10 @@ class DeviceAugment:
     def draw(self, rng: np.random.Generator, B: int, S: int) -> Dict[str, np.ndarray]:
         return draw_augment(rng, B, S, self.hyp, self.k_mosaic)
 
-    def __call__(self, batch: Dict, draws: Dict) -> Dict:
+    def __call__(self, batch: Dict, draws: Dict, rows: Optional[Tensor] = None) -> Dict:
         if isinstance(next(iter(draws.values())), np.ndarray):
             draws = upload_draws(draws, batch["image"].device)
-        return apply_augment(batch, draws)
+        return apply_augment(batch, draws, rows)
 
 
 def make_device_augment(hyp: Dict, k_mosaic: int = 2) -> DeviceAugment:

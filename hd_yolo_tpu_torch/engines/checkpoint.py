@@ -16,6 +16,7 @@ date) to the JSON sidecar ``<path>.json``, written after the ``.pt`` so a
 crash mid-write leaves the previous metadata; ``async_save`` copies the
 state to the host at once and writes it in a background thread
 (``wait_for_saves`` joins them).  ``restore_train_state`` loads one back.
+Inside a process group only rank 0 writes; every rank restores.
 """
 
 from __future__ import annotations
@@ -29,11 +30,15 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
+from ..parallel.distributed import is_main_process
 from ..utils.convert import load_weights
 
 
 def save_inference(path: str, model: nn.Module) -> str:
-    """Write ``model``'s ``state_dict`` (host copies) to the ``.pt`` file ``path``."""
+    """Write ``model``'s ``state_dict`` (host copies) to the ``.pt`` file
+    ``path`` (on rank 0 only, inside a process group)."""
+    if not is_main_process():
+        return path
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()}, path)
     return path
@@ -78,7 +83,10 @@ def wait_for_saves() -> None:
 
 def save_checkpoint(path: str, state, epoch: int, best_fitness: float = 0.0,
                     extra: Optional[Dict[str, Any]] = None, async_save: bool = False) -> None:
-    """Save a full training checkpoint to ``<path>.pt`` + ``<path>.json``."""
+    """Save a full training checkpoint to ``<path>.pt`` + ``<path>.json``
+    (on rank 0 only, inside a process group: every rank holds the same state)."""
+    if not is_main_process():
+        return
     path = os.path.abspath(path)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     meta = {"epoch": epoch, "best_fitness": float(best_fitness),

@@ -33,6 +33,20 @@ over N trainings (``engines/evolve.py``).  ``--plots`` writes the
 dataset's display dumps and ``labels.jpg`` at the start and
 ``results.png`` at the end (``engines/plots.py``); it needs matplotlib and
 raises ``ImportError`` before the first step where matplotlib is missing.
+
+Several processes, one card each (``parallel/``)::
+
+    python -m torch.distributed.run --standalone --nproc_per_node N \\
+        -m hd_yolo_tpu_torch.engines.train --data data.yaml --masks [--device cpu]
+
+``--batch-size`` is the global batch: each rank loads its ``1/N`` slice of
+every epoch (``DataLoader(shard=(rank, N))``) on ``cuda:LOCAL_RANK`` (NCCL)
+or, with ``--device cpu``, on the CPU (gloo), and each step is the global
+batch's (``train_step.make_train_step(distributed=True)``).  Rank 0 alone
+writes the run's files and validates, on its shard of the val set, as the
+JAX package does; its fitness goes to every rank.  Every rank restores
+``--resume``.  ``--cache-device`` falls back to the streaming loader with a
+warning.
 """
 
 from __future__ import annotations
@@ -45,7 +59,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from .. import LOGGER
+from .. import LOGGER, parallel
 from ..config import load_cfg, load_dataset_info, save_cfg
 from ..data.dataset import DataLoader, DetectionDataset, collate_padded
 from ..data.preproc import model_input
@@ -188,10 +202,9 @@ def load_pretrained(model: Model, name: str) -> int:
     return import_state_dict(model, sd)[0]
 
 
-def train(opt, callbacks: Optional[Callbacks] = None) -> Dict[str, float]:
-    callbacks = callbacks or Callbacks()
-    _check_plots(opt)
-    device = resolve_device(opt.device)
+def pick_save_dir(opt) -> str:
+    """``--save-dir``, or ``exp2``, ``exp3``, ... after it where it holds
+    files (not with ``--resume`` or ``--exist-ok``)."""
     save_dir = opt.save_dir
     if (os.path.exists(save_dir) and os.listdir(save_dir) and not opt.resume
             and not getattr(opt, "exist_ok", False)):
@@ -200,11 +213,26 @@ def train(opt, callbacks: Optional[Callbacks] = None) -> Dict[str, float]:
             n += 1
         save_dir = f"{base}{n}"
         LOGGER.info(f"save dir exists; using {save_dir} (pass --exist-ok to reuse)")
-    os.makedirs(save_dir, exist_ok=True)
+    return save_dir
+
+
+def train(opt, callbacks: Optional[Callbacks] = None) -> Dict[str, float]:
+    callbacks = callbacks or Callbacks()
+    _check_plots(opt)
+    # several processes (torchrun's environment): one card each, rank 0 writes
+    rank, world = parallel.maybe_initialize_distributed(
+        opt.device, getattr(opt, "dist_timeout", None))
+    main_proc = rank == 0
+    device = resolve_device(parallel.local_device(opt.device))
+    # every rank takes rank 0's pick, made before any rank creates the directory
+    save_dir = parallel.broadcast_object(pick_save_dir(opt) if main_proc else None)
+    if main_proc:
+        os.makedirs(save_dir, exist_ok=True)
+    parallel.barrier()
     data_info = load_dataset_info(opt.data)
     hyp = load_cfg(opt.hyp)
-    loggers = Loggers(save_dir)
-    loggers.register(callbacks)
+    if main_proc:
+        Loggers(save_dir).register(callbacks)
 
     spec0 = parse_model_cfg(opt.cfg, hyp)
     gs = int(max(max(h.strides) for h in spec0.headers))
@@ -216,7 +244,8 @@ def train(opt, callbacks: Optional[Callbacks] = None) -> Dict[str, float]:
         raise ValueError(f"data yaml tasks {sorted(data_tasks)} match no model header tags "
                          f"{sorted(model_tasks)} — check the 'tag' column of the header rows "
                          f"in {opt.cfg!r} vs the dataset's task_id values")
-    save_cfg(hyp, os.path.join(save_dir, "hyp.yaml"))
+    if main_proc:
+        save_cfg(hyp, os.path.join(save_dir, "hyp.yaml"))
 
     model = Model.from_cfg(opt.cfg, hyp, dtype=torch.bfloat16 if opt.bf16 else torch.float32,
                            mask_rois=opt.mask_rois, max_masks=opt.max_masks)
@@ -225,14 +254,20 @@ def train(opt, callbacks: Optional[Callbacks] = None) -> Dict[str, float]:
         LOGGER.info(f"loaded pretrained weights from {opt.weights} "
                     f"({load_pretrained(model, opt.weights)} tensors)")
     model.to(device)
-    LOGGER.info(f"model params: {sum(p.numel() for p in model.parameters()):,} on {device}")
+    parallel.replicate(model)
+    LOGGER.info(f"model params: {sum(p.numel() for p in model.parameters()):,} on {device}"
+                + (f", process {rank}/{world}" if world > 1 else ""))
     if opt.batch_size == -1:
-        opt.batch_size = autobatch_size(model, hyp, opt, device)
+        opt.batch_size = parallel.broadcast_object(autobatch_size(model, hyp, opt, device))
         LOGGER.info(f"autobatch: batch_size={opt.batch_size}")
 
     cache_device = bool(opt.cache_device)
     if cache_device:                 # the resident set is served raw; the step augments
         opt.cache_images = opt.device_augment = True
+    if cache_device and world > 1:
+        LOGGER.warning("--cache-device is single-process for now; falling back to the "
+                       "streaming loader")
+        cache_device = False
     dev_aug = bool(opt.device_augment)
     train_ds = DetectionDataset(
         data_info["train"], {**hyp, "img_size": opt.img_size, "patch_size": opt.patch_size,
@@ -251,12 +286,16 @@ def train(opt, callbacks: Optional[Callbacks] = None) -> Dict[str, float]:
                     check_anchors(wh, h.anchors, h.strides,
                                   anchor_t=float(dict(h.loss_hyp).get("anchor_t", 4.0)),
                                   imgsz=opt.img_size)
-    if opt.plots:
+    if opt.plots and main_proc:
         plot_dataset(train_ds, val_ds, data_info, opt.img_size, save_dir)
-    train_dl = DataLoader(train_ds, opt.batch_size, workers=opt.workers, infinite=True,
-                          shuffle=True, seed=opt.seed)
-    val_dl = DataLoader(val_ds, opt.batch_size, workers=opt.workers, drop_last=False)
-    steps_per_epoch = max(len(train_dl), 1)
+    # --batch-size is the global batch; each rank loads its 1/world slice
+    local_bs = opt.batch_size // parallel.auto_mesh(opt.batch_size, world)
+    shard = (rank, world) if world > 1 else None
+    train_dl = DataLoader(train_ds, local_bs, workers=opt.workers, infinite=True,
+                          shuffle=True, seed=opt.seed, shard=shard)
+    val_dl = DataLoader(val_ds, local_bs, workers=opt.workers, drop_last=world > 1, shard=shard)
+    # every rank takes as many steps an epoch (the shards may differ by a batch)
+    steps_per_epoch = max(_min_over_ranks(len(train_dl), device), 1)
 
     optimizer = build_optimizer(
         model, hyp, opt.epochs, steps_per_epoch, schedule="cosine" if opt.cos_lr else "linear",
@@ -277,7 +316,8 @@ def train(opt, callbacks: Optional[Callbacks] = None) -> Dict[str, float]:
         augment_fn = make_device_augment(hyp, k_mosaic=opt.k_mosaic)
         LOGGER.info("device augmentation: the recipe runs inside the train step")
     step_fn = make_train_step(mask_weight=1.0 if opt.masks else 0.0, seed=opt.seed,
-                              augment_fn=augment_fn, resident_data=cache_device)
+                              augment_fn=augment_fn, resident_data=cache_device,
+                              distributed=parallel.is_initialized())
     resident, upload = None, {}
     if cache_device:
         # one upload of the first n_keep raw samples; each step gathers its rows
@@ -314,7 +354,7 @@ def train(opt, callbacks: Optional[Callbacks] = None) -> Dict[str, float]:
     callbacks.run("on_train_start")
     train_iter = None if cache_device else iter(train_dl)
     final_stats: Dict[str, float] = {}
-    if opt.pretrain_val:
+    if opt.pretrain_val and main_proc:
         fit0, _, _ = validate()
         LOGGER.info(f"pre-train val (EMA init): fitness={fit0:.4f}")
     bench_batch = None
@@ -360,11 +400,14 @@ def train(opt, callbacks: Optional[Callbacks] = None) -> Dict[str, float]:
                     mloss[k] = mloss.get(k, 0.0) + float(v) / steps_per_epoch
         callbacks.run("on_train_epoch_end", epoch=epoch)
 
+        # validation is rank 0's, on its shard of the val set (as the JAX
+        # package); its fitness goes to every rank, so all take the same branches
         fit = 0.0
         stats: Dict[str, Dict[str, float]] = {}
         do_val = (epoch + 1) % max(opt.val_interval, 1) == 0 or epoch == opt.epochs - 1
-        if do_val:
+        if do_val and main_proc:
             fit, stats, _ = validate()
+        fit = float(parallel.broadcast_object(fit))
         final_stats = {f"{t}/{k}": v for t, s in stats.items() for k, v in s.items()}
         skipped = int(mloss.get("nonfinite_steps", 0))
         LOGGER.info(f"epoch {epoch}: loss={mloss.get('loss', float('nan')):.4f} "
@@ -373,7 +416,7 @@ def train(opt, callbacks: Optional[Callbacks] = None) -> Dict[str, float]:
                     + (f" [skipped {skipped} non-finite step(s)]" if skipped else ""))
         callbacks.run("on_fit_epoch_end", {**mloss, **final_stats, "fitness": fit}, epoch,
                       best_fitness, fit)
-        if fit >= best_fitness:
+        if fit >= best_fitness:       # the checkpoints write on rank 0 only
             best_fitness = fit
             if do_val:
                 save_checkpoint(os.path.join(save_dir, "best"), state, epoch, best_fitness,
@@ -390,7 +433,7 @@ def train(opt, callbacks: Optional[Callbacks] = None) -> Dict[str, float]:
     with swap_ema(state):
         save_inference(os.path.join(save_dir, "final.pt"), model)
     rj = os.path.join(save_dir, "results.json")
-    if opt.plots and os.path.exists(rj):
+    if opt.plots and main_proc and os.path.exists(rj):
         from .plots import plot_results
 
         try:
@@ -398,10 +441,19 @@ def train(opt, callbacks: Optional[Callbacks] = None) -> Dict[str, float]:
         except Exception as e:   # a plot never fails the training it reports on
             LOGGER.warning(f"plot_results failed: {e}")
     callbacks.run("on_train_end")
+    parallel.barrier()           # the files are written before any rank returns
     out = {"best_fitness": best_fitness, "save_dir": save_dir, **final_stats}
     if upload:
         out["resident_upload"] = upload
     return out
+
+
+def _min_over_ranks(n: int, device) -> int:
+    if not parallel.is_initialized():
+        return n
+    t = torch.tensor([n], dtype=torch.int64, device=device)
+    torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MIN)
+    return int(t)
 
 
 def _leaves(tree):
@@ -425,10 +477,14 @@ def argument_parser() -> argparse.ArgumentParser:
                    "searched in $HD_YOLO_WEIGHTS_DIR, <repo>/weights/ and the cache: a .pt of "
                    "this package, the reference (metayolo) or ultralytics, or a pickled flax "
                    "{'params', 'batch_stats'} tree")
-    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--device", default="cuda", help="cuda (default; cuda:LOCAL_RANK under "
+                   "torchrun) or cpu (gloo under torchrun)")
+    p.add_argument("--dist-timeout", dest="dist_timeout", type=float, default=None,
+                   help="seconds a collective may wait under torchrun (torch's default if unset)")
     p.add_argument("--epochs", type=int, default=100)
     p.add_argument("--batch-size", dest="batch_size", type=int, default=32,
-                   help="batch size; -1 = fit it to the card's memory (autobatch)")
+                   help="the global batch size (each of N processes takes 1/N); -1 = fit "
+                        "it to the card's memory (autobatch)")
     p.add_argument("--multi-scale", dest="multi_scale", action="store_true",
                    help="bucketized 0.5-1.5x image-size jitter per step")
     p.add_argument("--pretrain-val", dest="pretrain_val", action="store_true",
@@ -512,9 +568,12 @@ def evolve_hyp(opt) -> Dict[str, float]:
 
 def main(argv=None):
     opt = argument_parser().parse_args(argv)
-    if opt.evolve:
-        return evolve_hyp(opt)
-    return train(opt)
+    owns_group = not parallel.is_initialized()
+    try:
+        return evolve_hyp(opt) if opt.evolve else train(opt)
+    finally:
+        if owns_group and parallel.is_initialized():
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -28,12 +28,14 @@ where it has them (yolo), else its flat 0-d losses (hnet's headers and its
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
+from .. import parallel
 from ..data.device_augment import gather_rows
 from .optim import EMA, Optimizer
 
@@ -90,6 +92,24 @@ def augment_rng(seed: int, step: int) -> np.random.Generator:
     return np.random.default_rng(np.random.SeedSequence([seed, step, 0x5EED]))
 
 
+def augment_batch(augment_fn, batch: Dict, seed: int, step: int,
+                  distributed: bool = False) -> Dict:
+    """The device recipe on the raw ``batch`` of micro-step ``step``, its draws
+    from ``augment_rng(seed, step)``.  ``distributed``: ``batch`` is this
+    rank's rows of the global batch; the raw rows of every rank are gathered,
+    the draws made for the global batch (the same on every rank) and this
+    rank's rows of the result computed, so the mosaic and mixup partners come
+    from the whole global batch, as on one device."""
+    B, S = batch["image"].shape[:2]
+    rows = None
+    if distributed:
+        batch = parallel.all_gather_rows(batch)
+        r = parallel.rank()
+        rows = torch.arange(r * B, (r + 1) * B, device=batch["image"].device)
+        B = batch["image"].shape[0]
+    return augment_fn(batch, augment_fn.draw(augment_rng(seed, step), B, S), rows)
+
+
 def loss_items(losses: Dict) -> Dict[str, Tensor]:
     """``'<task>/<item>'`` → detached 0-d loss: each task's ``loss_items``
     where it has them, else its flat 0-d entries."""
@@ -103,7 +123,7 @@ def loss_items(losses: Dict) -> Dict[str, Tensor]:
 
 
 def make_train_step(mask_weight: float = 1.0, ema_decay: float = 0.9999, seed: int = 0,
-                    augment_fn=None, resident_data: bool = False):
+                    augment_fn=None, resident_data: bool = False, distributed: bool = False):
     """``step(state, batch) → (state, metrics)``.  ``batch``: {'image': (B,
     H, W, 3) uint8 or float, 'targets': {task: {...}}} as tensors on the
     model's device (yolo: boxes, labels, masks, valid[, active]; hnet: each
@@ -113,26 +133,40 @@ def make_train_step(mask_weight: float = 1.0, ema_decay: float = 0.9999, seed: i
     ``augment_fn``: a ``data/device_augment.DeviceAugment``, run on the raw
     batch with the micro-step's draws (``augment_rng``).  ``resident_data``:
     the signature becomes ``step(state, data, idx)``, ``data`` the whole set
-    as one batch tree on the device, ``idx`` the (B,) rows of this step."""
+    as one batch tree on the device, ``idx`` the (B,) rows of this step.
+
+    ``distributed``: one step of the global batch over the default process
+    group (``parallel``), each rank passing its own rows: the BatchNorm
+    statistics and the losses' counts span the group
+    (``parallel.global_batch``), so each rank's loss is its share of the
+    global one; the gradients are summed over the group in buckets
+    (``parallel.all_reduce_grads``) before the optimizer, and the metrics
+    summed, so every rank updates identical tensors.  The device recipe
+    draws for the global batch, gathers the raw rows of every rank and
+    computes its own rows.  Without a group it is the plain step."""
 
     def step(state: TrainState, batch: Dict) -> tuple:
         model, opt = state.model, state.opt
         model.train()
+        dist_on = distributed and parallel.is_initialized()
         if augment_fn is not None:
-            B, S = batch["image"].shape[:2]
-            batch = augment_fn(batch, augment_fn.draw(augment_rng(seed, state.count), B, S))
+            batch = augment_batch(augment_fn, batch, seed, state.count, dist_on)
         kw = {}
         if getattr(model, "stochastic", False):
             kw["generator"] = step_generator(seed, state.count, opt.params[0].device)
-        losses, _ = model.losses(batch["image"], batch["targets"], compute_masks=mask_weight > 0,
-                                 **kw)
-        total = model.total_loss(losses, mask_weight)
-        grads = torch.autograd.grad(total, opt.params, allow_unused=True)
+        with parallel.global_batch() if dist_on else contextlib.nullcontext():
+            losses, _ = model.losses(batch["image"], batch["targets"],
+                                     compute_masks=mask_weight > 0, **kw)
+            total = model.total_loss(losses, mask_weight)
+            grads = torch.autograd.grad(total, opt.params, allow_unused=True)
+        metrics = loss_items(losses)
+        metrics["loss"] = total.detach()
+        if dist_on:
+            grads = parallel.all_reduce_grads(grads, opt.params)
+            metrics = _sum_metrics(metrics)
         opt.update(grads)
         state.ema.update(opt.params, decay=ema_decay)
         state.advance()
-        metrics = loss_items(losses)
-        metrics["loss"] = total.detach()
         return state, metrics
 
     if not resident_data:
@@ -146,6 +180,14 @@ def make_train_step(mask_weight: float = 1.0, ema_decay: float = 0.9999, seed: i
         return step(state, gather_rows(data, idx))
 
     return resident_step
+
+
+def _sum_metrics(metrics: Dict[str, Tensor]) -> Dict[str, Tensor]:
+    """The 0-d metrics summed over the process group, in one collective."""
+    keys = sorted(metrics)
+    flat = torch.stack([metrics[k].float() for k in keys])
+    torch.distributed.all_reduce(flat)
+    return dict(zip(keys, flat.unbind()))
 
 
 class swap_ema:

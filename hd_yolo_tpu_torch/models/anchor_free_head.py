@@ -29,6 +29,7 @@ from torch import nn
 
 from ..ops.boxes import bbox_iou, box_iou, xywh2xyxy, xyxy2xywh
 from ..ops.nms import nms_per_image
+from ..parallel.distributed import batch_count
 from .builder import HeaderSpec
 from .detect_head import DEFAULT_NMS_PARAMS
 from .layers import ConvBnAct, cached, conv
@@ -235,10 +236,12 @@ class AnchorFreeDetect(nn.Module):
         ciou = bbox_iou(boxes_xywh, gt_xywh, xywh=True, CIoU=True)[..., 0]
         l_box = masked_mean(1.0 - ciou, fg, dim=1)
 
-        bs = active.float().sum().clamp(min=1.0)
-        total = (l_obj.mean() * 1.0 + l_cls.mean() * 1.0 + l_box.mean() * 5.0) * bs
-        items = {"obj": l_obj.mean().detach(), "cls": l_cls.mean().detach(),
-                 "box": l_box.mean().detach()}
+        # means over the (global, across processes) batch
+        n_img = batch_count(torch.full((), float(l_obj.shape[0]), device=dev))
+        l_obj, l_cls, l_box = (v.sum() / n_img for v in (l_obj, l_cls, l_box))
+        bs = batch_count(active.float().sum()).clamp(min=1.0)
+        total = (l_obj * 1.0 + l_cls * 1.0 + l_box * 5.0) * bs
+        items = {"obj": l_obj.detach(), "cls": l_cls.detach(), "box": l_box.detach()}
         return {"det_loss": total, "mask_loss": torch.zeros((), device=dev),
                 "loss_items": items}
 

@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.pallas_stem import stem_conv
+from ..parallel.distributed import all_sum, step_group
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03   # torch convention; flax momentum 0.97
@@ -88,14 +89,100 @@ def batch_norm_train(x: Tensor, bn: nn.BatchNorm2d) -> Tensor:
     statistics updated as flax updates them.  The kernel gets no buffers
     (its own update would blend in the unbiased variance); the biased
     variance is read back from the inverse standard deviation it saves,
-    which spares a second pass over ``x``."""
+    which spares a second pass over ``x``.
+
+    Inside a step over several processes (``parallel.global_batch``) the
+    statistics are the global batch's: each rank's per-channel sum, sum of
+    squares and count are summed over the group, and the backward sums its
+    per-channel terms over the group too, so it reaches every rank's
+    activations.  On the card that is ``_GlobalBatchNorm`` (ATen's fused
+    kernels, the ranks' statistics merged as Welford's, a collective each
+    way); elsewhere differentiable ops through ``parallel.all_sum``, the
+    variance E[x²] − E[x]² as flax computes it."""
+    if step_group() is not None:
+        return _batch_norm_global(x, bn)
     y, mean, invstd = torch.native_batch_norm(x, bn.weight, bn.bias, None, None, True, 0.0,
                                               BN_EPS)
     with torch.no_grad():
         var = (invstd.float().reciprocal().square() - BN_EPS).clamp(min=0.0)
-        bn.running_mean.mul_(1.0 - BN_MOMENTUM).add_(BN_MOMENTUM * mean.float())
-        bn.running_var.mul_(1.0 - BN_MOMENTUM).add_(BN_MOMENTUM * var)
+        _update_running(bn, mean.float(), var)
     return y
+
+
+def _update_running(bn: nn.BatchNorm2d, mean: Tensor, var: Tensor) -> None:
+    bn.running_mean.mul_(1.0 - BN_MOMENTUM).add_(BN_MOMENTUM * mean)
+    bn.running_var.mul_(1.0 - BN_MOMENTUM).add_(BN_MOMENTUM * var)
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """The card's form of the global batch's BatchNorm, on ATen's fused CUDA
+    kernels (those ``nn.SyncBatchNorm`` runs): each rank's Welford mean,
+    inverse deviation and count gathered from every rank and merged
+    (``batch_norm_gather_stats_with_counts``: at one rank the local
+    statistics as they are), the normalisation in one pass; the backward's
+    two per-channel sums all-reduced.  One collective each way; the running
+    statistics updated as flax updates them."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, running_mean, running_var, group):
+        import torch.distributed as dist
+
+        C = x.shape[1]
+        mean_l, invstd_l = torch.batch_norm_stats(x, BN_EPS)
+        local = torch.cat([mean_l, invstd_l, mean_l.new_full((1,), x.numel() // C)])
+        parts = [torch.empty_like(local) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, local, group=group)
+        every = torch.stack(parts)                                  # (world, 2C + 1)
+        counts = every[:, 2 * C]
+        # f32 scratch running statistics (torch's update of them is not
+        # flax's, and without them the counts must be in x's dtype)
+        mean, invstd = torch.batch_norm_gather_stats_with_counts(
+            x, every[:, :C], every[:, C:2 * C], mean_l.new_zeros(C), mean_l.new_ones(C), 0.0,
+            BN_EPS, counts)
+        var = (invstd.reciprocal().square() - BN_EPS).clamp(min=0.0)
+        running_mean.mul_(1.0 - BN_MOMENTUM).add_(BN_MOMENTUM * mean)
+        running_var.mul_(1.0 - BN_MOMENTUM).add_(BN_MOMENTUM * var)
+        ctx.save_for_backward(x, weight, mean, invstd, counts.to(torch.int32))
+        ctx.group = group
+        return torch.batch_norm_elemt(x, weight, bias, mean, invstd, BN_EPS)
+
+    @staticmethod
+    def backward(ctx, dy):
+        import torch.distributed as dist
+
+        x, weight, mean, invstd, counts = ctx.saved_tensors
+        fmt = (torch.channels_last if x.is_contiguous(memory_format=torch.channels_last)
+               else torch.contiguous_format)
+        dy = dy.contiguous(memory_format=fmt)
+        sum_dy, sum_dy_xmu, g_w, g_b = torch.batch_norm_backward_reduce(
+            dy, x, mean, invstd, weight, True, True, True)
+        C = x.shape[1]
+        sums = torch.cat([sum_dy, sum_dy_xmu])
+        dist.all_reduce(sums, group=ctx.group)
+        g_x = torch.batch_norm_backward_elemt(dy, x, mean, invstd, weight, sums[:C], sums[C:],
+                                              counts)
+        return g_x, g_w, g_b, None, None, None
+
+
+def _batch_norm_global(x: Tensor, bn: nn.BatchNorm2d) -> Tensor:
+    if x.is_cuda:
+        return _GlobalBatchNorm.apply(x, bn.weight, bn.bias, bn.running_mean, bn.running_var,
+                                      step_group())
+    # the plain form (the CPU's): the same statistics through differentiable ops
+    xf = x.float()
+    C = x.shape[1]
+    n = x.numel() // C
+    var_l, mean_l = torch.var_mean(xf, dim=(0, 2, 3), correction=0)    # one pass over x
+    count = torch.full((1,), float(n), dtype=torch.float32, device=x.device)
+    stats = all_sum(torch.cat([mean_l * n, (var_l + mean_l.square()) * n, count]))
+    count = stats[2 * C:]
+    mean = stats[:C] / count
+    var = (stats[C:2 * C] / count - mean.square()).clamp(min=0.0)
+    scale = torch.rsqrt(var + BN_EPS) * bn.weight.float()
+    shift = bn.bias.float() - mean * scale
+    with torch.no_grad():
+        _update_running(bn, mean.detach(), var.detach())
+    return torch.addcmul(shift[:, None, None], xf, scale[:, None, None]).to(x.dtype)
 
 
 def _pair(v):

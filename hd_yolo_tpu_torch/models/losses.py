@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.boxes import bbox_iou
+from ..parallel.distributed import batch_count
 from .matcher import LevelMatches
 
 Tensor = torch.Tensor
@@ -83,9 +84,12 @@ def focal_factor(logits: Tensor, targets: Tensor, gamma: float, alpha: float = 0
 
 
 def masked_mean(x: Tensor, mask: Tensor, dim=None) -> Tensor:
+    """Mean of ``x`` over ``mask``; the whole-batch form (``dim`` None)
+    divides by the global batch's count inside a step over several
+    processes (``parallel.global_batch``)."""
     m = mask.to(x.dtype)
     if dim is None:
-        return (x * m).sum() / m.sum().clamp(min=1.0)
+        return (x * m).sum() / batch_count(m.sum()).clamp(min=1.0)
     return (x * m).sum(dim) / m.sum(dim).clamp(min=1.0)
 
 
@@ -154,7 +158,7 @@ def det_loss(dets: Sequence[Tensor], matches: Sequence[LevelMatches], gt_labels_
     lbox = lbox * float(hyp["box"])
     lobj = lobj * float(hyp["obj"])
     lcls = lcls * float(hyp["cls"])
-    bs = active.to(f32).sum()          # scaled by the task's batch size, as the reference
+    bs = batch_count(active.to(f32).sum())   # the task's (global) batch size, as the reference
     total = (lbox + lobj + lcls) * bs
     items = {"box": lbox.detach(), "obj": lobj.detach(), "cls": lcls.detach()}
     return total, items, cand_ious

@@ -1,3 +1,8 @@
 """Whole-slide tiling and stitched inference (port of ``hd_yolo_tpu/wsi/``)."""
 
-from .tiling import extract_tiles, slide_inference, sliding_window_grid  # noqa: F401
+from .tiling import (  # noqa: F401
+    extract_tiles,
+    slide_inference,
+    slide_inference_sharded,
+    sliding_window_grid,
+)

@@ -22,6 +22,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import parallel
 from ..ops.nms import batched_nms_padded
 
 Tensor = torch.Tensor
@@ -54,6 +55,37 @@ def extract_tiles(slide: Tensor, origins: Tensor, tile: int) -> Tensor:
     rows = origins[:, 0, None] + ar
     cols = origins[:, 1, None] + ar
     return slide[rows[:, :, None], cols[:, None, :]]
+
+
+def slide_inference_sharded(
+    forward: Callable[..., Dict[str, Tensor]],
+    slide,
+    tile: int = 640,
+    overlap: int = 64,
+    batch_per_device: int = 4,
+    **kwargs,
+) -> Dict[str, np.ndarray]:
+    """Slide inference over the ranks of the process group, one card each:
+    each tile batch holds ``batch_per_device`` x world tiles, rank r
+    forwards its contiguous share (rows ``[r·bpd, (r+1)·bpd)``), the padded
+    outputs are gathered from every rank in rank order, and every rank
+    stitches the same result through :func:`slide_inference`.  Without a
+    group (or at world 1) it is :func:`slide_inference` with ``batch =
+    batch_per_device``.  ``kwargs`` go to :func:`slide_inference`.  A
+    forward whose work spans its call (the packed mask branch's ROI budget)
+    spans a rank's share here, where the JAX package's spans the whole
+    batch."""
+    world, rank = parallel.world_size(), parallel.rank()
+    if world == 1:
+        return slide_inference(forward, slide, tile=tile, overlap=overlap,
+                               batch=batch_per_device, **kwargs)
+
+    def sharded_forward(tiles: Tensor) -> Dict[str, Tensor]:
+        own = tiles[rank * batch_per_device:(rank + 1) * batch_per_device]
+        return parallel.all_gather_rows(forward(own))
+
+    return slide_inference(sharded_forward, slide, tile=tile, overlap=overlap,
+                           batch=batch_per_device * world, **kwargs)
 
 
 def slide_inference(

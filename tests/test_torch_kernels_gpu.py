@@ -836,3 +836,143 @@ def test_roi_align_levels_bwd_kernel_many_boxes(cuda, C, dtype, K, M, span):
     out = pallas_roi_align.roi_align_single(fr, br, M, 1 / 16.0, 2)
     gf, gb = torch.autograd.grad(out, [fr, br], g, allow_unused=True)
     assert gb is None and torch.equal(gf, got)
+
+
+def test_distributed_step_at_world_1_on_nccl_matches_plain_step(cuda, tmp_path):
+    """A one-rank NCCL group (a ``FileStore`` under ``tmp_path``): the
+    micro-step through the distributed path (BatchNorm statistics through the
+    differentiable all-reduce, the gradients summed in buckets) against the
+    plain step from the same state, ``yolov5s-test`` at 128 px in f32 with
+    masks: loss items rtol 1e-5, running statistics atol 1e-5, the update
+    at ``tests/test_torch_train_step.py``'s tolerance: within 1e-3 of its
+    size (2e-2 in the mask branch, whose gradients are cancelling sums) plus
+    1e-6 of the weights' (the two paths compute the statistics in other
+    orders)."""
+    import copy
+    import datetime
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from hd_yolo_tpu_torch import load_cfg
+    from hd_yolo_tpu_torch.engines.optim import build_optimizer
+    from hd_yolo_tpu_torch.engines.train_step import TrainState, make_train_step, to_device
+    from hd_yolo_tpu_torch.models.yolo import Model
+
+    hyp = load_cfg("hyp-nuclei")
+    hyp["det"]["mask_iou_t"] = 0.05
+    model = Model.from_cfg("yolov5s-test", hyp, mask_rois=4)
+    model.init_weights(torch.Generator().manual_seed(0))
+    model.cuda()
+    state = TrainState.create(model, build_optimizer(model, hyp, 2, 4))
+    rng = np.random.default_rng(0)
+    xy = rng.uniform(0.05, 0.7, (4, 16, 2))
+    boxes = np.concatenate([xy, xy + rng.uniform(0.05, 0.25, (4, 16, 2))], -1)
+    batch = to_device({"image": rng.integers(0, 256, (4, 128, 128, 3)).astype(np.uint8),
+                       "targets": {"det": {"boxes": boxes.astype(np.float32),
+                                           "labels": rng.integers(1, 4, (4, 16)),
+                                           "masks": (rng.uniform(0, 1, (4, 16, 28, 28)) > 0.5)
+                                           .astype(np.float32),
+                                           "valid": np.ones((4, 16), bool)}}}, "cuda")
+    sd0, opt0 = copy.deepcopy(model.state_dict()), copy.deepcopy(state.opt.state_dict())
+
+    def run(step):
+        model.load_state_dict(sd0)
+        state.opt.load_state_dict(opt0)
+        state.step = torch.zeros((), dtype=torch.int64, device="cuda")
+        _, m = step(state, batch)
+        return {k: float(v) for k, v in m.items()}, copy.deepcopy(model.state_dict())
+
+    m_p, sd_p = run(make_train_step())
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=60))
+    try:
+        m_d, sd_d = run(make_train_step(distributed=True))
+    finally:
+        dist.destroy_process_group()
+    assert set(m_d) == set(m_p)
+    for k in m_p:
+        assert abs(m_d[k] - m_p[k]) <= 1e-5 * abs(m_p[k]) + 1e-7, (k, m_d[k], m_p[k])
+    for k, v in sd_p.items():
+        if "running_" in k:
+            torch.testing.assert_close(sd_d[k], v, rtol=0, atol=1e-5, msg=k)
+        elif v.is_floating_point():
+            share = 2e-2 if k.startswith(("headers.det.seg.", "headers.det.seg_h.")) else 1e-3
+            tol = share * float((v - sd0[k]).abs().max()) + 1e-6 * float(sd0[k].abs().max())
+            assert float((sd_d[k] - v).abs().max()) <= tol, k
+
+
+def test_distributed_step_at_world_2_on_the_card_matches_the_whole_batch(cuda, tmp_path):
+    """Two processes sharing the card on a gloo group (NCCL takes one rank a
+    card; gloo carries CUDA tensors), each on half of a global batch of 4,
+    through ``_GlobalBatchNorm`` (the card's BatchNorm across ranks) and the
+    bucketed gradient sum, against the plain step on the whole batch on the
+    card, ``yolov5s-test`` at 128 px in f32: ``tests/test_torch_train_step.py``'s
+    tolerances (loss items rtol 1e-4, running statistics atol 1e-5, the
+    parameters and EMA within 1e-3 of the update's size, 2e-2 in the mask
+    branch, plus 1e-6 of the weights'); both ranks bit-identical."""
+    import os
+    import subprocess
+    import sys
+
+    import numpy as np
+
+    from hd_yolo_tpu_torch import load_cfg
+    from hd_yolo_tpu_torch.engines.optim import build_optimizer
+    from hd_yolo_tpu_torch.engines.train_step import TrainState, make_train_step, to_device
+    from hd_yolo_tpu_torch.models.yolo import Model
+
+    hyp = load_cfg("hyp-nuclei")
+    hyp["det"]["mask_iou_t"] = 0.05
+    model = Model.from_cfg("yolov5s-test", hyp, mask_rois=4)
+    model.init_weights(torch.Generator().manual_seed(1))
+    sd0 = {k: v.clone() for k, v in model.state_dict().items()}
+    rng = np.random.default_rng(5)
+    xy = rng.uniform(0.05, 0.7, (4, 16, 2))
+    boxes = np.concatenate([xy, xy + rng.uniform(0.05, 0.25, (4, 16, 2))], -1)
+    valid = np.zeros((4, 16), bool)
+    for b, k in enumerate((11, 7, 16, 3)):
+        valid[b, :k] = True
+    batch = to_device({"image": rng.integers(0, 256, (4, 128, 128, 3)).astype(np.uint8),
+                       "targets": {"det": {"boxes": boxes.astype(np.float32),
+                                           "labels": rng.integers(1, 4, (4, 16)),
+                                           "masks": (rng.uniform(0, 1, (4, 16, 28, 28)) > 0.5)
+                                           .astype(np.float32), "valid": valid}}}, "cpu")
+    torch.save({"hyp": hyp, "mask_rois": 4, "state_dict": sd0, "batch": batch},
+               tmp_path / "step_in.pt")
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": os.path.dirname(here)}
+    procs = [subprocess.Popen([sys.executable, os.path.join(here, "torch_parallel_workers.py"),
+                               "--cases", "step", "--rank", str(r), "--world", "2",
+                               "--store", str(tmp_path / "store"), "--io", str(tmp_path),
+                               "--device", "cuda"], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=120)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-3000:]
+    got = [torch.load(tmp_path / f"step_out_{r}.pt", weights_only=False) for r in range(2)]
+
+    model.cuda()
+    opt = build_optimizer(model, hyp, 2, 8, accumulate=1)
+    state = TrainState.create(model, opt)
+    _, m = make_train_step()(state, to_device(batch, "cuda"))
+    for k, v in m.items():
+        assert abs(got[0]["metrics"][k] - float(v)) <= 1e-4 * abs(float(v)), k
+    for n, b in model.named_buffers():
+        if "running_" in n:
+            torch.testing.assert_close(got[0]["buffers"][n], b.cpu(), rtol=0, atol=1e-5, msg=n)
+    mask = ("headers.det.seg.", "headers.det.seg_h.")
+    for n, p, e in zip(opt.names, opt.params, state.ema.params):
+        p0 = sd0[n]
+        share = 2e-2 if n.startswith(mask) else 1e-3
+        tol = share * float((p.detach().cpu() - p0).abs().max()) + 1e-6 * float(p0.abs().max())
+        assert float((got[0]["params"][n] - p.detach().cpu()).abs().max()) <= tol, n
+        assert float((got[0]["ema"][n] - e.cpu()).abs().max()) <= tol, n
+    for key in ("params", "ema", "buffers"):
+        for n in got[0][key]:
+            assert torch.equal(got[0][key][n], got[1][key][n]), (key, n)

@@ -93,7 +93,7 @@ def augment_rng(seed: int, step: int) -> np.random.Generator:
 
 
 def augment_batch(augment_fn, batch: Dict, seed: int, step: int,
-                  distributed: bool = False) -> Dict:
+                  distributed: bool = False, group=None) -> Dict:
     """The device recipe on the raw ``batch`` of micro-step ``step``, its draws
     from ``augment_rng(seed, step)``.  ``distributed``: ``batch`` is this
     rank's rows of the global batch; the raw rows of every rank are gathered,
@@ -103,8 +103,8 @@ def augment_batch(augment_fn, batch: Dict, seed: int, step: int,
     B, S = batch["image"].shape[:2]
     rows = None
     if distributed:
-        batch = parallel.all_gather_rows(batch)
-        r = parallel.rank()
+        batch = parallel.all_gather_rows(batch, group)
+        r = torch.distributed.get_rank(group)
         rows = torch.arange(r * B, (r + 1) * B, device=batch["image"].device)
         B = batch["image"].shape[0]
     return augment_fn(batch, augment_fn.draw(augment_rng(seed, step), B, S), rows)
@@ -123,7 +123,8 @@ def loss_items(losses: Dict) -> Dict[str, Tensor]:
 
 
 def make_train_step(mask_weight: float = 1.0, ema_decay: float = 0.9999, seed: int = 0,
-                    augment_fn=None, resident_data: bool = False, distributed: bool = False):
+                    augment_fn=None, resident_data: bool = False, distributed: bool = False,
+                    group=None):
     """``step(state, batch) → (state, metrics)``.  ``batch``: {'image': (B,
     H, W, 3) uint8 or float, 'targets': {task: {...}}} as tensors on the
     model's device (yolo: boxes, labels, masks, valid[, active]; hnet: each
@@ -143,18 +144,22 @@ def make_train_step(mask_weight: float = 1.0, ema_decay: float = 0.9999, seed: i
     (``parallel.all_reduce_grads``) before the optimizer, and the metrics
     summed, so every rank updates identical tensors.  The device recipe
     draws for the global batch, gathers the raw rows of every rank and
-    computes its own rows.  Without a group it is the plain step."""
+    computes its own rows; hnet's drop path and dropouts draw for the global
+    batch and keep this rank's rows (``parallel.draw_rows``).  ``group``: the
+    process group the step spans (the default group where None; a mesh's
+    ``data`` axis under ``parallel.make_mesh_train_step``).  Without a group
+    it is the plain step."""
 
     def step(state: TrainState, batch: Dict) -> tuple:
         model, opt = state.model, state.opt
         model.train()
         dist_on = distributed and parallel.is_initialized()
         if augment_fn is not None:
-            batch = augment_batch(augment_fn, batch, seed, state.count, dist_on)
+            batch = augment_batch(augment_fn, batch, seed, state.count, dist_on, group)
         kw = {}
         if getattr(model, "stochastic", False):
             kw["generator"] = step_generator(seed, state.count, opt.params[0].device)
-        with parallel.global_batch() if dist_on else contextlib.nullcontext():
+        with parallel.global_batch(group) if dist_on else contextlib.nullcontext():
             losses, _ = model.losses(batch["image"], batch["targets"],
                                      compute_masks=mask_weight > 0, **kw)
             total = model.total_loss(losses, mask_weight)
@@ -162,8 +167,8 @@ def make_train_step(mask_weight: float = 1.0, ema_decay: float = 0.9999, seed: i
         metrics = loss_items(losses)
         metrics["loss"] = total.detach()
         if dist_on:
-            grads = parallel.all_reduce_grads(grads, opt.params)
-            metrics = _sum_metrics(metrics)
+            grads = parallel.all_reduce_grads(grads, opt.params, group)
+            metrics = _sum_metrics(metrics, group)
         opt.update(grads)
         state.ema.update(opt.params, decay=ema_decay)
         state.advance()
@@ -182,11 +187,11 @@ def make_train_step(mask_weight: float = 1.0, ema_decay: float = 0.9999, seed: i
     return resident_step
 
 
-def _sum_metrics(metrics: Dict[str, Tensor]) -> Dict[str, Tensor]:
+def _sum_metrics(metrics: Dict[str, Tensor], group=None) -> Dict[str, Tensor]:
     """The 0-d metrics summed over the process group, in one collective."""
     keys = sorted(metrics)
     flat = torch.stack([metrics[k].float() for k in keys])
-    torch.distributed.all_reduce(flat)
+    torch.distributed.all_reduce(flat, group=group)
     return dict(zip(keys, flat.unbind()))
 
 

@@ -33,6 +33,7 @@ from torch import nn
 
 from ..ops.boxes import clip_boxes
 from ..ops.nms import batched_nms_padded
+from ..parallel.distributed import batch_count, global_mean
 from .fpn import GN_EPS
 from .layers import conv, group_norm
 
@@ -173,9 +174,9 @@ class FCOS(nn.Module):
         def wmean(per_level):
             v = sum(per_level)
             if image_weight is None:
-                return v.mean()
+                return global_mean(v)
             w = image_weight.to(v.dtype)
-            return (v * w).sum() / w.sum().clamp(min=1.0)
+            return (v * w).sum() / batch_count(w.sum()).clamp(min=1.0)
 
         return {"fcos_cls_loss": wmean([t[0] for t in terms]),
                 "fcos_reg_loss": wmean([t[1] for t in terms]),

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.pallas_roi_align import roi_align_single
+from ..parallel.distributed import batch_count, global_mean
 from .fpn import PanopticFeatureConnector
 from .layers import conv, dense, resize_bilinear
 
@@ -33,7 +34,7 @@ def soft_iou_loss(probs: Tensor, onehot: Tensor, eps: float = 1e-6) -> Tensor:
     present = onehot.sum((1, 2)) > 0
     iou = (inter + eps) / (union + eps)
     num = torch.where(present, 1.0 - iou, torch.zeros_like(iou)).sum()
-    return num / present.sum().clamp(min=1)
+    return num / batch_count(present.sum()).clamp(min=1)
 
 
 class PanopticSegHead(nn.Module):
@@ -89,7 +90,7 @@ class ClassificationHead(nn.Module):
             logp = torch.log_softmax(logits, -1)
             ce = -torch.gather(logp, 1, targets.long().clamp(min=0)[:, None])[:, 0]
             valid = (targets >= 0).float()
-            losses["cl_loss"] = (ce * valid).sum() / valid.sum().clamp(min=1)
+            losses["cl_loss"] = (ce * valid).sum() / batch_count(valid.sum()).clamp(min=1)
         return losses, {"logits": logits, "probs": torch.softmax(logits, -1)}
 
 
@@ -98,7 +99,7 @@ def _bce_to_one(p: Tensor, valid: Tensor) -> Tensor:
     the mean over images."""
     bce = -torch.log(p.clamp(1e-6, 1.0 - 1e-6))
     v = valid.float()
-    return ((bce * v).sum(-1) / v.sum(-1).clamp(min=1)).mean()
+    return global_mean((bce * v).sum(-1) / v.sum(-1).clamp(min=1))
 
 
 class ConstrainModule(nn.Module):

@@ -55,6 +55,7 @@ from ..ops.boxes import box_iou, clip_boxes, xywh2xyxy, xyxy2xywh
 from ..ops.nms import batched_nms_padded, nms_dispatch
 from ..ops.pallas_mask_head import fused_mask_probs
 from ..ops.roi_align import multiscale_roi_align_canvas
+from ..parallel.distributed import batch_count, global_mean
 from .layers import cast_params, conv, dense
 
 Tensor = torch.Tensor
@@ -167,10 +168,12 @@ def balanced_bce(logits: Tensor, labels: Tensor, budget: float = 256.0,
 
 
 def _wmean(per_image: Tensor, weight: Optional[Tensor]) -> Tensor:
+    """The (``weight``-weighted) mean over the images of the global batch
+    (``parallel.global_batch``: the counts summed over the processes)."""
     if weight is None:
-        return per_image.mean()
+        return global_mean(per_image)
     w = weight.to(per_image.dtype)
-    return (per_image * w).sum() / w.sum().clamp(min=1.0)
+    return (per_image * w).sum() / batch_count(w.sum()).clamp(min=1.0)
 
 
 def _take(x: Tensor, idx: Tensor) -> Tensor:
@@ -534,7 +537,7 @@ class MaskRCNN(nn.Module):
             bce = sel_log.clamp(min=0) - sel_log * gt_m + torch.log1p(torch.exp(-sel_log.abs()))
             per = bce.mean((-1, -2))
             mvf = mv.float()
-            losses["mask_loss"] = (per * mvf).sum() / mvf.sum().clamp(min=1.0)
+            losses["mask_loss"] = (per * mvf).sum() / batch_count(mvf.sum()).clamp(min=1.0)
         if with_kp:
             losses["keypoint_loss"] = self._keypoint_loss(feats, mb, mv, _take(
                 targets["keypoints"].float(), mmatch))
@@ -555,4 +558,4 @@ class MaskRCNN(nn.Module):
         visible = ((gt_kp[..., 2] > 0) & inside & kv[..., None]).float()
         idx = (v.clamp(0, S - 1) * S + u.clamp(0, S - 1)).long()
         ce = -torch.gather(torch.log_softmax(flat, -1), -1, idx[..., None])[..., 0]
-        return (ce * visible).sum() / visible.sum().clamp(min=1.0)
+        return (ce * visible).sum() / batch_count(visible.sum()).clamp(min=1.0)

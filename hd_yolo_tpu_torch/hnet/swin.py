@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..models.layers import cached
+from ..parallel.distributed import draw_rows
 from .layers import conv, dense, layer_norm
 
 Tensor = torch.Tensor
@@ -51,8 +52,9 @@ def dropout(x: Tensor, rate: float, training: bool, generator=None, shape=None) 
     if rate <= 0.0 or not training:
         return x
     keep = 1.0 - rate
-    p = torch.full(x.shape if shape is None else shape, keep, device=x.device)
-    mask = torch.bernoulli(p, generator=generator).bool()
+    mask = draw_rows(lambda s: torch.bernoulli(torch.full(s, keep, device=x.device),
+                                               generator=generator),
+                     x.shape if shape is None else shape).bool()
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -31,6 +31,7 @@ from ..ops.nms import nms_per_image
 from ..ops.pallas_mask_head import fused_mask_probs
 from ..ops.roi_align import multiscale_roi_align_canvas, multiscale_roi_align_packed
 from ..ops.scatter import segment_max_with_argmax
+from ..parallel.distributed import all_gather_rows, step_group
 from .builder import HeaderSpec
 from .layers import ConvBnAct, cached, conv
 from .losses import det_loss, get_loss_hyp, seg_loss
@@ -46,6 +47,22 @@ def one_hot_labels(labels: Tensor, nc: int) -> Tensor:
     column 0 = unlabeled."""
     return F.one_hot(labels.long().clamp(0, nc), nc + 1).float()
 
+
+
+def _globally_ranked(flat_score: Tensor, budget: int) -> Tensor:
+    """This rank's flat slots among the top ``budget`` positive scores of
+    the process group's global batch: every rank's scores gathered in rank
+    order, ranked as ``lax.top_k`` ranks the global batch's (descending,
+    ties to the lower global index); the rest of the branch then ranks the
+    rank's own selected slots, whose order is the global one."""
+    group = step_group()
+    rank, n = torch.distributed.get_rank(group), flat_score.shape[0]
+    flat = all_gather_rows(flat_score.contiguous(), group)
+    top_s, top_i = torch.sort(flat, descending=True, stable=True)
+    K = min(budget, flat.shape[0])
+    chosen = torch.zeros(flat.shape, dtype=torch.bool, device=flat.device)
+    chosen[top_i[:K]] = top_s[:K] > 0.0
+    return chosen[rank * n:(rank + 1) * n]
 
 class _MaskHeads(nn.Module):
     def __init__(self, c: int, c_in: int):
@@ -392,11 +409,17 @@ class Detect(nn.Module):
     def _packed_masks(self, seg_feats, valid, boxes_r, levels_r, mask_labels, scores_r, M):
         """Occupancy-packed mask branch: gather the top-K mask-eligible
         detections of the whole batch into one flat ROI list, pool + run the
-        head once at size K, scatter back to (B, R)."""
+        head once at size K, scatter back to (B, R).  Inside a forward over
+        several processes (``parallel.global_batch``, the sharded slide) the
+        batch is the global one: the top K are ranked over every rank's
+        scores and each rank pools and runs the head on its own share."""
         B, R = levels_r.shape
         eligible = valid[:, :R] & (mask_labels >= 0)
         K = min(int(self.mask_budget), B * R)
         flat_score = torch.where(eligible, scores_r, torch.zeros_like(scores_r)).reshape(B * R)
+        if step_group() is not None:
+            flat_score = torch.where(_globally_ranked(flat_score, int(self.mask_budget)),
+                                     flat_score, torch.zeros_like(flat_score))
         # lax.top_k order: descending, ties to the lower index (stable sort)
         top_s, top_i = torch.sort(flat_score, descending=True, stable=True)
         top_s, top_i = top_s[:K], top_i[:K]

@@ -8,10 +8,12 @@ own rows, so those two have no counterpart: :func:`local_slice` cuts a rank's
 rows of a global batch, :func:`all_gather_rows` gathers the rows of every
 rank where a step needs the whole batch (the device recipe's mosaic and mixup
 partners, the sharded slide's outputs), and the step's collectives are
-explicit: :func:`global_batch` (BatchNorm statistics and loss counts over the
-group) and :func:`all_reduce_grads`.  ``create_mesh`` / ``batch_sharding`` /
+explicit: :func:`global_batch` (BatchNorm statistics, loss counts and random
+draws over the group) and :func:`all_reduce_grads`.  ``batch_sharding`` /
 ``replicated`` place arrays on a mesh and have no counterpart either;
 ``auto_mesh`` checks that the global batch splits over the ranks.
+``create_mesh`` builds a ``(data, model)`` ``DeviceMesh`` and
+``shard_params_tp`` places the parameters on it (``mesh.py``).
 
 Launch: ``python -m torch.distributed.run --standalone --nproc_per_node N -m
 hd_yolo_tpu_torch.engines.train ...`` (NCCL, ``cuda:LOCAL_RANK``), or with
@@ -25,6 +27,8 @@ from .distributed import (  # noqa: F401
     barrier,
     batch_count,
     broadcast_object,
+    draw_rows,
+    global_mean,
     global_batch,
     is_initialized,
     is_main_process,
@@ -34,4 +38,16 @@ from .distributed import (  # noqa: F401
     step_group,
     world_size,
 )
-from .mesh import auto_mesh, local_slice, replicate  # noqa: F401
+from .mesh import (  # noqa: F401
+    DATA_AXIS,
+    MODEL_AXIS,
+    auto_mesh,
+    create_mesh,
+    local_slice,
+    make_mesh_train_step,
+    replicate,
+    reshard_params,
+    shard_params_tp,
+    tp_placement,
+    unshard_params,
+)

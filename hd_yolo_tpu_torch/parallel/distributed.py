@@ -102,9 +102,10 @@ def broadcast_object(obj, src: int = 0):
 # --------------------------------------------------------- the global batch
 @contextlib.contextmanager
 def global_batch(group=None):
-    """Inside the block, BatchNorm statistics and loss counts span ``group``
-    (the default group where ``group`` is None).  Without a group the block
-    changes nothing."""
+    """Inside the block the batch is the global one over ``group`` (the
+    default group where ``group`` is None): BatchNorm statistics, loss
+    counts, random draws (:func:`draw_rows`) and the packed mask branch's
+    ROI budget span it.  Without a group the block changes nothing."""
     if not is_initialized():
         yield
         return
@@ -141,6 +142,30 @@ def batch_count(n: Tensor) -> Tensor:
     n = n.detach().clone()
     dist.all_reduce(n, group=group)
     return n
+
+
+def global_mean(x: Tensor) -> Tensor:
+    """The mean of ``x`` over the global batch: inside a step over several
+    processes this rank's sum of ``x`` over the element count summed over
+    the group (its share of the global mean); ``x.mean()`` elsewhere."""
+    if step_group() is None:
+        return x.mean()
+    return x.sum() / batch_count(torch.full((), float(x.numel()), dtype=x.dtype,
+                                            device=x.device))
+
+
+def draw_rows(draw, shape: Sequence[int]) -> Tensor:
+    """``draw(shape)``, a random draw whose leading axis runs over the
+    batch's rows (images, or their windows image by image): inside a step
+    over several processes the draw is made for the global batch (world x
+    ``shape[0]`` rows, the same bits on every rank, whose generators move in
+    step) and this rank's rows are kept, so the global batch draws what one
+    process drawing for all of it draws; ``draw(shape)`` elsewhere."""
+    group = step_group()
+    if group is None:
+        return draw(tuple(shape))
+    n, r = shape[0], dist.get_rank(group)
+    return draw((n * dist.get_world_size(group),) + tuple(shape[1:]))[r * n:(r + 1) * n]
 
 
 BUCKET_BYTES = 64 << 20

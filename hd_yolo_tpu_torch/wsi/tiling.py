@@ -71,10 +71,11 @@ def slide_inference_sharded(
     outputs are gathered from every rank in rank order, and every rank
     stitches the same result through :func:`slide_inference`.  Without a
     group (or at world 1) it is :func:`slide_inference` with ``batch =
-    batch_per_device``.  ``kwargs`` go to :func:`slide_inference`.  A
-    forward whose work spans its call (the packed mask branch's ROI budget)
-    spans a rank's share here, where the JAX package's spans the whole
-    batch."""
+    batch_per_device``.  ``kwargs`` go to :func:`slide_inference`.  Each
+    rank's forward runs inside ``parallel.global_batch()``, so work that
+    spans the forward's batch spans the global tile batch, as the JAX
+    package's one program does: the packed mask branch ranks its ROI
+    budget over every rank's tiles."""
     world, rank = parallel.world_size(), parallel.rank()
     if world == 1:
         return slide_inference(forward, slide, tile=tile, overlap=overlap,
@@ -82,7 +83,9 @@ def slide_inference_sharded(
 
     def sharded_forward(tiles: Tensor) -> Dict[str, Tensor]:
         own = tiles[rank * batch_per_device:(rank + 1) * batch_per_device]
-        return parallel.all_gather_rows(forward(own))
+        with parallel.global_batch():
+            out = forward(own)
+        return parallel.all_gather_rows(out)
 
     return slide_inference(sharded_forward, slide, tile=tile, overlap=overlap,
                            batch=batch_per_device * world, **kwargs)

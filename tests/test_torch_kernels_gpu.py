@@ -976,3 +976,135 @@ def test_distributed_step_at_world_2_on_the_card_matches_the_whole_batch(cuda, t
     for key in ("params", "ema", "buffers"):
         for n in got[0][key]:
             assert torch.equal(got[0][key][n], got[1][key][n]), (key, n)
+
+
+def _two_ranks_on_the_card(tmp_path, case: str) -> list:
+    """Two worker processes sharing the card on a gloo group, ``case`` of
+    ``tests/torch_parallel_workers.py``; their outputs."""
+    import os
+    import subprocess
+    import sys
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": os.path.dirname(here)}
+    procs = [subprocess.Popen([sys.executable, os.path.join(here, "torch_parallel_workers.py"),
+                               "--cases", case, "--rank", str(r), "--world", "2",
+                               "--store", str(tmp_path / "store"), "--io", str(tmp_path),
+                               "--device", "cuda"], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-3000:]
+    return [torch.load(tmp_path / f"{case}_out_{r}.pt", weights_only=False) for r in range(2)]
+
+
+SMALL_HNET = {
+    "backbone": {"type": "swin", "embed_dim": 32, "depths": [1, 1, 1, 1],
+                 "num_heads": [1, 2, 4, 8], "window_size": 4, "drop_path_rate": 0.2,
+                 "drop_rate": 0.1, "attn_drop_rate": 0.1},
+    "fpn": {"out_channels": 32},
+    "headers": {
+        "det40x": {"type": "maskrcnn", "num_classes": 3, "pre_nms_topk": 128,
+                   "num_proposals": 32, "num_detections": 16,
+                   "anchor_sizes": [16.0, 32.0, 64.0, 128.0]},
+        "seg10x": {"type": "panoptic", "num_classes": 4, "channels": 32},
+        "cl5x": {"type": "cl", "num_classes": 3, "hidden": 32, "amplification": 0.5},
+    },
+    "constrains": {"c0": {"seg_task": "seg10x", "det_task": "det40x", "weighting": "mask",
+                          "edges": [[1, 1], [2, 2], [3, 3]]}},
+}
+
+
+def test_hnet_distributed_step_at_world_2_on_the_card_matches_the_whole_batch(cuda, tmp_path):
+    """Two processes sharing the card on gloo, each on 2 images of a global
+    batch of 4, one ``make_train_step(distributed=True)`` micro-step of a
+    small hnet (Swin, drop path 0.2, dropouts 0.1, f32) through the kernels,
+    against the one-process step on the whole batch on the card: every drop
+    mask the two ranks draw, in rank order, bit for bit the whole batch's;
+    the loss items rtol 1e-4 (+ 1e-6) and the summed gradients within 1e-3
+    of the larger of each tensor's max|g| and 1e-3 of the largest (2e-2 in
+    the mask head: ``tests/test_torch_hnet_parallel.py``'s tolerances
+    against JAX); both ranks' parameters bit-identical."""
+    import numpy as np
+
+    from hd_yolo_tpu_torch.hnet import HNet
+
+    import torch_parallel_workers as workers
+
+    rng = np.random.default_rng(3)
+    B, T = 4, 5
+    xy = rng.uniform(0.1, 0.5, (B, T, 2)).astype(np.float32)
+    valid = np.ones((B, T), bool)
+    valid[1, -1] = valid[2, -2:] = False
+    targets = {"det40x": {"boxes": np.concatenate([xy, xy + 0.3], -1).astype(np.float32),
+                          "labels": rng.integers(1, 4, (B, T)),
+                          "masks": (rng.uniform(0, 1, (B, T, 28, 28)) > 0.5).astype(np.float32),
+                          "valid": valid},
+               "seg10x": {"seg_map": rng.integers(0, 4, (B, 16, 16))},
+               "cl5x": {"label": np.asarray([1, -1, 2, 0])}}
+    case = {"cfg": SMALL_HNET, "hyp": {"lr0": 0.005, "warmup_epochs": 3.0,
+                                       "clip_grad_norm": 10.0}, "seed": 7, "steps": 1,
+            "state_dict": HNet.from_cfg(SMALL_HNET, device="cpu", seed=2).state_dict(),
+            "batch": {"image": torch.from_numpy(rng.uniform(0, 1, (B, 64, 64, 3))
+                                                .astype(np.float32)),
+                      "targets": {t: {k: torch.from_numpy(np.asarray(v)) for k, v in d.items()}
+                                  for t, d in targets.items()}}}
+    torch.save({"drop": case}, tmp_path / "hnet_in.pt")
+    ranks = [r["drop"] for r in _two_ranks_on_the_card(tmp_path, "hnet")]
+    whole = workers.hnet_step(case, 0, 1, "cuda")
+    assert len(whole["draws"]) == len(ranks[0]["draws"]) > 8
+    for w, a, b in zip(whole["draws"], ranks[0]["draws"], ranks[1]["draws"]):
+        assert torch.equal(torch.cat([a, b]), w)
+    for k, w in whole["metrics"].items():
+        assert abs(ranks[0]["metrics"][k] - w) <= 1e-4 * abs(w) + 1e-6, k
+    top = max(float(g.abs().max()) for g in whole["grads"].values())
+    for n, w in whole["grads"].items():
+        share = 2e-2 if ".mask_head." in n else 1e-3
+        tol = share * max(float(w.abs().max()), 1e-3 * top)
+        assert float((ranks[0]["grads"][n] - w).abs().max()) <= tol, n
+    for n in ranks[0]["params"]:
+        assert torch.equal(ranks[0]["params"][n], ranks[1]["params"][n]), n
+
+
+def test_packed_slide_at_world_2_on_the_card_ranks_the_global_batch(cuda, tmp_path):
+    """``slide_inference_sharded`` at world 2 on one card (gloo), 4 tiles a
+    rank a call, ``yolov5s-test`` in f32 with the packed mask branch at a
+    budget of 12 ROIs a call, against ``slide_inference`` of one process
+    with the 8-tile calls of the global batch: the packed branch ranks its
+    budget over both ranks' tiles, so rows, labels and kept masks agree
+    (boxes and scores atol 1e-3, masks atol 1e-4), and the budget binds."""
+    import numpy as np
+
+    from hd_yolo_tpu_torch.models.yolo import Model
+    from hd_yolo_tpu_torch.wsi import slide_inference
+
+    kw = dict(max_masks=8, pre_nms_topk=256, mask_budget=12, mask_window=16)
+    m = Model.from_cfg("yolov5s-test", "hyp-nuclei", **kw)
+    m.init_weights(torch.Generator().manual_seed(3))
+    for det in m.headers.values():                  # objectness up: the random model detects
+        for conv in det.m:
+            conv.bias.data.view(det.na, det.no)[:, 4] += 4.0
+    slide = torch.from_numpy(np.random.default_rng(7).integers(0, 256, (200, 330, 3))
+                             .astype(np.uint8))
+    skw = dict(tile=128, overlap=64)
+    torch.save({"model_kw": kw, "state_dict": m.state_dict(), "slide": slide,
+                "batch_per_device": 4, "kw": skw}, tmp_path / "packed_in.pt")
+    a, b = _two_ranks_on_the_card(tmp_path, "packed")
+    m.eval().cuda()
+    want = slide_inference(lambda t: m(t)["det"], slide.cuda(), batch=8, **skw)
+    for k in a:
+        np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]), err_msg=k)
+    for k in ("valid", "labels", "mask_valid"):
+        np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(want[k]), err_msg=k)
+    v = np.asarray(want["valid"])
+    assert v.sum() > 8
+    for k, tol in (("boxes", 1e-3), ("scores", 1e-3), ("masks", 1e-4)):
+        np.testing.assert_allclose(np.asarray(a[k])[v], np.asarray(want[k])[v], rtol=0, atol=tol,
+                                   err_msg=k)
+    mv = np.asarray(want["mask_valid"])
+    assert 0 < mv.sum() < v.sum()                   # the budget binds

@@ -22,9 +22,11 @@ package.
   - the device recipe of that step (mixup on): each rank's rows equal the
     one-process recipe's rows of the global batch (atol 1e-6);
   - ``slide_inference_sharded`` at world 2 (4 tiles a rank a batch) against
-    JAX's on its 8 virtual CPU devices (1 a device), per-image masks (the
-    packed branch's ROI budget spans one forward call: JAX's call is the
-    global batch, a rank's its share, so their masks differ), at
+    JAX's on its 8 virtual CPU devices (1 a device), with the per-image
+    mask branch and with the packed one at a budget of 12 ROIs a call,
+    which the 8-tile calls' eligible detections exceed (JAX ranks them
+    with one ``top_k`` over the global batch; the port over every rank's
+    scores, each rank pooling its own), at
     ``tests/test_torch_detector_slide.py``'s tolerances: labels, validity
     and mask flags equal, boxes and scores atol 1e-3, masks atol 1e-4.
 * The train CLI at world 2 (torchrun's ``RANK`` / ``WORLD_SIZE`` /
@@ -71,6 +73,7 @@ WORKER = os.path.join(HERE, "torch_parallel_workers.py")
 SIZE, B, T, R = 128, 4, 16, 4
 MASK_TENSORS = ("headers.det.seg.", "headers.det.seg_h.")
 SLIDE_KW = dict(max_masks=8, pre_nms_topk=256)          # the per-image mask branch
+PACKED_KW = dict(SLIDE_KW, mask_budget=12, mask_window=16)   # the packed one, 12 ROIs a call
 PROC_TIMEOUT = 120
 
 
@@ -191,13 +194,16 @@ def world2(tmp_path_factory):
     torch.save({"model_kw": SLIDE_KW, "state_dict": state_dict_from_flax(svars, sm.spec),
                 "slide": torch.from_numpy(slide), "batch_per_device": 4, "kw": skw},
                io / "slide_in.pt")
+    torch.save({"model_kw": PACKED_KW, "state_dict": state_dict_from_flax(svars, sm.spec),
+                "slide": torch.from_numpy(slide), "batch_per_device": 4, "kw": skw},
+               io / "packed_in.pt")
 
     store = io / "store"
-    cmds = [[sys.executable, WORKER, "--cases", "step,augment,slide", "--rank", str(r),
+    cmds = [[sys.executable, WORKER, "--cases", "step,augment,slide,packed", "--rank", str(r),
              "--world", "2", "--store", str(store), "--io", str(io)] for r in range(2)]
     _run(cmds, [_env(), _env()])
     outs = {c: [torch.load(io / f"{c}_out_{r}.pt", weights_only=False) for r in range(2)]
-            for c in ("step", "augment", "slide")}
+            for c in ("step", "augment", "slide", "packed")}
 
     # JAX: the whole batch's step, the one-process recipe, the 8-device slide
     tx = joptim.build_optimizer(variables["params"], hyp, 2, 8, accumulate=1)
@@ -210,9 +216,13 @@ def world2(tmp_path_factory):
     fwd = jax.jit(lambda tiles: jslide.apply(svars, tiles, train=False)[1]["det"])
     jout = jax_slide_inference_sharded(fwd, jnp.asarray(slide), create_mesh(),
                                        batch_per_device=1, **skw)
+    jpacked = JaxModel.from_cfg("yolov5s-test", "hyp-nuclei", dtype=jnp.float32, **PACKED_KW)
+    fwd_p = jax.jit(lambda tiles: jpacked.apply(svars, tiles, train=False)[1]["det"])
+    jout_p = jax_slide_inference_sharded(fwd_p, jnp.asarray(slide), create_mesh(),
+                                         batch_per_device=1, **skw)
     return {"variables": variables, "tm": tm, "jstate": jax.tree.map(np.asarray, jstate),
             "jmet": {k: float(v) for k, v in jmet.items()}, "whole": whole, "jslide": jout,
-            "outs": outs}
+            "jpacked": jout_p, "outs": outs}
 
 
 def _flax(tree, variables, tm, stats=None):
@@ -278,8 +288,17 @@ def test_world2_device_recipe_rows_equal_the_global_recipe(world2):
 
 
 def test_world2_sharded_slide_matches_jax(world2):
-    want = {k: np.asarray(v) for k, v in world2["jslide"].items()}
-    a, b = world2["outs"]["slide"]
+    check_sharded_slide(world2, "slide")
+
+
+def test_world2_packed_sharded_slide_matches_jax(world2):
+    check_sharded_slide(world2, "packed")
+
+
+def check_sharded_slide(world2, branch):
+    want = {k: np.asarray(v) for k, v in world2["jslide" if branch == "slide" else
+                                             "jpacked"].items()}
+    a, b = world2["outs"][branch]
     assert set(a) == set(want)
     for k in a:                                   # every rank stitches the same result
         np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]), err_msg=k)
@@ -291,6 +310,11 @@ def test_world2_sharded_slide_matches_jax(world2):
     np.testing.assert_allclose(got["boxes"][v], want["boxes"][v], rtol=0, atol=1e-3)
     np.testing.assert_allclose(got["scores"][v], want["scores"][v], rtol=0, atol=1e-3)
     np.testing.assert_allclose(got["masks"][v], want["masks"][v], rtol=0, atol=1e-4)
+    if branch == "packed":
+        # the budget binds: the packed branch keeps fewer masks than the
+        # per-image one on the same detections
+        per_image = np.asarray(world2["jslide"]["mask_valid"])
+        assert 0 < want["mask_valid"].sum() < per_image.sum()
 
 
 # ------------------------------------------------------- the CLI at world 2

@@ -1,12 +1,17 @@
-"""Worker processes of ``tests/test_torch_parallel.py``: each runs as one rank
+"""Worker processes of the port's tests across processes: each runs as one rank
 of a gloo group on the CPU, imports torch and the port only, reads its
 inputs from ``<io>/<case>_in.pt`` and writes ``<io>/<case>_out_<rank>.pt``.
 
     python tests/torch_parallel_workers.py --cases step,augment,slide \\
         --rank R --world N --store FILE --io DIR
 
-``--device cuda`` runs the step case with both ranks on the card (gloo
-carries the CUDA tensors; NCCL takes one rank a card).  ``--cases cli``
+Cases: ``step``, ``augment``, ``slide`` and ``packed`` (the sharded slide
+with the packed mask branch) for ``tests/test_torch_parallel.py``, ``hnet``
+for ``tests/test_torch_hnet_parallel.py``, ``mesh`` for
+``tests/test_torch_mesh.py``.
+
+``--device cuda`` runs the step, hnet and packed cases with both ranks on
+the card (gloo carries the CUDA tensors; NCCL takes one rank a card).  ``--cases cli``
 runs the training CLI instead (``engines/train.main`` with
 the arguments of ``<io>/cli_args.json``) under torchrun's environment
 contract (``RANK`` / ``WORLD_SIZE`` / ``MASTER_ADDR`` / ``MASTER_PORT``,
@@ -76,6 +81,111 @@ def case_slide(rank, world, io, device):
                                    batch_per_device=inp["batch_per_device"], **inp["kw"])
 
 
+def hnet_step(inp, rank, world, device="cpu"):
+    """``inp['steps']`` ``make_train_step(distributed=True)`` micro-steps of
+    an ``HNet`` (``inp``: cfg, state_dict, hyp, seed and the global batch)
+    on this rank's rows (all of them at world 1, or outside a group): the
+    last step's metrics and gradients (summed over the group) and every drop
+    mask drawn are recorded."""
+    from hd_yolo_tpu_torch.engines import optim as toptim
+    from hd_yolo_tpu_torch.engines.train_step import TrainState, make_train_step, to_device
+    from hd_yolo_tpu_torch.hnet import HNet, swin
+
+    m = HNet(inp["cfg"], device=device)
+    m.load_state_dict(inp["state_dict"], strict=True)
+    m.train()
+    opt = toptim.build_optimizer(m, inp["hyp"], 10, 10)
+    state = TrainState.create(m, opt)
+    batch = to_device(parallel.local_slice(inp["batch"], rank, world), device)
+    draws = []
+
+    def record(draw, shape):
+        out = parallel.draw_rows(draw, shape)
+        draws.append(out.cpu())
+        return out
+
+    swin.draw_rows = record
+    seen = {}
+    update = opt.update
+
+    def spy(grads):                                 # the step's (all-reduced) gradients
+        seen["grads"] = {n: None if g is None else g.detach().cpu().clone()
+                         for n, g in zip(opt.names, grads)}
+        return update(grads)
+
+    opt.update = spy
+    try:
+        step = make_train_step(distributed=True, seed=inp["seed"])
+        for _ in range(inp["steps"]):
+            state, metrics = step(state, batch)
+    finally:
+        swin.draw_rows = parallel.draw_rows
+    return {"params": {n: p.detach().cpu() for n, p in zip(opt.names, opt.params)},
+            "buffers": {n: b.cpu() for n, b in m.named_buffers() if "running_" in n},
+            "metrics": {k: float(v) for k, v in metrics.items()}, "draws": draws,
+            "grads": seen["grads"]}
+
+
+def case_hnet(rank, world, io, device):
+    """The hnet step of each configuration of ``hnet_in.pt``."""
+    inp = torch.load(os.path.join(io, "hnet_in.pt"), weights_only=False)
+    return {name: hnet_step(c, rank, world, device) for name, c in inp.items()}
+
+
+def case_mesh(rank, world, io, device):
+    """One step of ``yolov5s-test`` on a (data, model) mesh of each shape of
+    ``mesh_in.pt``, its parameters placed by ``shard_params_tp``: the shards
+    each rank holds, then the whole parameters and the metrics; and the same
+    step with every parameter whole (``make_train_step`` over the mesh's
+    ``data`` group, no placement)."""
+    from hd_yolo_tpu_torch.engines import optim as toptim
+    from hd_yolo_tpu_torch.engines.train_step import TrainState, make_train_step, to_device
+    from hd_yolo_tpu_torch.models.yolo import Model
+
+    inp = torch.load(os.path.join(io, "mesh_in.pt"), weights_only=False)
+    out = {}
+    for shape in inp["shapes"]:
+        mesh = parallel.create_mesh(shape)
+        d = mesh.get_local_rank(parallel.DATA_AXIS)
+        batch = to_device(parallel.local_slice(inp["batch"], d, shape[0]), device)
+        res = {}
+        for placed_run in (True, False):
+            tm = Model.from_cfg("yolov5s-test", inp["hyp"], mask_rois=inp["mask_rois"])
+            tm.load_state_dict(inp["state_dict"])
+            opt = toptim.build_optimizer(tm, inp["hyp"], 2, 8, accumulate=1)
+            state = TrainState.create(tm, opt)
+            if placed_run:
+                placed = parallel.shard_params_tp(tm, mesh, inp["min_size"])
+                res["held"] = {n: tuple(p.shape) for n, p in tm.named_parameters()}
+                step = parallel.make_mesh_train_step(mesh, placed)
+            else:
+                step = make_train_step(distributed=True,
+                                       group=mesh.get_group(parallel.DATA_AXIS))
+            state, metrics = step(state, batch)
+            key = "" if placed_run else "whole_"
+            if placed_run:
+                res["after"] = {n: tuple(p.shape) for n, p in tm.named_parameters()}
+                parallel.unshard_params(tm, placed)
+            res[key + "params"] = {n: p.detach().cpu().clone() for n, p in tm.named_parameters()}
+            res[key + "metrics"] = {k: float(v) for k, v in metrics.items()}
+        out[tuple(shape)] = res
+    return out
+
+
+def case_packed(rank, world, io, device):
+    """``slide_inference_sharded`` of ``yolov5s-test`` with the packed mask
+    branch over the group."""
+    from hd_yolo_tpu_torch.models.yolo import Model
+    from hd_yolo_tpu_torch.wsi import slide_inference_sharded
+
+    inp = torch.load(os.path.join(io, "packed_in.pt"), weights_only=False)
+    m = Model.from_cfg("yolov5s-test", "hyp-nuclei", **inp["model_kw"])
+    m.load_state_dict(inp["state_dict"])
+    m.eval().to(device)
+    return slide_inference_sharded(lambda t: m(t)["det"], inp["slide"].to(device),
+                                   batch_per_device=inp["batch_per_device"], **inp["kw"])
+
+
 def run_cli(rank, io):
     """``engines/train.main`` under torchrun's environment, every file write
     and restore recorded with the rank that made it."""
@@ -121,7 +231,8 @@ def run_cli(rank, io):
         json.dump(record, f)
 
 
-CASES = {"step": case_step, "augment": case_augment, "slide": case_slide}
+CASES = {"step": case_step, "augment": case_augment, "slide": case_slide, "hnet": case_hnet,
+         "mesh": case_mesh, "packed": case_packed}
 
 
 def main():

@@ -21,9 +21,10 @@ Phases (any failure raises and the script exits non-zero):
   1. the card: ``nvidia-smi`` name and power limit, ``torch.cuda`` name;
   2. build: every kernel under ``hd_yolo_tpu_torch/kernels/`` compiled from
      the checkout by ``nvcc`` for sm_90a, one process per source, in parallel;
-     ``nvcc -Xptxas -v``'s registers, shared memory and spills for the four
+     ``nvcc -Xptxas -v``'s registers, shared memory and spills for the
      kernels redesigned for Hopper (``mask_head``, ``stem_tc``, ``nms``,
-     ``roi_align``, ``roi_align_single``, ``stem_k108``);
+     ``roi_align``, ``roi_align_single``, ``stem_k108``, ``mask_head_f32``,
+     ``stem_tf32``);
   3. kernels: each kernel against its plain PyTorch version on the same
      inputs, at the flagship path's shapes, with the stated tolerance (NMS
      bit-identical); median times (CUDA events, one call a window) of the
@@ -33,7 +34,12 @@ Phases (any failure raises and the script exits non-zero):
      form ``stem_tc`` is held within one bf16 ulp also on pre-activations
      out to |v| ~ 15 and, its SiLU alone, over [-20, 20]; it is timed in
      turns with the direct kernel at bf16, ``stem_k108`` and cuDNN and must
-     beat the direct kernel and cuDNN; the mask head with all 768 slots active and with a
+     beat the direct kernel and cuDNN; the f32 stem form ``stem_tf32`` is
+     held within 1e-5 of the plain f32 version (TF32 off) at the flagship
+     shape, at the three f32 paths' shapes and, its SiLU alone, over
+     [-20, 20], and timed in turns with the direct kernel at f32 and cuDNN's
+     f32 chain (it must beat both), with its device time and the card's
+     clock and power sampled beside it; the mask head with all 768 slots active and with a
      360-slot prefix (inactive slots exactly 0, two launches bit-identical)
      is timed in turns with cuDNN's chain and must beat it; the canvas
      ROI-align reads the four level maps in place (checked) at 768 ROIs and
@@ -217,9 +223,9 @@ Phases (any failure raises and the script exits non-zero):
  20. pretrained: the serialized reference checkpoints
      ``tests/fixtures/{metayolo,ultralytics}_tiny.pt`` through
      ``utils/import_torch`` into ``tiny2l.yaml`` on the card (f32, masks):
-     every tensor of the model loaded, launches (the direct ``stem``, NMS,
-     the canvas ROI-align and the mask head's f32 form 1 each, the bf16
-     mask head 0), each NMS, ROI-align and mask-head call held against its
+     every tensor of the model loaded, launches (the f32 stem form
+     ``stem_tf32``, NMS, the canvas ROI-align and the mask head's f32 form
+     1 each, the direct ``stem`` and the bf16 mask head 0), each NMS, ROI-align and mask-head call held against its
      plain version on its own inputs (the f32 mask head within 1e-4), and
      the outputs against the fixture's ``expected`` (the reference torch
      model's own): the count within 10%, every expected box within 1 px,
@@ -270,7 +276,8 @@ Phases (any failure raises and the script exits non-zero):
      model (keypoint and FCOS targets on ``hnet_batch``'s nuclei): the loss
      over 8 updates as phase 15's, every backward call shadowed, the
      launches of a micro-step, its times; a small f32 card vs CPU check
-     (both headers' detections, keypoints); ``SRGenerator`` and the WGAN
+     (``stem_tf32`` 1 and the direct ``stem`` 0; both headers' detections,
+     keypoints); ``SRGenerator`` and the WGAN
      ``SRDiscriminator`` at their defaults (16 x 320² → 640², one WGAN-GP
      step) and card vs CPU; ``tests/fixtures/swin_tiny.pt`` through
      ``utils/import_swin`` on the card against the CPU.
@@ -317,7 +324,8 @@ Phases (any failure raises and the script exits non-zero):
      tenth; both squares found or not, recorded: the JAX tool's config
      misses it in the JAX package too, ROADMAP C.10), each a process of its
      own, the two side by side (host-bound steps), each run's kernel
-     launches.
+     launches (the yolo run's validation: ``stem_tf32`` at least once, the
+     direct ``stem`` never).
 
 Phase 3 also holds the single-level ROI-align's backward kernel
 (``roi_align_levels_bwd``) against its plain version at its two call sites:
@@ -401,6 +409,8 @@ TPU_KERNEL = {
     "stem_k108": "tools/stem_lab.py:132",
     "stem_dot108": "tools/stem_lab.py:168",
     "stem_tc": "hd_yolo_tpu/ops/pallas_stem.py:79",
+    # the same TPU kernel at f32 compute
+    "stem_tf32": "hd_yolo_tpu/ops/pallas_stem.py:79",
     # the XLA vjp JAX's custom_vjp takes of the plain canvas form
     "roi_align_bwd": "hd_yolo_tpu/ops/pallas_roi_align.py:270",
     # the XLA vjp JAX's custom_vjp of the single-level kernel takes
@@ -410,7 +420,7 @@ FLAGSHIP_KERNELS = ("stem_tc", "nms", "roi_align", "mask_head")
 LAB_KERNELS = ("stem", "stem_k108", "stem_dot108", "stem_tc")
 # the kernels redesigned for Hopper: their ptxas report is printed at build
 REDESIGNED = ("mask_head", "stem_tc", "nms", "roi_align", "roi_align_single", "stem_k108",
-              "mask_head_f32")
+              "mask_head_f32", "stem_tf32")
 
 
 def slide_launches(n_batches: int) -> dict:
@@ -620,10 +630,11 @@ def nbytes(*ts) -> int:
 
 # ---------------------------------------------------------------- kernels
 def phase_stem(gen, iters):
-    """The direct kernel (stem.cu) at the flagship shape in bf16 (forced: on
-    the trunk's bf16 path ``stem_form`` picks ``stem_tc``), and in f32 (its
-    form on the card) at a small shape against the plain version and at the
-    flagship shape timed beside its own bound."""
+    """The direct kernel (stem.cu), forced at the 6x6/s2/p2 stem (on the
+    card ``stem_form`` picks ``stem_tc`` at bf16 and ``stem_tf32`` at f32
+    there): at the flagship shape in bf16 and in f32 against the plain
+    version, the f32 form also at a small shape; the f32 form timed at the
+    flagship shape beside its own bound."""
     dev = "cuda"
     x = torch.rand((16, 640, 640, 3), generator=gen, device=dev)
     w = torch.randn((6, 6, 3, 64), generator=gen, device=dev) * 0.15
@@ -635,20 +646,20 @@ def phase_stem(gen, iters):
     torch.cuda.synchronize()
     # both round inputs to bf16 and accumulate in f32 (in other orders): one bf16 ulp
     err = check_close("stem (direct, bf16)", got, want, atol=1e-2, rtol=2 ** -7)
+    kw32 = dict(stride=2, padding=2, out_dtype=torch.float32)
     x32 = x[:2, :128, :160].contiguous()
     check_close("stem (direct, f32) (2, 128, 160, 3)",
-                pallas_stem.stem_conv(x32, w, scale, bias, stride=2, padding=2,
-                                      out_dtype=torch.float32),
-                pallas_stem.stem_conv_plain(x32, w, scale, bias, stride=2, padding=2,
-                                            out_dtype=torch.float32), atol=1e-5, rtol=0.0)
+                pallas_stem.stem_conv(x32, w, scale, bias, form="direct", **kw32),
+                pallas_stem.stem_conv_plain(x32, w, scale, bias, **kw32), atol=1e-5, rtol=0.0)
     t = kernel_ms(lambda: pallas_stem.stem_conv(x, w, scale, bias, form="direct", **kw), iters)
     plain_ms = cuda_ms(lambda: pallas_stem.stem_conv_plain(x, w, scale, bias, **kw), iters)
     flops = 2.0 * got.numel() * 6 * 6 * 3
     b_ms, by = bound(nbytes(x, w, scale, bias, got), flops, BF16_FLOPS)
     # the f32 form (f32 output, CUDA-core f32 arithmetic) at the flagship shape
-    kw32 = dict(stride=2, padding=2, out_dtype=torch.float32)
-    got32 = pallas_stem.stem_conv(x, w, scale, bias, **kw32)
-    t32 = kernel_ms(lambda: pallas_stem.stem_conv(x, w, scale, bias, **kw32), iters)
+    got32 = pallas_stem.stem_conv(x, w, scale, bias, form="direct", **kw32)
+    check_close("stem (direct, f32) (16, 640, 640, 3)", got32,
+                pallas_stem.stem_conv_plain(x, w, scale, bias, **kw32), atol=1e-5, rtol=0.0)
+    t32 = kernel_ms(lambda: pallas_stem.stem_conv(x, w, scale, bias, form="direct", **kw32), iters)
     t32["bound_ms"], t32["bound_by"] = bound(nbytes(x, w, scale, bias, got32), flops, F32_FLOPS)
     # its yardstick: cuDNN's f32 conv + bias, then SiLU, TF32 off (main sets it)
     need(not torch.backends.cudnn.allow_tf32, "the f32 stem's yardstick runs with TF32 off")
@@ -658,6 +669,148 @@ def phase_stem(gen, iters):
         f"bound {t32['bound_ms']:.4f} ms ({t32['bound_by']})")
     return dict(max_abs_err=err, **t, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
                 library_ms=stem_library_ms(x, w, scale, bias, iters), f32=t32)
+
+
+# the f32 stem paths' own shapes: the reference fixtures (phase 20), the f32
+# hnet-darknet check (phase 23), the convergence check's validation (phase 26)
+TF32_PATH_SHAPES = {"fixtures": ((1, 64, 64, 3), 8), "hnet_darknet": ((2, 128, 128, 3), 16),
+                    "convergence": ((4, 128, 128, 3), 32)}
+# its time at the flagship shape, one call a window: at most half its bound
+# of bytes (0.1487 ms), the redesign's target
+TF32_TARGET_MS = 0.297
+
+
+def stem_tf32_bound(x, w, y):
+    """The split-TF32 stem's bound: x, w, scale, bias read and y written
+    once, against its three TF32 products of K = 108 per output value."""
+    N = w.shape[-1]
+    return bound(nbytes(x, w, y) + 2 * N * 4, 3 * 2.0 * y.numel() * 108, TF32_FLOPS)
+
+
+def clocks_under(fn, seconds: float = 1.5, samples: int = 3) -> list:
+    """``nvidia-smi``'s SM clock, power draw and active throttle reasons,
+    sampled while ``fn`` runs back to back on a second thread."""
+    import threading
+
+    stop = []
+
+    def spin():
+        while not stop:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+
+    th = threading.Thread(target=spin)
+    th.start()
+    out = []
+    try:
+        time.sleep(seconds / (samples + 1))
+        for _ in range(samples):
+            out.append(subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,power.limit,"
+                 "clocks_throttle_reasons.active", "--format=csv,noheader"],
+                capture_output=True, text=True).stdout.strip())
+            time.sleep(seconds / (samples + 1))
+    finally:
+        stop.append(True)
+        th.join()
+    return out
+
+
+def check_stem_silu_f32():
+    """``stem_tf32``'s SiLU alone over v in [-20, 20]: a one-hot centre tap
+    makes each output silu(x + bias) (x split into hi and lo, summed back by
+    the products), 65,536 pre-activations against the plain f32 version
+    within 1e-5."""
+    x = torch.zeros((1, 64, 64, 3), device="cuda")
+    x[0, :, :, 0] = torch.linspace(-20.0, 20.0, 64 * 64, device="cuda").view(64, 64)
+    w = torch.zeros((6, 6, 3, 64), device="cuda")
+    w[2, 2, 0] = 1.0
+    scale, bias = torch.ones(64, device="cuda"), torch.linspace(0.0, 0.04, 64, device="cuda")
+    kw = dict(stride=2, padding=2, out_dtype=torch.float32)
+    want = pallas_stem.stem_conv_plain(x, w, scale, bias, **kw)
+    need(float(want[0, 0, 0, 0]) < 0 and float(want.max()) > 19.0, "the sweep missed [-20, 20]")
+    return check_close("stem_tf32 SiLU alone over [-20, 20]",
+                       pallas_stem.stem_conv(x, w, scale, bias, **kw), want, atol=1e-5, rtol=0.0)
+
+
+def phase_stem_tf32(gen, iters):
+    """The f32 stem form (stem_tf32.cu, split-TF32 tensor-core products) at
+    (16, 640, 640, 3) -> N 64: within 1e-5 of the plain f32 version (TF32
+    off) there, at the three f32 paths' own shapes and, its SiLU alone,
+    over [-20, 20]; two launches bit-identical; pre-activations out to
+    |v| ~ 20 through the conv recorded beside the direct kernel's error
+    there; timed in turns with the direct kernel at f32 and cuDNN's f32
+    chain, by both methods, and by its profiler device time, against its
+    bound, with the card's clock and power sampled while it runs back to
+    back; each path shape timed with its bound and cuDNN's f32 chain."""
+    dev = "cuda"
+    kw = dict(stride=2, padding=2, out_dtype=torch.float32)
+    need(not torch.backends.cudnn.allow_tf32, "the f32 stem's plain version runs with TF32 off")
+    x = torch.rand((16, 640, 640, 3), generator=gen, device=dev)
+    w = torch.randn((6, 6, 3, 64), generator=gen, device=dev) * 0.15
+    scale = torch.rand(64, generator=gen, device=dev) + 0.5
+    bias = torch.randn(64, generator=gen, device=dev) * 0.1
+    need(pallas_stem.stem_form(x.shape, w.shape, 2, 2, torch.float32) == "tf32",
+         "stem_form does not pick stem_tf32 for the flagship stem at f32")
+    got = pallas_stem.stem_conv(x, w, scale, bias, **kw)
+    torch.cuda.synchronize()
+    err = check_close("stem_tf32 (16, 640, 640, 3)", got,
+                      pallas_stem.stem_conv_plain(x, w, scale, bias, **kw), atol=1e-5, rtol=0.0)
+    need(torch.equal(got, pallas_stem.stem_conv(x, w, scale, bias, **kw)),
+         "stem_tf32: two launches differ")
+    paths = {}
+    for name, (shape, n) in TF32_PATH_SHAPES.items():
+        xp = torch.rand(shape, generator=gen, device=dev)
+        wp = torch.randn((6, 6, 3, n), generator=gen, device=dev) * 0.15
+        sp = torch.rand(n, generator=gen, device=dev) + 0.5
+        bp = torch.randn(n, generator=gen, device=dev) * 0.1
+        yp = pallas_stem.stem_conv(xp, wp, sp, bp, **kw)
+        e = check_close(f"stem_tf32 {name} {shape} N {n}", yp,
+                        pallas_stem.stem_conv_plain(xp, wp, sp, bp, **kw), atol=1e-5, rtol=0.0)
+        fns = {"stem_tf32": lambda: pallas_stem.stem_conv(xp, wp, sp, bp, **kw),
+               "cuDNN": stem_library(xp, wp, sp, bp, torch.float32)}
+        ms = cuda_ms_turns(fns, iters)
+        b_ms, by = stem_tf32_bound(xp, wp, yp)
+        paths[name] = dict(shape=shape, n=n, max_abs_err=e, ms=ms["stem_tf32"],
+                           ms_back_to_back=cuda_ms(fns["stem_tf32"], iters, reps=B2B),
+                           bound_ms=b_ms, bound_by=by, library_ms=ms["cuDNN"])
+        log(f"  stem_tf32 {name}: {paths[name]['ms']:.4f} ms a call "
+            f"({paths[name]['ms_back_to_back']:.4f} back to back) | cuDNN f32 {ms['cuDNN']:.4f} | "
+            f"bound {b_ms:.4f} ({by})")
+    err = max(err, *(p["max_abs_err"] for p in paths.values()), check_stem_silu_f32())
+    # pre-activations out to |v| ~ 20 through the whole conv: recorded beside
+    # the direct kernel's own distance from the plain version there
+    wt, bt = w * 4, bias * 30
+    want_t = pallas_stem.stem_conv_plain(x, wt, scale, bt, **kw)
+    tail = dict(max_abs_err=float((pallas_stem.stem_conv(x, wt, scale, bt, **kw) - want_t)
+                                  .abs().max()),
+                direct_max_abs_err=float((pallas_stem.stem_conv(x, wt, scale, bt, form="direct",
+                                                                **kw) - want_t).abs().max()))
+    log(f"  stem_tf32, pre-activations out to |v| ~ 20 through the conv: max_abs_err "
+        f"{tail['max_abs_err']:.3g} (the direct kernel {tail['direct_max_abs_err']:.3g}); recorded")
+    del want_t
+    fns = {"stem_tf32": lambda: pallas_stem.stem_conv(x, w, scale, bias, **kw),
+           "direct": lambda: pallas_stem.stem_conv(x, w, scale, bias, form="direct", **kw),
+           "cuDNN": stem_library(x, w, scale, bias, torch.float32)}
+    ms = cuda_ms_turns(fns, iters)
+    b2b = cuda_ms_turns(fns, iters, reps=B2B)
+    plain_ms = cuda_ms(lambda: pallas_stem.stem_conv_plain(x, w, scale, bias, **kw), iters)
+    b_ms, by = stem_tf32_bound(x, w, got)
+    for name, t in (("one call a window", ms), (f"{B2B} back to back", b2b)):
+        log(f"  stem at (16, 640, 640, 3) f32, in turns, {name}: stem_tf32 {t['stem_tf32']:.4f} ms "
+            f"| direct {t['direct']:.4f} | cuDNN {t['cuDNN']:.4f} | bound {b_ms:.4f} ({by}); "
+            f"target {TF32_TARGET_MS}: {'met' if t['stem_tf32'] <= TF32_TARGET_MS else 'missed'}")
+    need(ms["stem_tf32"] < ms["direct"] and ms["stem_tf32"] < ms["cuDNN"],
+         f"stem_tf32 is not faster than both the direct kernel and cuDNN's f32 chain: {ms}")
+    dev_ms = device_ms(fns["stem_tf32"])
+    clocks = clocks_under(fns["stem_tf32"])
+    log(f"  stem_tf32 device time {dev_ms:.4f} ms a call; back to back, SM clock, max, power, "
+        f"limit, throttle reasons: {clocks}")
+    return dict(max_abs_err=err, ms=ms["stem_tf32"], ms_back_to_back=b2b["stem_tf32"],
+                device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                library_ms=ms["cuDNN"], turns={"one_call": ms, "back_to_back": b2b}, paths=paths,
+                tail=tail, clocks=clocks)
 
 
 def check_stem_tc_silu():
@@ -4221,8 +4374,8 @@ def phase_pretrained(iters: int):
         m(x)
         with capture_calls(*PATH_CALLS) as seen:
             launches[name], out = path_launches(lambda: m(x))
-        for k, want in (("stem", 1), ("stem_tc", 0), ("nms", 1), ("roi_align", 1),
-                        ("mask_head", 0), ("mask_head_f32", 1)):
+        for k, want in (("stem_tf32", 1), ("stem", 0), ("stem_tc", 0), ("nms", 1),
+                        ("roi_align", 1), ("mask_head", 0), ("mask_head_f32", 1)):
             need(launches[name][k] == want,
                  f"{name}: {k} launched {launches[name][k]} times, expected {want}")
         o = {k: v.cpu().numpy() for k, v in out["det"].items()}
@@ -4943,8 +5096,8 @@ def hnet_darknet_reference() -> dict:
     _, a = gpu(x.cuda())
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    need(launches["stem"] == 1 and launches["mask_head_f32"] == 1,
-         f"f32 hnet-darknet: expected the direct stem and the f32 mask head, got {launches}")
+    need(launches["stem_tf32"] == 1 and launches["stem"] == 0 and launches["mask_head_f32"] == 1,
+         f"f32 hnet-darknet: expected the f32 stem form and the f32 mask head, got {launches}")
     a = cpu_tree(a)
     _, b = cpu(x)
     res = {}
@@ -5626,11 +5779,12 @@ def phase_convergence(iters: int):
             CONVERGENCE.clear()
     # training runs the trunk on batch statistics (no stem kernel) and pools
     # the mask targets through the canvas ROI-align and its backward; the
-    # validation forwards take the direct f32 stem, NMS and the f32 mask head
-    need(launches["yolo"]["roi_align_bwd"] >= 1000 and launches["yolo"]["stem"] >= 1
-         and launches["yolo"]["nms"] >= 1 and launches["yolo"]["mask_head_f32"] >= 1,
-         f"the yolo check's f32 run did not take roi_align_bwd, the direct stem, NMS and the "
-         f"f32 mask head: {launches['yolo']}")
+    # validation forwards take the f32 stem form, NMS and the f32 mask head
+    need(launches["yolo"]["roi_align_bwd"] >= 1000 and launches["yolo"]["stem_tf32"] >= 1
+         and launches["yolo"]["stem"] == 0 and launches["yolo"]["nms"] >= 1
+         and launches["yolo"]["mask_head_f32"] >= 1,
+         f"the yolo check's f32 run did not take roi_align_bwd, the f32 stem form (and not the "
+         f"direct one), NMS and the f32 mask head: {launches['yolo']}")
     need(launches["hnet"]["roi_align_single_bwd"] >= 700 and launches["hnet"]["mask_head_f32"] >= 1,
          f"the hnet check did not take roi_align_single_bwd and the f32 mask head: "
          f"{launches['hnet']}")
@@ -5723,12 +5877,15 @@ def main(argv=None) -> int:
     log(f"  dynamic shared memory per block: mask_head {kernels.fn('mask_head_smem_bytes')()} B; "
         f"mask_head_f32 {kernels.fn('mask_head_f32_smem_bytes')()} B; "
         f"stem_tc at W 640, N 64 {kernels.fn('stem_tc_smem_bytes')(640, 320, 64)} B "
-        f"(2 blocks per SM), at W 640, N 32 {kernels.fn('stem_tc_smem_bytes')(640, 320, 32)} B")
+        f"(2 blocks per SM), at W 640, N 32 {kernels.fn('stem_tc_smem_bytes')(640, 320, 32)} B; "
+        f"stem_tf32 at W 640, N 64 {kernels.fn('stem_tf32_smem_bytes')(640, 320, 64)} B, at W 64, "
+        f"N 8 {kernels.fn('stem_tf32_smem_bytes')(64, 32, 8)} B (one block per SM)")
 
     log("[3] kernels vs plain versions (each at its path's shapes)")
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
-    for kname, fn in (("stem", phase_stem), ("stem_tc", phase_stem_tc), ("nms", phase_nms),
+    for kname, fn in (("stem", phase_stem), ("stem_tf32", phase_stem_tf32),
+                      ("stem_tc", phase_stem_tc), ("nms", phase_nms),
                       ("roi_align", phase_roi), ("mask_head", phase_mask_head),
                       ("mask_head_f32", phase_mask_head_f32),
                       ("roi_align_single", phase_roi_single),
@@ -5854,7 +6011,8 @@ def main(argv=None) -> int:
              "ddp_hnet_step": ddp_hnet_launches, "occupancy": occ_launches,
              "convergence": conv_launches, "convergence_hnet": conv_hnet_launches}
     main_path = {k: "flagship" for k in FLAGSHIP_KERNELS}
-    main_path.update(mask_head_f32="pretrained", roi_align_single="hnet", stem_k108="lab",
+    main_path.update(mask_head_f32="pretrained", stem_tf32="pretrained", roi_align_single="hnet",
+                     stem_k108="lab",
                      stem_dot108="lab", stem="lab", roi_align_bwd="train",
                      roi_align_single_bwd="hnet_train")
     results["nms"]["stitch"] = stitch

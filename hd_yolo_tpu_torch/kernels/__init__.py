@@ -54,6 +54,7 @@ KERNELS: Dict[str, list] = {
     "stem_k108": [],
     "stem_dot108": [],
     "stem_tc": [],
+    "stem_tf32": [],
     "roi_align_bwd": [],
     "roi_align_single_bwd": [],
 }
@@ -85,6 +86,8 @@ _SIGNATURES = {
     "stem_tc": ("stem_tc", [_P] * 5 + [_I] * 7 + [_P]),
     "mask_head_smem_bytes": ("mask_head", []),
     "stem_tc_smem_bytes": ("stem_tc", [_I, _I, _I]),
+    "stem_tf32": ("stem_tf32", [_P] * 5 + [_I] * 7 + [_P]),
+    "stem_tf32_smem_bytes": ("stem_tf32", [_I, _I, _I]),
 }
 
 

@@ -1,5 +1,6 @@
-"""Stem convolution on the card: wrapper of ``kernels/stem_tc.cu`` and
-``kernels/stem.cu`` (the Hopper ports of ``hd_yolo_tpu/ops/pallas_stem.py``).
+"""Stem convolution on the card: wrapper of ``kernels/stem_tc.cu``,
+``kernels/stem_tf32.cu`` and ``kernels/stem.cu`` (the Hopper ports of
+``hd_yolo_tpu/ops/pallas_stem.py``).
 
 ``stem_conv(x, w, scale, bias, stride=, padding=, out_dtype=)`` computes
 ``silu(conv2d(x, w, stride, padding) * scale + bias)`` in NHWC, the yolov5
@@ -7,22 +8,25 @@ stem with its inference BatchNorm folded to a per-channel affine.
 Matmul inputs are rounded to the compute dtype (bf16 when ``out_dtype`` is
 bf16, else f32) and accumulate in f32; the affine and SiLU run in f32 before
 the single output write.  On a CPU tensor it runs the plain version.  On a
-CUDA tensor :func:`stem_form` picks the kernel: the bf16 6x6/s2/p2 stem
-over 3 channels (N a multiple of 16 up to 64, both yolo configs) launches
-the tensor-core kernel ``stem_tc``; f32 compute and every other shape of
-the family launch the direct kernel ``stem``.
+CUDA tensor :func:`stem_form` picks the kernel for the 6x6/s2/p2 stem over
+3 channels: at bf16 compute (N a multiple of 16 up to 64, both yolo
+configs) the bf16 tensor-core kernel ``stem_tc``, at f32 compute (N a
+multiple of 8 from 8 to 64, images up to ``stem_tf32.cu``'s ``MAX_W``
+wide) the split-TF32 tensor-core kernel ``stem_tf32``; every other shape of
+the family launches the direct kernel ``stem``.
 
-``stem_tc``'s operands: per output pixel, K = 108 in the weight's own
+Both tensor-core forms take, per output pixel, K = 108 in the weight's own
 (ky, kx, c) order — for ky in 0..5 the 18 floats of input row 2oy-2+ky from
 column 2ox-2 on, contiguous in the image — against the (6, 6, 3, N) weight
-seen as (108, N), both rounded to bf16 (the kernel rounds them as it
-stages them).
+seen as (108, N); ``stem_tc`` rounds both to bf16 as it stages them,
+``stem_tf32`` splits both into tf32 hi and lo (``split_tf32`` of
+``ops/pallas_mask_head``) and forms each product as lo·hi + hi·lo + hi·hi.
 
 Each kernel is a ``torch.library`` op (``hd_yolo_tpu_torch::stem_tc``,
-``hd_yolo_tpu_torch::stem``) whose body is the ``ctypes`` launch, with a fake
-implementation of its output shape and dtype, so ``torch.export`` keeps the
-kernel as one call in the graph.  Eager calls on the card go through the
-same ops.
+``hd_yolo_tpu_torch::stem_tf32``, ``hd_yolo_tpu_torch::stem``) whose body is
+the ``ctypes`` launch, with a fake implementation of its output shape and
+dtype, so ``torch.export`` keeps the kernel as one call in the graph.
+Eager calls on the card go through the same ops.
 """
 
 from __future__ import annotations
@@ -49,13 +53,18 @@ def stem_conv_plain(x: Tensor, w: Tensor, scale: Tensor, bias: Tensor, *, stride
 
 
 def stem_form(x_shape, w_shape, stride: int, padding: int, out_dtype) -> str:
-    """Which kernel takes a stem on the card: ``"tc"`` (``stem_tc.cu``) for
-    the bf16 6x6/s2/p2 conv over 3 channels with N in {16, 32, 48, 64},
-    else ``"direct"`` (``stem.cu``)."""
+    """Which kernel takes a stem on the card, for the 6x6/s2/p2 conv over 3
+    channels: ``"tc"`` (``stem_tc.cu``) at bf16 with N in {16, 32, 48, 64},
+    ``"tf32"`` (``stem_tf32.cu``) at f32 with N a multiple of 8 from 8 to 64
+    and a width up to its ``MAX_W``; else ``"direct"`` (``stem.cu``)."""
     K, K2, C, N = w_shape
-    if (out_dtype == torch.bfloat16 and (K, K2, C, stride, padding) == (6, 6, 3, 2, 2)
-            and x_shape[-1] == 3 and N % 16 == 0 and 16 <= N <= 64):
+    if (K, K2, C, stride, padding) != (6, 6, 3, 2, 2) or x_shape[-1] != 3:
+        return "direct"
+    if out_dtype == torch.bfloat16 and N % 16 == 0 and 16 <= N <= 64:
         return "tc"
+    if (out_dtype == torch.float32 and N % 8 == 0 and 8 <= N <= 64
+            and x_shape[2] <= kernels.constants("stem_tf32")["MAX_W"]):
+        return "tf32"
     return "direct"
 
 
@@ -82,24 +91,35 @@ def _launch_direct(x, w, scale, bias, stride, padding, out_dtype):
     return y
 
 
-def _launch_tc(x, w, scale, bias):
-    B, H, W, _ = x.shape
-    N = w.shape[-1]
-    Ho, Wo = _out_hw(x, w, 2, 2)
-    if x.data_ptr() % 16:                         # its 16-byte row copies need an aligned image
-        x = x.clone()
-    wk = w.float().contiguous()                   # rounded to bf16 as the kernel stages it
-    y = torch.empty((B, Ho, Wo, N), dtype=torch.bfloat16, device=x.device)
-    dev, stream = kernels.device_and_stream(x)
-    code = kernels.fn("stem_tc")(x.data_ptr(), wk.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                                 y.data_ptr(), B, H, W, Ho, Wo, N, dev, stream)
-    kernels.check(code, "stem_tc")
-    kernels.LAUNCHES["stem_tc"] += 1
-    return y
+def _ring_launch(name: str, out_dtype):
+    """The launch of a ring kernel, ``stem_tc`` (bf16 out) or ``stem_tf32``
+    (f32 out): the same arguments, the (6, 6, 3, N) f32 weight rounded or
+    split by the kernel as it stages it."""
+    def launch(x, w, scale, bias):
+        B, H, W, _ = x.shape
+        N = w.shape[-1]
+        Ho, Wo = _out_hw(x, w, 2, 2)
+        if x.data_ptr() % 16:                     # its 16-byte row copies need an aligned image
+            x = x.clone()
+        wk = w.float().contiguous()
+        y = torch.empty((B, Ho, Wo, N), dtype=out_dtype, device=x.device)
+        dev, stream = kernels.device_and_stream(x)
+        code = kernels.fn(name)(x.data_ptr(), wk.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                                y.data_ptr(), B, H, W, Ho, Wo, N, dev, stream)
+        kernels.check(code, name)
+        kernels.LAUNCHES[name] += 1
+        return y
+
+    return launch
 
 
-def _stem_tc_fake(x, w, scale, bias):
-    return x.new_empty((x.shape[0], *_out_hw(x, w, 2, 2), w.shape[-1]), dtype=torch.bfloat16)
+_launch_tc = _ring_launch("stem_tc", torch.bfloat16)
+_launch_tf32 = _ring_launch("stem_tf32", torch.float32)
+
+
+def _ring_fake(out_dtype):
+    return lambda x, w, scale, bias: x.new_empty(
+        (x.shape[0], *_out_hw(x, w, 2, 2), w.shape[-1]), dtype=out_dtype)
 
 
 def _stem_fake(x, w, scale, bias, stride, padding, out_bf16):
@@ -107,9 +127,10 @@ def _stem_fake(x, w, scale, bias, stride, padding, out_bf16):
                        dtype=torch.bfloat16 if out_bf16 else torch.float32)
 
 
-stem_tc_op = kernels.register_op(
-    "stem_tc", "(Tensor x, Tensor w, Tensor scale, Tensor bias) -> Tensor", _launch_tc,
-    _stem_tc_fake)
+_RING_SCHEMA = "(Tensor x, Tensor w, Tensor scale, Tensor bias) -> Tensor"
+stem_tc_op = kernels.register_op("stem_tc", _RING_SCHEMA, _launch_tc, _ring_fake(torch.bfloat16))
+stem_tf32_op = kernels.register_op("stem_tf32", _RING_SCHEMA, _launch_tf32,
+                                   _ring_fake(torch.float32))
 stem_op = kernels.register_op(
     "stem", "(Tensor x, Tensor w, Tensor scale, Tensor bias, int stride, int padding, "
             "bool out_bf16) -> Tensor",
@@ -121,8 +142,8 @@ stem_op = kernels.register_op(
 def stem_conv(x: Tensor, w: Tensor, scale: Tensor, bias: Tensor, *, stride: int, padding: int,
               out_dtype=torch.bfloat16, form: Optional[str] = None) -> Tensor:
     """silu(conv2d(x, w, stride, padding) * scale + bias), NHWC.  ``form``
-    forces a kernel on the card (``"tc"`` or ``"direct"``; default
-    :func:`stem_form`)."""
+    forces a kernel on the card: ``"direct"``, or the form :func:`stem_form`
+    picks (its default)."""
     if x.device.type == "cpu":
         return stem_conv_plain(x, w, scale, bias, stride=stride, padding=padding,
                                out_dtype=out_dtype)
@@ -134,7 +155,7 @@ def stem_conv(x: Tensor, w: Tensor, scale: Tensor, bias: Tensor, *, stride: int,
                          f"w {tuple(w.shape)}, out {out_dtype}")
     auto = stem_form(x.shape, w.shape, stride, padding, out_dtype)
     form = form or auto
-    if form not in ("tc", "direct") or (form == "tc" and auto != "tc"):
+    if form not in (auto, "direct"):
         raise ValueError(f"stem form {form!r} cannot take x {tuple(x.shape)}, w {tuple(w.shape)}, "
                          f"stride {stride}, padding {padding}, out {out_dtype}")
     x, w = x.contiguous(), w.contiguous()
@@ -142,4 +163,6 @@ def stem_conv(x: Tensor, w: Tensor, scale: Tensor, bias: Tensor, *, stride: int,
     kernels.require_cuda(x, w, scale, bias)
     if form == "tc":
         return stem_tc_op(x, w, scale, bias)
+    if form == "tf32":
+        return stem_tf32_op(x, w, scale, bias)
     return stem_op(x, w, scale, bias, stride, padding, out_dtype == torch.bfloat16)

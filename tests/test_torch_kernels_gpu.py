@@ -38,17 +38,60 @@ def cuda():
 @pytest.mark.parametrize("H,W,K,s,p,C,N", [(64, 64, 6, 2, 2, 3, 64), (40, 48, 4, 4, 0, 3, 96),
                                            (64, 64, 2, 2, 0, 4, 32), (37, 91, 6, 2, 2, 3, 64)])
 def test_stem_kernel_f32_matches_plain(cuda, H, W, K, s, p, C, N):
-    """The direct kernel (stem.cu) at f32 compute, its only form on the card
-    for these shapes."""
+    """The direct kernel (stem.cu) at f32 compute: its form on the card for
+    the other shapes of the family, forced at the 6x6/s2/p2 stem over 3
+    channels with N <= 64 (where ``stem_form`` picks ``stem_tf32``)."""
     x = torch.randn((2, H, W, C), generator=cuda, device="cuda")
     w = torch.randn((K, K, C, N), generator=cuda, device="cuda") * 0.1
     scale = torch.rand(N, generator=cuda, device="cuda") + 0.5
     bias = torch.randn(N, generator=cuda, device="cuda") * 0.1
     kw = dict(stride=s, padding=p, out_dtype=torch.float32)
     n0 = kernels.LAUNCHES["stem"]
-    got = pallas_stem.stem_conv(x, w, scale, bias, **kw)
+    got = pallas_stem.stem_conv(x, w, scale, bias, form="direct", **kw)
     assert kernels.LAUNCHES["stem"] == n0 + 1
     want = pallas_stem.stem_conv_plain(x, w, scale, bias, **kw)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("B,H,W,N", [(1, 64, 64, 8), (2, 128, 128, 16), (4, 128, 128, 32),
+                                     (16, 640, 640, 64), (1, 37, 91, 64), (2, 61, 50, 48),
+                                     (1, 9, 6, 16), (2, 255, 130, 40), (1, 33, 70, 56),
+                                     (2, 600, 720, 64), (1, 40, 48, 24)])
+def test_stem_tf32_kernel_matches_plain(cuda, B, H, W, N):
+    """The f32 stem form (stem_tf32.cu) at the three f32 paths' shapes (N 8,
+    16, 32), the flagship's, odd H, widths with W % 4 != 0 (its 4-byte row
+    copies) and up to its ``MAX_W``, every N it takes from 8 to 64: within
+    1e-5 of the plain f32 version (TF32 off), two launches bit-identical,
+    one launch of ``stem_tf32`` and none of the direct kernel."""
+    x = torch.rand((B, H, W, 3), generator=cuda, device="cuda")
+    w = torch.randn((6, 6, 3, N), generator=cuda, device="cuda") * 0.15
+    scale = torch.rand(N, generator=cuda, device="cuda") + 0.5
+    bias = torch.randn(N, generator=cuda, device="cuda") * 0.1
+    kw = dict(stride=2, padding=2, out_dtype=torch.float32)
+    assert pallas_stem.stem_form(x.shape, w.shape, 2, 2, torch.float32) == "tf32"
+    n0, d0 = kernels.LAUNCHES["stem_tf32"], kernels.LAUNCHES["stem"]
+    got = pallas_stem.stem_conv(x, w, scale, bias, **kw)
+    assert (kernels.LAUNCHES["stem_tf32"], kernels.LAUNCHES["stem"]) == (n0 + 1, d0)
+    want = pallas_stem.stem_conv_plain(x, w, scale, bias, **kw)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    assert torch.equal(got, pallas_stem.stem_conv(x, w, scale, bias, **kw))
+
+
+def test_stem_tf32_silu_over_its_range(cuda):
+    """The f32 form's SiLU alone, v over [-20, 20]: a one-hot centre tap
+    makes each output silu(x + bias); within 1e-5 of the plain version on
+    65,536 pre-activations."""
+    x = torch.zeros((1, 64, 64, 3), device="cuda")
+    x[0, :, :, 0] = torch.linspace(-20.0, 20.0, 64 * 64, device="cuda").view(64, 64)
+    w = torch.zeros((6, 6, 3, 64), device="cuda")
+    w[2, 2, 0] = 1.0
+    scale = torch.ones(64, device="cuda")
+    bias = torch.linspace(0.0, 0.04, 64, device="cuda")
+    kw = dict(stride=2, padding=2, out_dtype=torch.float32)
+    got = pallas_stem.stem_conv(x, w, scale, bias, **kw)
+    want = pallas_stem.stem_conv_plain(x, w, scale, bias, **kw)
+    assert float(want[0, 0, 0, 0]) < 0 and float(want.max()) > 19.0   # silu(-20), silu(~20)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
 
 
@@ -557,6 +600,7 @@ def test_custom_op_fakes_match_real_outputs(cuda):
     labels = torch.tensor([0, 1, 1, 0, 1], device="cuda")
     calls = {
         "stem_tc": (ops.stem_tc, (x, w, sc, bi)),
+        "stem_tf32": (ops.stem_tf32, (x, w, sc, bi)),
         "stem": (ops.stem, (x, w, sc, bi, 2, 2, False)),
         "nms_keep": (ops.nms_keep, (boxes, valid, 0.45, 30)),
         "roi_align_bounded": (ops.roi_align_bounded,

@@ -14,7 +14,9 @@ import torch
 
 from hd_yolo_tpu.models.layers import ConvBnAct as JaxConvBnAct
 from hd_yolo_tpu.ops.pallas_stem import stem_conv_pallas
+from hd_yolo_tpu_torch import kernels
 from hd_yolo_tpu_torch.models.layers import ConvBnAct
+from hd_yolo_tpu_torch.ops.pallas_mask_head import split_tf32
 from hd_yolo_tpu_torch.ops.pallas_stem import stem_conv, stem_conv_plain, stem_form
 
 CASES = [(64, 64, 6, 2, 2, 3, 64), (40, 48, 4, 4, 0, 3, 96), (64, 64, 2, 2, 0, 4, 32),
@@ -82,12 +84,20 @@ def test_convbnact_stem_matches_flax_layer(rng):
     ((16, 640, 640, 3), (6, 6, 3, 64), 2, 2, torch.bfloat16, "tc"),     # yolov5l6-mask
     ((2, 256, 256, 3), (6, 6, 3, 32), 2, 2, torch.bfloat16, "tc"),      # yolov5s-test
     ((1, 37, 91, 3), (6, 6, 3, 16), 2, 2, torch.bfloat16, "tc"),
-    ((16, 640, 640, 3), (6, 6, 3, 64), 2, 2, torch.float32, "direct"),  # f32 compute
+    ((16, 640, 640, 3), (6, 6, 3, 64), 2, 2, torch.float32, "tf32"),    # f32 compute
     ((2, 64, 64, 3), (6, 6, 3, 96), 2, 2, torch.bfloat16, "direct"),    # N above 64
     ((2, 64, 64, 3), (6, 6, 3, 40), 2, 2, torch.bfloat16, "direct"),    # N not a multiple of 16
     ((2, 40, 48, 3), (4, 4, 3, 96), 4, 0, torch.bfloat16, "direct"),
     ((2, 64, 64, 4), (2, 2, 4, 32), 2, 0, torch.bfloat16, "direct"),
     ((2, 64, 64, 3), (6, 6, 3, 64), 2, 0, torch.bfloat16, "direct"),
+    ((1, 64, 64, 3), (6, 6, 3, 8), 2, 2, torch.float32, "tf32"),       # the fixtures
+    ((2, 128, 128, 3), (6, 6, 3, 16), 2, 2, torch.float32, "tf32"),    # hnet-darknet
+    ((4, 128, 128, 3), (6, 6, 3, 32), 2, 2, torch.float32, "tf32"),    # yolov5s-test
+    ((1, 37, 91, 3), (6, 6, 3, 24), 2, 2, torch.float32, "tf32"),
+    ((2, 64, 64, 3), (6, 6, 3, 96), 2, 2, torch.float32, "direct"),    # N above 64
+    ((2, 40, 48, 3), (4, 4, 3, 96), 4, 0, torch.float32, "direct"),
+    ((2, 40, 48, 3), (4, 4, 3, 32), 4, 0, torch.float32, "direct"),
+    ((1, 64, 1024, 3), (6, 6, 3, 64), 2, 2, torch.float32, "direct"),  # wider than its ring
 ])
 def test_stem_form(x_shape, w_shape, s, p, dtype, form):
     assert stem_form(x_shape, w_shape, s, p, dtype) == form
@@ -129,3 +139,102 @@ def test_stem_tc_operands_reproduce_plain(rng, B, H, W, N):
                             interpret=True)
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
                                rtol=2 ** -7, atol=1e-6)
+
+
+def _tf32_k_rows():
+    """``stem_tf32``'s K permutation, (14, 8): the weight row (in (ky, kx,
+    c) order) of K slot kl of k-step ks — slots kl and kl + 4 are the pair
+    2p, 2p + 1 with p = 4·ks + kl, two contiguous floats of one image row;
+    108 stands for the zero padding rows."""
+    ks, kl = torch.arange(14)[:, None], torch.arange(8)[None]
+    k = 2 * (4 * ks + kl % 4) + kl // 4
+    return torch.where(k < 108, k, torch.full_like(k, 108))
+
+
+def _tf32_emulate(x, w, scale, bias, passes=3):
+    """The f32 stem as ``stem_tf32`` forms it: A (the (ky, kx, c) im2col)
+    and B (the (108, N) weight) in its K permutation, split into tf32 hi and
+    lo; k-step by k-step, lo·hi then hi·lo added into one f32 accumulator
+    and hi·hi into another (``passes`` 1: hi·hi only), the two summed; then
+    the affine as a rounded multiply and add, and SiLU."""
+    B, H, W, _ = x.shape
+    N = w.shape[-1]
+    Ho, Wo = (H - 2) // 2 + 1, (W - 2) // 2 + 1
+    cols = _tc_im2col(x, Ho, Wo).reshape(-1, 108)
+    cols = torch.cat([cols, torch.zeros((cols.shape[0], 1))], 1)
+    wk = torch.cat([w.reshape(108, N), torch.zeros((1, N))])
+    ah, al = split_tf32(cols)
+    bh, bl = split_tf32(wk)
+    small = torch.zeros((cols.shape[0], N))
+    big = torch.zeros((cols.shape[0], N))
+    for r in _tf32_k_rows():
+        if passes == 3:
+            small = small + al[:, r] @ bh[r]
+            small = small + ah[:, r] @ bl[r]
+        big = big + ah[:, r] @ bh[r]
+    return torch.nn.functional.silu((small + big) * scale + bias).reshape(B, Ho, Wo, N)
+
+
+@pytest.mark.parametrize("B,H,W,N", [(2, 64, 64, 64), (1, 37, 91, 32), (2, 30, 17, 16),
+                                     (1, 33, 48, 8)])
+def test_stem_tf32_operands_reproduce_pallas(rng, B, H, W, N):
+    """``stem_tf32``'s operands — the im2col and the weight in its K
+    permutation, split by ``split_tf32`` — accumulated as it does (the small
+    products and hi·hi in two f32 accumulators, k-step by k-step) give JAX's
+    f32 stem kernel (interpret mode) within 1e-5; every K row is used once
+    and the padding is zero."""
+    rows = _tf32_k_rows().flatten()
+    assert sorted(rows[rows < 108].tolist()) == list(range(108)) and (rows == 108).sum() == 4
+    x = rng.standard_normal((B, H, W, 3)).astype(np.float32)
+    w = (rng.standard_normal((6, 6, 3, N)) * 0.1).astype(np.float32)
+    scale = rng.uniform(0.5, 1.5, N).astype(np.float32)
+    bias = (rng.standard_normal(N) * 0.1).astype(np.float32)
+    got = _tf32_emulate(*map(torch.from_numpy, (x, w, scale, bias)))
+    want = stem_conv_pallas(jnp.asarray(x), jnp.asarray(w), jnp.asarray(scale), jnp.asarray(bias),
+                            stride=2, padding=2, act="silu", out_dtype=jnp.float32,
+                            interpret=True)
+    assert tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+
+
+def test_stem_single_pass_tf32_misses_the_limit(rng):
+    """hi·hi alone (one TF32 pass, ~3 decimal digits) is far more than 1e-5
+    off JAX's f32 stem: why the kernel forms three products."""
+    x = rng.standard_normal((2, 64, 64, 3)).astype(np.float32)
+    w = (rng.standard_normal((6, 6, 3, 64)) * 0.1).astype(np.float32)
+    scale = rng.uniform(0.5, 1.5, 64).astype(np.float32)
+    bias = (rng.standard_normal(64) * 0.1).astype(np.float32)
+    got = _tf32_emulate(*map(torch.from_numpy, (x, w, scale, bias)), passes=1)
+    want = stem_conv_pallas(jnp.asarray(x), jnp.asarray(w), jnp.asarray(scale), jnp.asarray(bias),
+                            stride=2, padding=2, act="silu", out_dtype=jnp.float32,
+                            interpret=True)
+    assert np.abs(got.numpy() - np.asarray(want)).max() > 1e-4
+
+
+def test_stem_tf32_constants_and_width_limit():
+    """The kernel's plan, read from its source: 14 k-steps of 4 K pairs hold
+    the 54 pairs of K = 108; the ring holds a step's rows and the next
+    step's; ``stem_form`` takes images up to its ``MAX_W`` and no wider."""
+    c = kernels.constants("stem_tf32")
+    assert 4 * c["KSTEPS"] >= c["KPAIRS"] == c["KDIM"] // 2 == 54 and 4 * (c["KSTEPS"] - 1) < 54
+    assert c["NSLOT"] == (2 * c["ROWS"] + 4) + 2 * c["ROWS"]
+    wide = c["MAX_W"]
+    assert stem_form((1, 64, wide, 3), (6, 6, 3, 64), 2, 2, torch.float32) == "tf32"
+    assert stem_form((1, 64, wide + 1, 3), (6, 6, 3, 64), 2, 2, torch.float32) == "direct"
+
+
+def test_stem_tf32_off_the_cpu_launches_or_raises():
+    """Off the CPU the f32 form launches its kernel or raises: inputs not on
+    one CUDA device raise (meta tensors here: there is no card), and its
+    ``torch.library`` op's fake gives the plain version's shape and dtype."""
+    x, w = torch.empty((2, 20, 24, 3), device="meta"), torch.empty((6, 6, 3, 16), device="meta")
+    s, b = torch.empty(16, device="meta"), torch.empty(16, device="meta")
+    with pytest.raises(ValueError, match="one CUDA device"):
+        stem_conv(x, w, s, b, stride=2, padding=2, out_dtype=torch.float32)
+    with pytest.raises(ValueError, match="cannot take"):
+        stem_conv(x, w, s, b, stride=2, padding=2, out_dtype=torch.float32, form="tc")
+    got = torch.ops.hd_yolo_tpu_torch.stem_tf32(x, w, s, b)
+    want = stem_conv_plain(torch.zeros((2, 20, 24, 3)), torch.zeros((6, 6, 3, 16)),
+                           torch.ones(16), torch.zeros(16), stride=2, padding=2,
+                           out_dtype=torch.float32)
+    assert (tuple(got.shape), got.dtype) == (tuple(want.shape), want.dtype)

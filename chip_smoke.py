@@ -12,6 +12,8 @@ host-loader CLI, ``multihead``, ``anchor_free``, ``ensemble``,
 ``pretrained``, ``nucls_finetune``, ``hub``, ``hnet_darknet``, ``ddp``,
 ``occupancy`` and ``convergence`` phases 17–26 — and stop without the
 result lines.
+``--old-stem PATH``: an earlier ``kernels/stem.cu`` built and timed in
+turns with the direct stem at phase 3's X1 and X2.
 ``--hnet-loss-trials N``: phase 15's loss check N times, from the fresh
 model and 15 micro-steps in; ``--step-calls PATH``: both backwards timed at
 hnet training calls saved in PATH, captured first where it is absent, so
@@ -24,10 +26,19 @@ Phases (any failure raises and the script exits non-zero):
      ``nvcc -Xptxas -v``'s registers, shared memory and spills for the
      kernels redesigned for Hopper (``mask_head``, ``stem_tc``, ``nms``,
      ``roi_align``, ``roi_align_single``, ``stem_k108``, ``mask_head_f32``,
-     ``stem_tf32``);
+     ``stem_tf32``, ``stem``), the direct ``stem`` held to no spill, and its
+     plans (form, N tile, ring step, shared bytes) at X1 and X2;
   3. kernels: each kernel against its plain PyTorch version on the same
      inputs, at the flagship path's shapes, with the stated tolerance (NMS
-     bit-identical); median times (CUDA events, one call a window) of the
+     bit-identical).  The direct stem (``stem.cu``, tensor-core products for
+     the whole family) at yolov5x6's X1 (bf16 (16, 640, 640, 3) -> N 80)
+     and X2 (f32 (4, 1280, 1280, 3) -> N 80), forced at the flagship stem in
+     bf16 (atol 1e-2, rtol 2^-7) and f32 (atol 1e-5, also at (2, 128, 160,
+     3)), and at the family's other shapes (``DIRECT_FAMILY``: C 1, 2, 4;
+     k/s 2/2, 4/2, 4/4, 8/4) in both dtypes: two launches bit-identical,
+     device time against its bound and cuDNN's call, X1 and X2 against the
+     target of twice the bound, and in turns with the earlier direct
+     kernel built from ``--old-stem``'s source (it must be faster).  Then median times (CUDA events, one call a window) of the
      kernel, the plain version and, where one exists, a PyTorch library
      call, and the kernel's time again over windows of 5 back-to-back calls
      (device time only, without the wrapper's host time).  The bf16 stem
@@ -251,13 +262,18 @@ Phases (any failure raises and the script exits non-zero):
      epoch's validation; then the first epoch again with every
      ``roi_align_bwd`` call held against its plain version (as phase 14);
  22. hub presets at their published widths, written inline row for row
-     (ultralytics/yolov5 ``models/hub/yolov5s-ghost.yaml`` v6.0 and v3.1's
-     ``models/yolov5s.yaml``, nc 80) and parsed through
-     ``normalize_legacy_cfg``: seeded weights, objectness calibrated to 1%
-     of the anchors; one bf16 16 x 640 batch's launches (``stem_tc`` 1 for
-     the ghost model's N-32 stem, 0 behind v3.1's Focus; NMS 1), its NMS
-     call held bit for bit, the step and a profiled step; card vs CPU in
-     f32 on 2 x 640 (>= 98% of the CPU's detections found again); 8 updates
+     (ultralytics/yolov5 ``models/hub/yolov5s-ghost.yaml`` v6.0, v3.1's
+     ``models/yolov5s.yaml`` and ``models/hub/yolov5x6.yaml`` v6.0, nc 80)
+     and parsed through ``normalize_legacy_cfg``: seeded weights, objectness
+     calibrated to 1% of the anchors (yolov5x6 10%); one bf16 16 x 640
+     batch's launches (``stem_tc`` 1 for the ghost model's N-32 stem, 0
+     behind v3.1's Focus; the direct ``stem`` 1 for yolov5x6's N-80 stem, X1;
+     NMS 1), its NMS call held bit for bit and its direct stem call against
+     the plain version, the step and a profiled step; yolov5x6 also in f32
+     on 4 x 1280, its published input size (X2: the direct ``stem`` 1 at N
+     80, W 1280); card vs CPU in f32 on 2 x 640 (>= 98% of the CPU's
+     detections found again; yolov5x6's stem the direct kernel, X3); for
+     yolov5s-ghost and v3.1 ``yolov5s``, 8 updates
      from the fresh model with masks off on 16 tiles (every loss item
      finite, the box and class losses falling: the objectness rises in the
      bias warmup, and with it the total, as JAX's own chain does on the
@@ -353,6 +369,7 @@ line, and ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import os
@@ -420,7 +437,7 @@ FLAGSHIP_KERNELS = ("stem_tc", "nms", "roi_align", "mask_head")
 LAB_KERNELS = ("stem", "stem_k108", "stem_dot108", "stem_tc")
 # the kernels redesigned for Hopper: their ptxas report is printed at build
 REDESIGNED = ("mask_head", "stem_tc", "nms", "roi_align", "roi_align_single", "stem_k108",
-              "mask_head_f32", "stem_tf32")
+              "mask_head_f32", "stem_tf32", "stem")
 
 
 def slide_launches(n_batches: int) -> dict:
@@ -629,46 +646,165 @@ def nbytes(*ts) -> int:
 
 
 # ---------------------------------------------------------------- kernels
-def phase_stem(gen, iters):
-    """The direct kernel (stem.cu), forced at the 6x6/s2/p2 stem (on the
-    card ``stem_form`` picks ``stem_tc`` at bf16 and ``stem_tf32`` at f32
-    there): at the flagship shape in bf16 and in f32 against the plain
-    version, the f32 form also at a small shape; the f32 form timed at the
-    flagship shape beside its own bound."""
+# the direct kernel's path shapes, yolov5x6's stem Conv(3, 80, 6, 2, 2) in
+# phase 22: X1 bf16 16 x 640 (its batch there), X2 f32 4 x 1280 (its
+# published input size)
+DIRECT_PATHS = {"x1": ((16, 640, 640, 3), 80, torch.bfloat16),
+                "x2": ((4, 1280, 1280, 3), 80, torch.float32)}
+# the family's other shapes, 16 x 640 to N 64 in both dtypes: (C, k, s, p) —
+# 1, 2 and 4 channels at 6x6/s2/p2, and k/s 2/2, 4/2, 4/4, 8/4 over 3
+DIRECT_FAMILY = ((1, 6, 2, 2), (2, 6, 2, 2), (4, 6, 2, 2), (3, 2, 2, 0), (3, 4, 2, 1),
+                 (3, 4, 4, 0), (3, 8, 4, 2))
+# the earlier direct kernel (f32 FMAs on the CUDA cores), built from the
+# source ``--old-stem`` names, timed in turns with the redesign at X1 and X2
+OLD_STEM = {"src": None}
+
+
+def old_direct_stem(src: str):
+    """The earlier direct kernel's launch, built by ``nvcc`` from ``src``
+    (that commit's ``kernels/stem.cu``, its own C signature: a ``round_in``
+    flag and the weights rounded by the caller) into the build directory."""
+    import hashlib
+
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    out = os.path.join(kernels.BUILD_DIR, f"old_stem-{digest}.so")
+    if not os.path.isfile(out):
+        os.makedirs(kernels.BUILD_DIR, exist_ok=True)
+        subprocess.run([kernels.nvcc()] + kernels.ARCH_FLAGS + kernels.BASE_FLAGS +
+                       ["-I", os.path.dirname(kernels.__file__), "-o", out, src], check=True)
+    fn = ctypes.CDLL(out).stem_conv
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def call(x, w, scale, bias, stride, padding, out_dtype):
+        B, H, W, C = x.shape
+        K, N = w.shape[0], w.shape[-1]
+        Ho, Wo = (H + 2 * padding - K) // stride + 1, (W + 2 * padding - K) // stride + 1
+        bf16 = int(out_dtype == torch.bfloat16)
+        wk = (w.to(torch.bfloat16).float() if bf16 else w).contiguous()
+        y = torch.empty((B, Ho, Wo, N), dtype=out_dtype, device=x.device)
+        dev, stream = kernels.device_and_stream(x)
+        kernels.check(fn(x.data_ptr(), wk.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                         y.data_ptr(), B, H, W, C, K, stride, padding, N, Ho, Wo, bf16, bf16,
+                         dev, stream), "old stem_conv")
+        return y
+
+    return call
+
+
+def stem_bound(x, w, y):
+    """A stem's bound: x, w, scale and bias read and y written once, against
+    its products of K = k·k·C per output value — bf16 at bf16 compute, the
+    three TF32 products of split TF32 at f32."""
+    K, N = w.shape[0] * w.shape[1] * w.shape[2], w.shape[-1]
+    if y.dtype == torch.bfloat16:
+        return bound(nbytes(x, w, y) + 2 * N * 4, 2.0 * y.numel() * K, BF16_FLOPS)
+    return bound(nbytes(x, w, y) + 2 * N * 4, 3 * 2.0 * y.numel() * K, TF32_FLOPS)
+
+
+def direct_case(name, gen, x_shape, N, k, s, p, od, iters, w_scale=None, old=None):
+    """One shape of the direct kernel: one launch, against the plain version
+    (bf16 within one bf16 ulp: |d| <= 1e-2 + 2^-7·|plain|; f32 within 1e-5,
+    TF32 off), two launches bit-identical, then timed in turns with cuDNN's
+    conv + bias + SiLU (and the earlier direct kernel, ``old``) one call a
+    window and back to back, by its profiler device time, and against its
+    bound.  Returns the record and the inputs."""
     dev = "cuda"
-    x = torch.rand((16, 640, 640, 3), generator=gen, device=dev)
-    w = torch.randn((6, 6, 3, 64), generator=gen, device=dev) * 0.15
-    scale = torch.rand(64, generator=gen, device=dev) + 0.5
-    bias = torch.randn(64, generator=gen, device=dev) * 0.1
-    kw = dict(stride=2, padding=2, out_dtype=torch.bfloat16)
-    got = pallas_stem.stem_conv(x, w, scale, bias, form="direct", **kw)
-    want = pallas_stem.stem_conv_plain(x, w, scale, bias, **kw)
+    C = x_shape[-1]
+    x = torch.rand(x_shape, generator=gen, device=dev)
+    w = torch.randn((k, k, C, N), generator=gen, device=dev) * (
+        w_scale if w_scale is not None else 0.9 / (k * C ** 0.5))
+    scale = torch.rand(N, generator=gen, device=dev) + 0.5
+    bias = torch.randn(N, generator=gen, device=dev) * 0.1
+    kw = dict(stride=s, padding=p, out_dtype=od)
+    fn = lambda: pallas_stem.stem_conv(x, w, scale, bias, form="direct", **kw)  # noqa: E731
+    n0 = kernels.LAUNCHES["stem"]
+    got = fn()
     torch.cuda.synchronize()
-    # both round inputs to bf16 and accumulate in f32 (in other orders): one bf16 ulp
-    err = check_close("stem (direct, bf16)", got, want, atol=1e-2, rtol=2 ** -7)
-    kw32 = dict(stride=2, padding=2, out_dtype=torch.float32)
-    x32 = x[:2, :128, :160].contiguous()
-    check_close("stem (direct, f32) (2, 128, 160, 3)",
-                pallas_stem.stem_conv(x32, w, scale, bias, form="direct", **kw32),
-                pallas_stem.stem_conv_plain(x32, w, scale, bias, **kw32), atol=1e-5, rtol=0.0)
-    t = kernel_ms(lambda: pallas_stem.stem_conv(x, w, scale, bias, form="direct", **kw), iters)
-    plain_ms = cuda_ms(lambda: pallas_stem.stem_conv_plain(x, w, scale, bias, **kw), iters)
-    flops = 2.0 * got.numel() * 6 * 6 * 3
-    b_ms, by = bound(nbytes(x, w, scale, bias, got), flops, BF16_FLOPS)
-    # the f32 form (f32 output, CUDA-core f32 arithmetic) at the flagship shape
-    got32 = pallas_stem.stem_conv(x, w, scale, bias, form="direct", **kw32)
-    check_close("stem (direct, f32) (16, 640, 640, 3)", got32,
-                pallas_stem.stem_conv_plain(x, w, scale, bias, **kw32), atol=1e-5, rtol=0.0)
-    t32 = kernel_ms(lambda: pallas_stem.stem_conv(x, w, scale, bias, form="direct", **kw32), iters)
-    t32["bound_ms"], t32["bound_by"] = bound(nbytes(x, w, scale, bias, got32), flops, F32_FLOPS)
-    # its yardstick: cuDNN's f32 conv + bias, then SiLU, TF32 off (main sets it)
-    need(not torch.backends.cudnn.allow_tf32, "the f32 stem's yardstick runs with TF32 off")
-    t32["library_ms"] = cuda_ms(stem_library(x, w, scale, bias, torch.float32), iters)
-    log(f"  stem (direct, f32) (16, 640, 640, 3): {t32['ms']:.4f} ms a call "
-        f"({t32['ms_back_to_back']:.4f} back to back) | cuDNN f32 {t32['library_ms']:.4f} ms | "
-        f"bound {t32['bound_ms']:.4f} ms ({t32['bound_by']})")
-    return dict(max_abs_err=err, **t, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
-                library_ms=stem_library_ms(x, w, scale, bias, iters), f32=t32)
+    need(kernels.LAUNCHES["stem"] == n0 + 1, f"stem {name}: not one launch of the direct kernel")
+    want = pallas_stem.stem_conv_plain(x, w, scale, bias, **kw)
+    tol = dict(atol=1e-2, rtol=2 ** -7) if od == torch.bfloat16 else dict(atol=1e-5, rtol=0.0)
+    what = f"stem (direct) {name} {x_shape} k{k}/s{s}/p{p} N {N} {str(od)[6:]}"
+    err = check_close(what, got, want, **tol)
+    del want
+    need(torch.equal(got, fn()), f"{what}: two launches differ")
+    fns = {"direct": fn, "cuDNN": stem_library(x, w, scale, bias, od, s, p)}
+    if old is not None:
+        fns["old"] = lambda: old(x, w, scale, bias, s, p, od)
+    ms = cuda_ms_turns(fns, iters)
+    b2b = cuda_ms_turns(fns, iters, reps=B2B)
+    b_ms, by = stem_bound(x, w, got)
+    rec = dict(shape=list(x_shape), N=N, k=k, s=s, p=p, dtype=str(od)[6:], max_abs_err=err,
+               ms=ms["direct"], ms_back_to_back=b2b["direct"], device_ms=device_ms(fn),
+               bound_ms=b_ms, bound_by=by, library_ms=ms["cuDNN"],
+               library_ms_back_to_back=b2b["cuDNN"])
+    extra = ""
+    if old is not None:
+        rec.update(old_ms=ms["old"], old_ms_back_to_back=b2b["old"])
+        extra = f" | the earlier direct kernel {ms['old']:.4f} ({b2b['old']:.4f})"
+    log(f"  {what}: {rec['ms']:.4f} ms a call ({rec['ms_back_to_back']:.4f} back to back, device "
+        f"{rec['device_ms']:.4f}) | cuDNN {ms['cuDNN']:.4f} ({b2b['cuDNN']:.4f}){extra} | bound "
+        f"{b_ms:.4f} ({by}), {rec['device_ms'] / b_ms:.2f}x")
+    return rec, (x, w, scale, bias, kw)
+
+
+def phase_stem(gen, iters):
+    """The direct kernel (stem.cu, tensor-core products for every shape of
+    the family): yolov5x6's stem at X1 (bf16 (16, 640, 640, 3) -> N 80) and
+    X2 (f32 (4, 1280, 1280, 3) -> N 80), each also in turns with the
+    earlier direct kernel where ``--old-stem`` names its source; forced at
+    the flagship stem (16, 640, 640, 3) -> N 64 in bf16 and f32 (where
+    ``stem_form`` picks ``stem_tc`` and ``stem_tf32``), f32 also at (2,
+    128, 160, 3); the family's other shapes (``DIRECT_FAMILY``) in both
+    dtypes.  Each against the plain version, two launches bit-identical,
+    timed against its bound and cuDNN (``direct_case``); X1 and X2 against
+    the target of twice the bound and faster than cuDNN."""
+    need(not torch.backends.cudnn.allow_tf32, "the f32 stem's plain version runs with TF32 off")
+    old = old_direct_stem(OLD_STEM["src"]) if OLD_STEM["src"] else None
+    if old is None:
+        log("  (no --old-stem: the earlier direct kernel is not timed)")
+    res = {}
+    for key, (shape, N, od) in DIRECT_PATHS.items():
+        res[key], args = direct_case(key, gen, shape, N, 6, 2, 2, od, iters, w_scale=0.15,
+                                     old=old)
+        r = res[key]
+        r["target_met"] = r["ms_back_to_back"] <= 2 * r["bound_ms"] and r["ms"] < r["library_ms"]
+        log(f"  {key}: target (at most twice the bound {2 * r['bound_ms']:.4f} ms back to back, "
+            f"faster than cuDNN): {'met' if r['target_met'] else 'missed'}")
+        if old is not None:
+            need(r["ms"] < r["old_ms"] and r["ms_back_to_back"] < r["old_ms_back_to_back"],
+                 f"stem {key}: not faster than the earlier direct kernel: {r}")
+        if key == "x1":
+            x, w, scale, bias, kw = args
+            res["plain_ms"] = cuda_ms(lambda: pallas_stem.stem_conv_plain(x, w, scale, bias, **kw),
+                                      iters)
+        del args
+    # the flagship stem, forced: the two checks and tolerances the earlier kernel was held to
+    for key, od in (("flagship_bf16", torch.bfloat16), ("flagship_f32", torch.float32)):
+        res[key], args = direct_case(key, gen, (16, 640, 640, 3), 64, 6, 2, 2, od, iters,
+                                     w_scale=0.15)
+        if od == torch.float32:
+            x, w, scale, bias, kw = args
+            x32 = x[:2, :128, :160].contiguous()
+            check_close("stem (direct, f32) (2, 128, 160, 3)",
+                        pallas_stem.stem_conv(x32, w, scale, bias, form="direct", **kw),
+                        pallas_stem.stem_conv_plain(x32, w, scale, bias, **kw), atol=1e-5,
+                        rtol=0.0)
+        del args
+    res["family"] = []
+    for (C, k, s, p) in DIRECT_FAMILY:
+        for od in (torch.bfloat16, torch.float32):
+            r, args = direct_case("family", gen, (16, 640, 640, C), 64, k, s, p, od, iters)
+            res["family"].append(r)
+            del args
+    torch.cuda.empty_cache()
+    x1 = res["x1"]
+    return dict(max_abs_err=max([x1["max_abs_err"], res["x2"]["max_abs_err"]]
+                                + [r["max_abs_err"] for r in res["family"]]),
+                ms=x1["ms"], ms_back_to_back=x1["ms_back_to_back"], device_ms=x1["device_ms"],
+                plain_ms=res.pop("plain_ms"), bound_ms=x1["bound_ms"], bound_by=x1["bound_by"],
+                library_ms=x1["library_ms"], shapes=res)
 
 
 # the f32 stem paths' own shapes: the reference fixtures (phase 20), the f32
@@ -678,13 +814,6 @@ TF32_PATH_SHAPES = {"fixtures": ((1, 64, 64, 3), 8), "hnet_darknet": ((2, 128, 1
 # its time at the flagship shape, one call a window: at most half its bound
 # of bytes (0.1487 ms), the redesign's target
 TF32_TARGET_MS = 0.297
-
-
-def stem_tf32_bound(x, w, y):
-    """The split-TF32 stem's bound: x, w, scale, bias read and y written
-    once, against its three TF32 products of K = 108 per output value."""
-    N = w.shape[-1]
-    return bound(nbytes(x, w, y) + 2 * N * 4, 3 * 2.0 * y.numel() * 108, TF32_FLOPS)
 
 
 def clocks_under(fn, seconds: float = 1.5, samples: int = 3) -> list:
@@ -771,7 +900,7 @@ def phase_stem_tf32(gen, iters):
         fns = {"stem_tf32": lambda: pallas_stem.stem_conv(xp, wp, sp, bp, **kw),
                "cuDNN": stem_library(xp, wp, sp, bp, torch.float32)}
         ms = cuda_ms_turns(fns, iters)
-        b_ms, by = stem_tf32_bound(xp, wp, yp)
+        b_ms, by = stem_bound(xp, wp, yp)
         paths[name] = dict(shape=shape, n=n, max_abs_err=e, ms=ms["stem_tf32"],
                            ms_back_to_back=cuda_ms(fns["stem_tf32"], iters, reps=B2B),
                            bound_ms=b_ms, bound_by=by, library_ms=ms["cuDNN"])
@@ -796,7 +925,7 @@ def phase_stem_tf32(gen, iters):
     ms = cuda_ms_turns(fns, iters)
     b2b = cuda_ms_turns(fns, iters, reps=B2B)
     plain_ms = cuda_ms(lambda: pallas_stem.stem_conv_plain(x, w, scale, bias, **kw), iters)
-    b_ms, by = stem_tf32_bound(x, w, got)
+    b_ms, by = stem_bound(x, w, got)
     for name, t in (("one call a window", ms), (f"{B2B} back to back", b2b)):
         log(f"  stem at (16, 640, 640, 3) f32, in turns, {name}: stem_tf32 {t['stem_tf32']:.4f} ms "
             f"| direct {t['direct']:.4f} | cuDNN {t['cuDNN']:.4f} | bound {b_ms:.4f} ({by}); "
@@ -867,6 +996,7 @@ def phase_stem_tc(gen, iters):
     ms = cuda_ms_turns(fns, iters)
     b2b = cuda_ms_turns(fns, iters, reps=B2B)
     plain_ms = cuda_ms(lambda: pallas_stem.stem_conv_plain(x, w, scale, bias, **kw), iters)
+    dev = {k: device_ms(fns[k]) for k in ("stem_tc", "direct")}
     flops = 2.0 * got.numel() * stem_lab.KDIM
     b_ms, by = bound(nbytes(x, got, scale, bias) + stem_lab.KDIM * 64 * 2, flops, BF16_FLOPS)
     for name, t in (("one call a window", ms), (f"{B2B} back to back", b2b)):
@@ -874,11 +1004,20 @@ def phase_stem_tc(gen, iters):
             f"direct {t['direct']:.4f} | stem_k108 {t['stem_k108']:.4f} | cuDNN {t['cuDNN']:.4f} | "
             f"bound {b_ms:.4f} ({by}); target 2 x bound {2 * b_ms:.4f}: "
             f"{'met' if t['stem_tc'] <= 2 * b_ms else 'missed'}")
+    log(f"  stem_tc device time {dev['stem_tc']:.4f} ms (direct {dev['direct']:.4f}), "
+        f"{dev['stem_tc'] / b_ms:.2f}x its bound")
+    # what a window's predecessor costs: the same turns with the direct
+    # kernel's window first, so that it follows cuDNN's instead of stem_tc's
+    swapped = cuda_ms_turns({k: fns[k] for k in ("direct", "stem_tc", "stem_k108", "cuDNN")},
+                            iters)
+    log(f"  the same, one call a window, direct's window after cuDNN's: stem_tc "
+        f"{swapped['stem_tc']:.4f} ms | direct {swapped['direct']:.4f} (not a check)")
     need(ms["stem_tc"] < ms["direct"] and ms["stem_tc"] < ms["cuDNN"],
          f"stem_tc is not faster than both the direct kernel and cuDNN: {ms}")
     return dict(max_abs_err=err, ms=ms["stem_tc"], ms_back_to_back=b2b["stem_tc"],
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, library_ms=ms["cuDNN"],
-                turns={"one_call": ms, "back_to_back": b2b})
+                device_ms=dev["stem_tc"], turns={"one_call": ms, "back_to_back": b2b,
+                                                 "direct_first": swapped, "device": dev})
 
 
 def clustered_boxes(gen, B, K, dev, thr=0.45, extent=600.0, pairs_at=700.0):
@@ -1493,13 +1632,13 @@ def stem_inputs(gen):
     return x, w, scale, bias
 
 
-def stem_library(x, w, scale, bias, dtype=torch.bfloat16):
+def stem_library(x, w, scale, bias, dtype=torch.bfloat16, stride=2, padding=2):
     """cuDNN conv in ``dtype`` (bf16, or f32 with TF32 as the caller set it)
     with the scale folded into the weights + bias, then SiLU."""
     xl = x.to(dtype).permute(0, 3, 1, 2)
     wl = (w.permute(3, 2, 0, 1) * scale[:, None, None, None]).to(dtype)
     bl = bias.to(dtype)
-    return lambda: F.silu(F.conv2d(xl, wl, bl, 2, 2))
+    return lambda: F.silu(F.conv2d(xl, wl, bl, stride, padding))
 
 
 def stem_library_ms(x, w, scale, bias, iters):
@@ -4707,8 +4846,8 @@ def phase_nucls_finetune(iters: int):
     return {"micro_step": {k: v // max(n0, 1) for k, v in micro.items()}, "val": val_l}, info
 
 
-# ultralytics/yolov5 models/hub/yolov5s-ghost.yaml (v6.0) and v3.1's
-# models/yolov5s.yaml, row for row
+# ultralytics/yolov5 models/hub/yolov5s-ghost.yaml (v6.0), v3.1's
+# models/yolov5s.yaml and models/hub/yolov5x6.yaml (v6.0), row for row
 HUB_PRESETS = {
     "yolov5s-ghost": {
         "nc": 80, "depth_multiple": 0.33, "width_multiple": 0.50,
@@ -4744,7 +4883,46 @@ HUB_PRESETS = {
                  [-1, 3, "BottleneckCSP", [512, False]], [-1, 1, "Conv", [512, 3, 2]],
                  [[-1, 10], 1, "Concat", [1]], [-1, 3, "BottleneckCSP", [1024, False]],
                  [[17, 20, 23], 1, "Detect", ["nc", "anchors"]]]},
+    # the rows of configs/yolov5l6-mask.yaml (backbone and fpn, 0-32: the
+    # published yolov5l6 layout) with one Detect header and the x6 multiples
+    "yolov5x6": {
+        "nc": 80, "depth_multiple": 1.33, "width_multiple": 1.25,
+        "anchors": [[19, 27, 44, 40, 38, 94], [96, 68, 86, 152, 180, 137],
+                    [140, 301, 303, 264, 238, 542], [436, 615, 739, 380, 925, 792]],
+        "backbone": [[-1, 1, "Conv", [64, 6, 2, 2]], [-1, 1, "Conv", [128, 3, 2]],
+                     [-1, 3, "C3", [128]], [-1, 1, "Conv", [256, 3, 2]], [-1, 6, "C3", [256]],
+                     [-1, 1, "Conv", [512, 3, 2]], [-1, 9, "C3", [512]],
+                     [-1, 1, "Conv", [768, 3, 2]], [-1, 3, "C3", [768]],
+                     [-1, 1, "Conv", [1024, 3, 2]], [-1, 3, "C3", [1024]],
+                     [-1, 1, "SPPF", [1024, 5]]],
+        "head": [[-1, 1, "Conv", [768, 1, 1]], [-1, 1, "nn.Upsample", [None, 2, "nearest"]],
+                 [[-1, 8], 1, "Concat", [1]], [-1, 3, "C3", [768, False]],
+                 [-1, 1, "Conv", [512, 1, 1]], [-1, 1, "nn.Upsample", [None, 2, "nearest"]],
+                 [[-1, 6], 1, "Concat", [1]], [-1, 3, "C3", [512, False]],
+                 [-1, 1, "Conv", [256, 1, 1]], [-1, 1, "nn.Upsample", [None, 2, "nearest"]],
+                 [[-1, 4], 1, "Concat", [1]], [-1, 3, "C3", [256, False]],
+                 [-1, 1, "Conv", [256, 3, 2]], [[-1, 20], 1, "Concat", [1]],
+                 [-1, 3, "C3", [512, False]], [-1, 1, "Conv", [512, 3, 2]],
+                 [[-1, 16], 1, "Concat", [1]], [-1, 3, "C3", [768, False]],
+                 [-1, 1, "Conv", [768, 3, 2]], [[-1, 12], 1, "Concat", [1]],
+                 [-1, 3, "C3", [1024, False]],
+                 [[23, 26, 29, 32], 1, "Detect", ["nc", "anchors"]]]},
 }
+# the stem kernels one bf16 16 x 640 batch of each preset launches:
+# yolov5s-ghost's Conv(3, 32, 6, 2, 2) the bf16 ring form, v3.1's Focus none,
+# yolov5x6's Conv(3, 80, 6, 2, 2) the direct kernel (N 80 is not a multiple of
+# 16 that stem_tc takes)
+HUB_STEM = {"yolov5s-ghost": {"stem_tc": 1, "stem": 0, "stem_tf32": 0},
+            "yolov5s-v3.1": {"stem_tc": 0, "stem": 0, "stem_tf32": 0},
+            "yolov5x6": {"stem_tc": 0, "stem": 1, "stem_tf32": 0}}
+# the presets phase 22 trains (training never reaches a stem kernel)
+HUB_TRAIN = ("yolov5s-ghost", "yolov5s-v3.1")
+# the share of anchors whose objectness the calibration lifts over the
+# threshold: 1%, but 10% for yolov5x6, whose seeded P3-P6 boxes cluster so
+# that NMS keeps ~2 a tile of its 1% (255 candidates an image at 640 px)
+HUB_OBJ = {"yolov5x6": 0.1}
+# yolov5x6 in f32 at its published input size: one batch of 4 tiles of 1280 px
+X6_F32 = (4, 1280)
 
 
 def hub_train_reference(cfg, B: int = 2, size: int = 256, updates: int = 8) -> dict:
@@ -4777,15 +4955,63 @@ def hub_train_reference(cfg, B: int = 2, size: int = 256, updates: int = 8) -> d
     return {"losses_card": losses["cuda"], "losses_cpu": losses["cpu"], "max_rel_err": rel}
 
 
+@torch.no_grad()
+def hold_stem_calls(seen: dict, what: str) -> list:
+    """Each direct stem call a path made (``stem_op``'s arguments), on its
+    own inputs, against the plain version: bf16 within one bf16 ulp (atol
+    1e-2, rtol 2^-7), f32 within 1e-5 (TF32 off)."""
+    shapes = []
+    for (a, k) in seen.get("stem_op", []):
+        x, w, scale, bias, stride, padding, out_bf16 = a
+        od = torch.bfloat16 if out_bf16 else torch.float32
+        want = pallas_stem.stem_conv_plain(x, w, scale, bias, stride=stride, padding=padding,
+                                           out_dtype=od)
+        tol = dict(atol=1e-2, rtol=2 ** -7) if out_bf16 else dict(atol=1e-5, rtol=0.0)
+        check_close(f"{what}: stem at {tuple(x.shape)} -> N {w.shape[-1]}",
+                    pallas_stem.stem_op(*a), want, **tol)
+        shapes.append((tuple(x.shape), int(w.shape[-1]), str(od)))
+    return shapes
+
+
+def hub_path(name: str, det: Detector, x, iters: int, what: str) -> tuple:
+    """One batch of a hub preset through ``Detector.tiles``: its launches
+    (every count reset just before), the stem kernels it must launch
+    (``HUB_STEM``), one NMS, no mask kernel; the NMS and direct stem calls
+    held against their plain versions on the path's own inputs; the step's
+    median and a profiled step."""
+    calibrate_objectness(det, x, HUB_OBJ.get(name, 0.01))
+    det.tiles(x)
+    with capture_calls((pallas_nms, "nms_padded_pallas"), (pallas_stem, "stem_op")) as seen:
+        launches, out = path_launches(lambda: det.tiles(x))
+    for k, n in (*HUB_STEM[name].items(), ("nms", 1), ("roi_align", 0), ("mask_head", 0)):
+        need(launches[k] == n, f"{what}: {k} launched {launches[k]} times, expected {n}")
+    o = out["det"]
+    need(bool(torch.isfinite(o["boxes"]).all()) and int(o["valid"].sum()) >= x.shape[0],
+         f"{what}: non-finite boxes or too few detections")
+    r = {"detections_per_tile": int(o["valid"].sum()) / x.shape[0],
+         "held": hold_path_calls(seen, what), "stem_calls": hold_stem_calls(seen, what),
+         "step": timed_steps(lambda: det.tiles(x), iters)}
+    log(f"  {what}: launches {launches}; {r['detections_per_tile']:.2f} detections a tile; "
+        f"direct stem calls {r['stem_calls']}; step median {r['step']['median_ms']:.2f} ms over "
+        f"{iters} (min {r['step']['min_ms']:.2f}, max {r['step']['max_ms']:.2f}), "
+        f"{x.shape[0] * 1e3 / r['step']['median_ms']:.1f} tiles/s")
+    r["step"].update(profile_step(lambda: det.tiles(x)))
+    return launches, r
+
+
 def phase_hub(iters: int):
-    """Phase 22: two hub presets at their published widths, parsed by
+    """Phase 22: three hub presets at their published widths, parsed by
     ``normalize_legacy_cfg`` (tag ``det``, no mask branch), seeded weights
-    with the objectness calibrated: one bf16 16 x 640 batch's launches and
-    its NMS call held bit for bit, card vs CPU in f32 on 2 x 640, the step
-    and a profiled step, 8 updates from the fresh model, masks off, and the
-    f32 training card vs CPU (``hub_train_reference``)."""
+    with the objectness calibrated: one bf16 16 x 640 batch's launches (the
+    stem kernels of ``HUB_STEM``) and its NMS and direct stem calls held
+    against their plain versions (``hub_path``); yolov5x6 also in f32 at its
+    published 4 x 1280 (the direct kernel at N 80 and W 1280); card vs CPU
+    in f32 on 2 x 640; for the two small presets, 8 updates from the fresh
+    model, masks off, and the f32 training card vs CPU
+    (``hub_train_reference``)."""
     from hd_yolo_tpu_torch.engines.train_step import make_train_step, to_device
     from hd_yolo_tpu_torch.models.builder import normalize_legacy_cfg
+    from hd_yolo_tpu_torch.models.layers import ConvBnAct
 
     launches, info = {}, {}
     for p, (name, cfg) in enumerate(HUB_PRESETS.items()):
@@ -4796,44 +5022,53 @@ def phase_hub(iters: int):
         gen = torch.Generator(device="cuda").manual_seed(22 + p)
         x = torch.randint(0, 256, (16, 640, 640, 3), generator=gen, device="cuda",
                           dtype=torch.uint8)
-        det = Detector(cfg, "hyp-nuclei", device="cuda", seed=p)
-        calibrate_objectness(det, x, 0.01)
-        det.tiles(x)
-        with capture_calls((pallas_nms, "nms_padded_pallas")) as seen:
-            launches[name], out = path_launches(lambda: det.tiles(x))
-        stem_tc = 1 if name == "yolov5s-ghost" else 0
-        for k, n in (("stem_tc", stem_tc), ("stem", 0), ("nms", 1), ("roi_align", 0),
-                     ("mask_head", 0)):
-            need(launches[name][k] == n,
-                 f"{name}: {k} launched {launches[name][k]} times, expected {n}")
-        o = out["det"]
-        need(bool(torch.isfinite(o["boxes"]).all()) and int(o["valid"].sum()) >= 16,
-             f"{name}: non-finite boxes or too few detections")
+        det = Detector(cfg, "hyp-nuclei", input_size=640, device="cuda", seed=p)
         r["params"] = sum(q.numel() for q in det.model.parameters())
-        r["detections_per_tile"] = int(o["valid"].sum()) / 16
-        r["held"] = hold_path_calls(seen, name)
-        r["step"] = timed_steps(lambda: det.tiles(x), iters)
-        log(f"  {name} ({r['params']:,} parameters): launches {launches[name]}; "
-            f"{r['detections_per_tile']:.2f} detections a tile; step median "
-            f"{r['step']['median_ms']:.2f} ms over {iters} (min {r['step']['min_ms']:.2f}, max "
-            f"{r['step']['max_ms']:.2f}), {16e3 / r['step']['median_ms']:.1f} tiles/s")
-        r["step"].update(profile_step(lambda: det.tiles(x)))
+        stem = next(m for m in det.model.modules() if isinstance(m, ConvBnAct))
+        r["stem"] = [stem.conv.in_channels, stem.conv.out_channels, stem.conv.kernel_size[0],
+                     stem.conv.stride[0], stem.conv.padding[0]]
+        log(f"  {name}: {r['params']:,} parameters, first conv (C, N, k, s, p) {r['stem']}")
+        launches[name], r["bf16_16x640"] = hub_path(name, det, x, iters, f"{name} bf16 16 x 640")
         del det
         torch.cuda.empty_cache()
+        if name == "yolov5x6":
+            need(r["stem"] == [3, 80, 6, 2, 2], f"yolov5x6's stem is {r['stem']}")
+            B2, S2 = X6_F32
+            x2 = torch.randint(0, 256, (B2, S2, S2, 3), generator=gen, device="cuda",
+                               dtype=torch.uint8)
+            det = Detector(cfg, "hyp-nuclei", input_size=S2, device="cuda",
+                           dtype=torch.float32, seed=p)
+            launches[f"{name}-f32"], r[f"f32_{B2}x{S2}"] = hub_path(
+                name, det, x2, iters, f"{name} f32 {B2} x {S2}")
+            del det, x2
+            torch.cuda.empty_cache()
 
         # the card against the CPU in f32
         xs = np.random.default_rng(22 + p).integers(0, 256, (2, 640, 640, 3), dtype=np.uint8)
         gpu = Detector(cfg, "hyp-nuclei", device="cuda", dtype=torch.float32, seed=p)
-        calibrate_objectness(gpu, xs, 0.01)
+        calibrate_objectness(gpu, xs, HUB_OBJ.get(name, 0.01))
         cpu = Detector(cfg, "hyp-nuclei", device="cpu", dtype=torch.float32, seed=p)
         cpu.model.load_state_dict(gpu.model.state_dict())
+        kernels.reset_launches()
         a = {k: t.cpu() for k, t in gpu.tiles(xs)["det"].items()}
-        matched, total, _ = match_detections(a, cpu.tiles(xs)["det"])
+        ref_launches = {k: kernels.LAUNCHES[k] for k in ("stem", "stem_tc", "stem_tf32", "nms")}
+        t0 = time.perf_counter()
+        b = cpu.tiles(xs)["det"]
+        cpu_s = time.perf_counter() - t0
+        matched, total, _ = match_detections(a, b)
         need(total >= 10 and matched >= 0.98 * total,
              f"{name}: {matched} of the CPU's {total} detections found again on the card")
-        r["reference"] = {"detections_cpu": total, "matched": matched}
-        log(f"  {name} f32 2 x 640: {matched} of the CPU's {total} detections found again")
+        r["reference"] = {"detections_cpu": total, "matched": matched, "launches": ref_launches,
+                          "cpu_forward_s": cpu_s}
+        log(f"  {name} f32 2 x 640: {matched} of the CPU's {total} detections found again "
+            f"(the card's launches {ref_launches}; the CPU forward {cpu_s:.1f} s)")
         del gpu, cpu
+        if name == "yolov5x6":
+            need(ref_launches["stem"] == 1 and ref_launches["stem_tc"] == 0
+                 and ref_launches["stem_tf32"] == 0,
+                 f"yolov5x6 f32 2 x 640: stem launches {ref_launches}, expected the direct one")
+        if name not in HUB_TRAIN:
+            continue
 
         # training from the fresh model, masks off
         state, _ = train_phase_state(cfg)
@@ -5803,8 +6038,8 @@ ONLY_PATHS = {
                   "flagship from both layouts by bare name",
     "nucls_finetune": "[21] NuCLS fine-tune: 64 synthetic FOVs converted, train.main on the "
                       "flagship from the ultralytics .pt, batch 16 x 640, bf16, masks",
-    "hub": "[22] hub presets at published widths: yolov5s-ghost (v6.0), yolov5s (v3.1), batch "
-           "16 x 640, bf16",
+    "hub": "[22] hub presets at published widths: yolov5s-ghost (v6.0), yolov5s (v3.1), "
+           "yolov5x6 (v6.0), batch 16 x 640, bf16; yolov5x6 also f32 4 x 1280",
     "hnet_darknet": "[23] hnet-darknet: darknet trunk, 17 keypoints, FCOS header, batch 4 x 640, "
                     "bf16; SRGAN; the swin importer",
     "ddp": "[24] ddp: the flagship across processes at world 1 on NCCL, batch 16 x 640, bf16, "
@@ -5834,10 +6069,15 @@ def main(argv=None) -> int:
                          "every phase")
     ap.add_argument("--hnet-loss-trials", type=int, default=0, metavar="N",
                     help="build, run phase 15's loss check N times (hnet_loss_trials) and stop")
+    ap.add_argument("--old-stem", default="", metavar="PATH",
+                    help="the source of an earlier kernels/stem.cu (its C signature with "
+                         "round_in), built and timed in turns with the direct kernel at phase "
+                         "3's X1 and X2")
     ap.add_argument("--step-calls", default="", metavar="PATH",
                     help="build, time the two ROI-align backwards at one hnet step's calls "
                          "saved in PATH (captured first where it does not exist) and stop")
     args = ap.parse_args(argv)
+    OLD_STEM["src"] = os.path.abspath(args.old_stem) if args.old_stem else None
     only = {k for k in args.only.split(",") if k}
     if only - set(TPU_KERNEL) - set(ONLY_PATHS):
         ap.error(f"unknown kernels {sorted(only - set(TPU_KERNEL) - set(ONLY_PATHS))}; choose "
@@ -5874,6 +6114,18 @@ def main(argv=None) -> int:
         for line in reports[k].splitlines():
             if "Used" in line or "spill" in line or "C75" in line:
                 log(f"  {k}: {line}")
+    spills = [line for line in reports["stem"].splitlines()
+              if "spill" in line and not line.endswith("0 bytes spill stores, 0 bytes spill loads")]
+    need(not spills, f"the direct stem kernel spills: {spills}")
+    plans = {}
+    for key, (shape, N, od) in DIRECT_PATHS.items():
+        info = (ctypes.c_int * 7)()
+        B, H, W, C = shape
+        kernels.check(kernels.fn("stem_conv_plan")(H, W, C, 6, 2, 2, N, H // 2, W // 2,
+                                                   int(od == torch.bfloat16), info), "plan")
+        plans[key] = dict(zip(("form", "n_tile", "rows", "slots", "slot_floats", "ksteps",
+                               "smem_bytes"), list(info)))
+    log(f"  stem (direct) plans (form 0 bf16, 1 split TF32): {plans}")
     log(f"  dynamic shared memory per block: mask_head {kernels.fn('mask_head_smem_bytes')()} B; "
         f"mask_head_f32 {kernels.fn('mask_head_f32_smem_bytes')()} B; "
         f"stem_tc at W 640, N 64 {kernels.fn('stem_tc_smem_bytes')(640, 320, 64)} B "
@@ -6006,6 +6258,7 @@ def main(argv=None) -> int:
              "nucls_finetune": nucls_launches["micro_step"],
              "nucls_finetune_val": nucls_launches["val"],
              "hub_ghost": hub_launches["yolov5s-ghost"], "hub_v3.1": hub_launches["yolov5s-v3.1"],
+             "hub_x6": hub_launches["yolov5x6"], "hub_x6_f32": hub_launches["yolov5x6-f32"],
              "hnet_darknet": hd_launches, "hnet_darknet_train": hd_train_launches,
              "ddp_step": ddp_step_launches, "ddp_slide": ddp_slide_launches,
              "ddp_hnet_step": ddp_hnet_launches, "occupancy": occ_launches,
@@ -6013,7 +6266,7 @@ def main(argv=None) -> int:
     main_path = {k: "flagship" for k in FLAGSHIP_KERNELS}
     main_path.update(mask_head_f32="pretrained", stem_tf32="pretrained", roi_align_single="hnet",
                      stem_k108="lab",
-                     stem_dot108="lab", stem="lab", roi_align_bwd="train",
+                     stem_dot108="lab", stem="hub_x6", roi_align_bwd="train",
                      roi_align_single_bwd="hnet_train")
     results["nms"]["stitch"] = stitch
     results["nms"]["hnet"] = {k: v for k, v in hnet_times.items() if k.startswith("nms")}

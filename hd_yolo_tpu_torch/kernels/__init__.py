@@ -70,7 +70,8 @@ _F = ctypes.c_float
 
 # C signatures: name → (library, argtypes)
 _SIGNATURES = {
-    "stem_conv": ("stem", [_P] * 5 + [_I] * 13 + [_P]),
+    "stem_conv": ("stem", [_P] * 5 + [_I] * 12 + [_P]),
+    "stem_conv_plan": ("stem", [_I] * 10 + [_P]),
     "nms_keep": ("nms", [_P] * 5 + [_I, _I, _I, _F, _I, _P]),
     "roi_align_bounded": ("roi_align", [_P, _I] + [_P] * 6 + [_I] * 8 + [_P]),
     "roi_align_bounded_bwd": ("roi_align_bwd", [ctypes.c_char_p, _I] + [_P] * 7 + [_I] * 9 + [_P]),

@@ -8,24 +8,25 @@
 // concatenates the 9 taps along lanes and takes one K=108 MXU dot with the
 // BN affine and SiLU fused.  Same function and rounding points: x rounded
 // to bf16 (the s2d cast), bf16 weights, f32 accumulation over the same 7
-// mma.sync k-steps in the same K order, acc * scale + bias and SiLU in f32,
-// one bf16 write.
+// k16 steps in the same K order, acc * scale + bias and SiLU in f32, one
+// bf16 write.
 //
 // Bound on an H100: memory.  At (16, 640, 640, 3) it reads the f32 image
 // (78.6 MB) and writes the (16, 320, 320, 64) bf16 map (209.7 MB) while doing
 // 22.6 GFLOP of bf16 products (0.023 ms at 989 TFLOP/s, against 0.086 ms of
-// bytes).  Design: the raw-row ring of stem_ring.cuh, shared with stem_tc.cu.
-// In the s2d order k = tap·12 + dy·6 + dx·3 + c (tap = 3ky' + kx') reads x
-// row 2oy-2+2ky'+dy at columns 2ox-2+2kx'+dx, so for a fixed (tap, dy) its 6
-// K values are 6 contiguous floats of one raw image row, and (6 being even)
-// every bf16 pair of an A fragment is one 8-byte shared load.  The kernel
-// keeps no s2d tensor and builds no band: raw f32 rows stream into a ring
-// of slots by 16-byte cp.async, two output rows ahead, in persistent
-// blocks, and w_108's fragments stay resident (staged by the kernel from
-// the f32 (6, 6, 3, 64) weight, rounded to bf16 as w_108 is: no conversion
-// launch a call).  (The first version staged a bf16 s2d band per 4 output
-// rows with element-wise div/mod, 4-byte reads and scattered 2-byte shared
-// stores, the tensor cores idle meanwhile.)
+// bytes).  Design: the image-row ring of stem_ring.cuh, shared with
+// stem_tc.cu.  In the s2d order k = tap·12 + dy·6 + dx·3 + c (tap = 3ky' +
+// kx') reads x row 2oy-2+2ky'+dy at columns 2ox-2+2kx'+dx, so for a fixed
+// (tap, dy) its 6 K values are 6 contiguous values of one image row, and
+// (6 being even) every bf16 pair of an A fragment is one 4-byte shared
+// load from the ring's bf16 rows.  The kernel keeps no s2d tensor and
+// builds no band: f32 rows stream in by 16-byte cp.async a ring step ahead
+// and are rounded into the ring, in persistent blocks, and w_108 stays
+// resident as wgmma's B (staged by the kernel from the f32 (6, 6, 3, 64)
+// weight, rounded to bf16 as w_108 is: no conversion launch a call).  (The
+// first version staged a bf16 s2d band per 4 output rows with element-wise
+// div/mod, 4-byte reads and scattered 2-byte shared stores, the tensor
+// cores idle meanwhile.)
 
 #include "stem_ring.cuh"
 

@@ -3,19 +3,21 @@
 // channels, as one K=108 tensor-core product per pixel.
 //
 // Replaces the TPU kernel hd_yolo_tpu/ops/pallas_stem.py `_stem_kernel`
-// (reached through `stem_conv_pallas`) on the trunk's bf16 path; the direct
-// kernel (stem.cu) keeps f32 compute and the other shapes of the family.
+// (reached through `stem_conv_pallas`) on the trunk's bf16 path; stem_tf32.cu
+// takes f32 compute and the direct kernel (stem.cu) the other shapes of the
+// family.
 // Same function and rounding points: x and w rounded to bf16, f32
 // accumulation, the affine and SiLU in f32, one bf16 write.
 //
 // Bound on an H100: memory.  At (16, 640, 640, 3) -> (16, 320, 320, 64) it
 // reads the f32 image (78.6 MB) and writes the bf16 map (209.7 MB) for
 // 22.6 GFLOP of bf16 products (0.023 ms at 989 TFLOP/s, against 0.086 ms of
-// bytes).  Design: the raw-row ring of stem_ring.cuh with K in (ky, kx, c)
-// order, the weight's own (6, 6, 3, N) order, so for a fixed input row ky
-// one output pixel's 18 K values are 18 contiguous floats of that row
-// (columns 2ox-2 .. 2ox+3); the f32 weights are rounded to bf16 as they are
-// staged.
+// bytes).  Design: the ring of stem_ring.cuh (image rows rounded to bf16,
+// two output rows a step, one a warpgroup, products on wgmma m64nNk16)
+// with K in (ky, kx, c) order, the weight's own (6, 6, 3, N) order, so for
+// a fixed input row ky one output pixel's 18 K values are 18 contiguous
+// values of that row (columns 2ox-2 .. 2ox+3); the f32 weights are rounded
+// to bf16 as they are staged.
 
 #include "stem_ring.cuh"
 

@@ -13,14 +13,19 @@ CUDA tensor :func:`stem_form` picks the kernel for the 6x6/s2/p2 stem over
 configs) the bf16 tensor-core kernel ``stem_tc``, at f32 compute (N a
 multiple of 8 from 8 to 64, images up to ``stem_tf32.cu``'s ``MAX_W``
 wide) the split-TF32 tensor-core kernel ``stem_tf32``; every other shape of
-the family launches the direct kernel ``stem``.
+the family (yolov5x6's N 80 stem in either dtype, f32 wider than
+``MAX_W`` or N above 64, any other k, s, p or C) launches the direct kernel
+``stem``: the same products on the tensor cores (bf16, or split TF32) for
+any (k, s, C), over a ring of raw input rows of a 64-column window, N tiled
+across blocks.
 
-Both tensor-core forms take, per output pixel, K = 108 in the weight's own
-(ky, kx, c) order — for ky in 0..5 the 18 floats of input row 2oy-2+ky from
-column 2ox-2 on, contiguous in the image — against the (6, 6, 3, N) weight
-seen as (108, N); ``stem_tc`` rounds both to bf16 as it stages them,
-``stem_tf32`` splits both into tf32 hi and lo (``split_tf32`` of
-``ops/pallas_mask_head``) and forms each product as lo·hi + hi·lo + hi·hi.
+All three take, per output pixel, K = k·k·C in the weight's own (ky, kx, c)
+order: for each ky the k·C floats of input row oy·s-p+ky from column
+ox·s-p on, contiguous in the image (at the 6x6/s2/p2 stem the 18 floats of
+row 2oy-2+ky from column 2ox-2), against the (k, k, C, N) weight seen as
+(k·k·C, N).  At bf16 compute the kernels round both to bf16 as they stage
+them; at f32 they split both into tf32 hi and lo (``split_tf32`` of
+``ops/pallas_mask_head``) and form each product as lo·hi + hi·lo + hi·hi.
 
 Each kernel is a ``torch.library`` op (``hd_yolo_tpu_torch::stem_tc``,
 ``hd_yolo_tpu_torch::stem_tf32``, ``hd_yolo_tpu_torch::stem``) whose body is
@@ -78,14 +83,15 @@ def _launch_direct(x, w, scale, bias, stride, padding, out_dtype):
     B, H, W, C = x.shape
     K, N = w.shape[0], w.shape[-1]
     Ho, Wo = _out_hw(x, w, stride, padding)
-    cd = torch.bfloat16 if out_dtype == torch.bfloat16 else torch.float32
-    wk = w.to(cd).float().contiguous()            # weights rounded like the plain version
+    if x.data_ptr() % 16:                         # its 16-byte row copies need an aligned image
+        x = x.clone()
+    wk = w.float().contiguous()                   # rounded or split by the kernel as it stages it
     y = torch.empty((B, Ho, Wo, N), dtype=out_dtype, device=x.device)
     dev, stream = kernels.device_and_stream(x)
     code = kernels.fn("stem_conv")(
         x.data_ptr(), wk.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
         B, H, W, C, K, stride, padding, N, Ho, Wo, 1 if out_dtype == torch.bfloat16 else 0,
-        1 if cd == torch.bfloat16 else 0, dev, stream)
+        dev, stream)
     kernels.check(code, "stem_conv")
     kernels.LAUNCHES["stem"] += 1
     return y

@@ -14,15 +14,15 @@ with bf16 operands and f32 accumulation:
   s2d            pad + space-to-depth(2) → dense 3x3 conv over 12 channels
   im2col         s2d + 9-tap concat (K = 108) → one matmul
   stem_cu        ``ops/pallas_stem.stem_conv(form="direct")``: the direct
-                 stem kernel (f32 CUDA cores, ``kernels/stem.cu``)
+                 stem kernel (the family's tensor-core kernel, ``kernels/stem.cu``)
   stem_k108      ``stem_k108``: the K=108 tensor-core product in the s2d
-                 tap-major K order, raw f32 image rows streamed through a
+                 tap-major K order, image rows streamed through a
                  shared-memory ring (``kernels/stem_k108.cu``)
   stem_dot108    ``stem_dot108``: torch builds the K=108 im2col, the kernel
                  does the product + BN + SiLU (``kernels/stem_dot108.cu``)
   stem_tc        ``ops/pallas_stem.stem_conv(form="tc")``: the trunk's bf16
-                 stem, raw f32 image rows streamed through a shared-memory
-                 ring + one K=108 tensor-core product (``kernels/stem_tc.cu``)
+                 stem, image rows streamed through a shared-memory ring +
+                 one K=108 tensor-core product (``kernels/stem_tc.cu``)
 
 Run::
 

@@ -9,6 +9,7 @@ Run on a machine with a card:
 (``--noconftest``: the suite's conftest imports JAX, which the card's machine need not have.)
 """
 
+import ctypes
 import math
 
 import pytest
@@ -51,6 +52,68 @@ def test_stem_kernel_f32_matches_plain(cuda, H, W, K, s, p, C, N):
     assert kernels.LAUNCHES["stem"] == n0 + 1
     want = pallas_stem.stem_conv_plain(x, w, scale, bias, **kw)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+# (B, H, W, C, k, s, p, N): yolov5x6's stem (N 80) at 640 and 1280 px, f32
+# wider than stem_tf32's MAX_W, N above 64 up to 256, C 1 / 2 / 4, the family's
+# other (k, s), an odd k·C and s·C (pairs read as two floats)
+DIRECT_SHAPES = [(2, 640, 640, 3, 6, 2, 2, 80), (1, 1280, 1280, 3, 6, 2, 2, 80),
+                 (1, 64, 1300, 3, 6, 2, 2, 64), (2, 64, 64, 4, 6, 2, 2, 256),
+                 (2, 64, 70, 1, 6, 2, 2, 64), (2, 64, 70, 2, 6, 2, 2, 64),
+                 (2, 64, 70, 4, 6, 2, 2, 64), (2, 64, 66, 3, 2, 2, 0, 32),
+                 (2, 64, 66, 3, 4, 2, 1, 48), (2, 40, 48, 3, 4, 4, 0, 96),
+                 (2, 64, 72, 4, 8, 4, 2, 24), (2, 33, 47, 3, 3, 3, 1, 16),
+                 (2, 33, 47, 1, 3, 3, 1, 40)]
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("B,H,W,C,K,s,p,N", DIRECT_SHAPES)
+def test_stem_direct_kernel_matches_plain(cuda, B, H, W, C, K, s, p, N, out_dtype):
+    """The redesigned direct kernel (stem.cu, tensor-core products) at the
+    shapes ``stem_form`` sends it and the family's others: one launch,
+    within one bf16 ulp (bf16) or 1e-5 (split TF32) of plain, two launches
+    bit-identical."""
+    x = torch.rand((B, H, W, C), generator=cuda, device="cuda")
+    w = torch.randn((K, K, C, N), generator=cuda, device="cuda") * (0.9 / (K * C ** 0.5))
+    scale = torch.rand(N, generator=cuda, device="cuda") + 0.5
+    bias = torch.randn(N, generator=cuda, device="cuda") * 0.1
+    kw = dict(stride=s, padding=p, out_dtype=out_dtype)
+    n0 = kernels.LAUNCHES["stem"]
+    got = pallas_stem.stem_conv(x, w, scale, bias, form="direct", **kw)
+    assert kernels.LAUNCHES["stem"] == n0 + 1
+    want = pallas_stem.stem_conv_plain(x, w, scale, bias, **kw)
+    if out_dtype == torch.bfloat16:
+        torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7, atol=1e-2)
+    else:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    assert torch.equal(got, pallas_stem.stem_conv(x, w, scale, bias, form="direct", **kw))
+
+
+def test_stem_direct_kernel_with_unsplit_weights(cuda):
+    """A 32x32/s2 kernel over 4 channels (K = 4096): its split-TF32 weights do
+    not fit beside the ring even at N tile 8, so the kernel stages them
+    whole and splits them as it reads them.  Against the exact (f64) stem
+    within what its f32 accumulation can lose: the tensor cores truncate
+    each accumulate, up to one f32 ulp of the running sum at each of its
+    512 k-steps (it reads 3.3e-05 here, where 1e-5 holds the 108-deep 6x6
+    stems)."""
+    x = torch.rand((1, 64, 400, 4), generator=cuda, device="cuda")
+    w = torch.randn((32, 32, 4, 8), generator=cuda, device="cuda") * (0.9 / 64)
+    scale = torch.rand(8, generator=cuda, device="cuda") + 0.5
+    bias = torch.randn(8, generator=cuda, device="cuda") * 0.1
+    info = (ctypes.c_int * 7)()
+    assert kernels.fn("stem_conv_plan")(64, 400, 4, 32, 2, 4, 8, 21, 189, 0, info) == 0
+    assert info[0] == 2                               # the form with unsplit weights
+    got = pallas_stem.stem_conv(x, w, scale, bias, stride=2, padding=4, out_dtype=torch.float32)
+    y = torch.nn.functional.conv2d(x.double().permute(0, 3, 1, 2),
+                                   w.double().permute(3, 2, 0, 1), stride=2, padding=4)
+    want = torch.nn.functional.silu(y * scale.double()[:, None, None]
+                                    + bias.double()[:, None, None]).permute(0, 2, 3, 1)
+    assert got.shape == want.shape == (1, 21, 189, 8)
+    ksteps = info[5]
+    assert ksteps == 512
+    torch.testing.assert_close(got.double(), want, rtol=0,
+                               atol=ksteps * 2 ** -23 * float(want.abs().max()))
 
 
 @pytest.mark.parametrize("B,H,W,N", [(1, 64, 64, 8), (2, 128, 128, 16), (4, 128, 128, 32),
@@ -230,12 +293,14 @@ def test_roi_align_kernel_hnet_canvas_shapes(cuda, K, M, dtype):
 
 @pytest.mark.parametrize("B,H,W,N", [(16, 640, 640, 64), (1, 256, 256, 32), (2, 600, 904, 64),
                                      (3, 37, 91, 64), (2, 255, 130, 32), (1, 9, 6, 16),
-                                     (2, 61, 50, 48)])
+                                     (2, 61, 50, 48), (4, 640, 640, 32), (1, 1280, 1280, 64)])
 def test_stem_tc_kernel_matches_plain(cuda, B, H, W, N):
     """The bf16 stem form: odd H, widths that are not 16-pixel multiples,
-    W % 4 != 0 (4-byte row copies), each N the kernel takes, pre-activations
-    out to |v| ~ 15 (SiLU's negative tail included).  One bf16 ulp:
-    |d| <= 1e-3 + 2^-7·|plain|; the direct kernel is not launched."""
+    W % 4 != 0 (4-byte row copies), each N the kernel takes, runs whose
+    last ring step has one output row (hnet-darknet's 4 x 640), a 1280 px
+    image, pre-activations out to |v| ~ 15 (SiLU's negative tail included).
+    One bf16 ulp: |d| <= 1e-3 + 2^-7·|plain|; the direct kernel is not
+    launched."""
     x = torch.rand((B, H, W, 3), generator=cuda, device="cuda")
     w = torch.randn((6, 6, 3, N), generator=cuda, device="cuda") * 0.6
     scale = torch.rand(N, generator=cuda, device="cuda") + 0.5

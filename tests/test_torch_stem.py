@@ -20,7 +20,8 @@ from hd_yolo_tpu_torch.ops.pallas_mask_head import split_tf32
 from hd_yolo_tpu_torch.ops.pallas_stem import stem_conv, stem_conv_plain, stem_form
 
 CASES = [(64, 64, 6, 2, 2, 3, 64), (40, 48, 4, 4, 0, 3, 96), (64, 64, 2, 2, 0, 4, 32),
-         (37, 91, 6, 2, 2, 3, 64)]          # odd sizes: the TPU kernel pads past H+2p
+         (37, 91, 6, 2, 2, 3, 64),          # odd sizes: the TPU kernel pads past H+2p
+         (36, 150, 6, 2, 2, 3, 80)]         # yolov5x6's stem, N 80; its output crosses a window
 
 
 @pytest.mark.parametrize("H,W,K,s,p,C,N", CASES)
@@ -98,6 +99,9 @@ def test_convbnact_stem_matches_flax_layer(rng):
     ((2, 40, 48, 3), (4, 4, 3, 96), 4, 0, torch.float32, "direct"),
     ((2, 40, 48, 3), (4, 4, 3, 32), 4, 0, torch.float32, "direct"),
     ((1, 64, 1024, 3), (6, 6, 3, 64), 2, 2, torch.float32, "direct"),  # wider than its ring
+    ((16, 640, 640, 3), (6, 6, 3, 80), 2, 2, torch.bfloat16, "direct"),  # yolov5x6, bf16
+    ((2, 640, 640, 3), (6, 6, 3, 80), 2, 2, torch.float32, "direct"),    # yolov5x6, f32
+    ((4, 1280, 1280, 3), (6, 6, 3, 64), 2, 2, torch.float32, "direct"),  # f32 at 1280 px
 ])
 def test_stem_form(x_shape, w_shape, s, p, dtype, form):
     assert stem_form(x_shape, w_shape, s, p, dtype) == form
@@ -238,3 +242,191 @@ def test_stem_tf32_off_the_cpu_launches_or_raises():
                            torch.ones(16), torch.zeros(16), stride=2, padding=2,
                            out_dtype=torch.float32)
     assert (tuple(got.shape), got.dtype) == (tuple(want.shape), want.dtype)
+
+
+def _direct_plan(H, W, C, k, s, p, N, bf16, rows):
+    """The direct kernel's (stem.cu) geometry, from its own constants: K
+    pairs of k row segments of k·C floats, k-steps of 8 pairs (bf16) or 4
+    (split TF32), windows of TW output columns, ring slots of a window's
+    input columns, a ring step of ``rows`` output rows and its shared bytes
+    at N tile ``nb``."""
+    c = kernels.constants("stem")
+    L = k * C
+    lp = (L + 1) // 2
+    pstep = 8 if bf16 else 4
+    ksteps = -(-k * lp // pstep)
+    slot_floats = (((c["TW"] - 1) * s + k) * C + 4 + 3) & ~3
+    nslot = (2 * rows - 1) * s + k
+
+    def smem(nb, bwords):
+        stage = 8 * 16 * (nb // 2 + 4) if bf16 else 0
+        fixed = ksteps * (nb // 8) * 32 * bwords * 4 + stage * 4 + 2 * nb * 4 + ksteps * pstep * 4
+        return ((fixed + 15) & ~15) + nslot * slot_floats * 4
+
+    return dict(L=L, lp=lp, npairs=k * lp, pstep=pstep, ksteps=ksteps, TW=c["TW"], MT=c["MT"],
+                slot_floats=slot_floats, nslot=nslot, rows=rows, smem=smem)
+
+
+def _direct_emulate(x, w, scale, bias, k, s, p, bf16, rows=4, runs=1):
+    """The direct kernel's arithmetic on the CPU, block by block as it runs:
+    per (image, run of output rows, 64-column window) a ring of raw input
+    rows, each slot the window's floats from the 16-byte boundary at or
+    before its first one (zero outside the image); the pair table (an odd
+    k·C's last pair padded); each warp's 16 pixels' A rows read from the
+    ring at the pair offsets; then bf16 operands with an exact product, or
+    split TF32 k-step by k-step into the two accumulators, and the
+    epilogue."""
+    B, H, W, C = x.shape
+    N = w.shape[-1]
+    Ho, Wo = (H + 2 * p - k) // s + 1, (W + 2 * p - k) // s + 1
+    P = _direct_plan(H, W, C, k, s, p, N, bf16, rows)
+    L, lp, sf, nslot, TW = P["L"], P["lp"], P["slot_floats"], P["nslot"], P["TW"]
+    npp = P["ksteps"] * P["pstep"]
+    q = torch.arange(npp)
+    live = q < P["npairs"]
+    ky, j = q // lp, 2 * (q % lp)
+    off = torch.where(live, ky * sf + j, torch.zeros_like(q))
+    pad_hi = live & (j + 1 == L)
+    # the weight in pair order: row (q, e) is weight row ky·L + j + e, or zero
+    wrow = ky[:, None] * L + j[:, None] + torch.arange(2)[None]
+    wok = live[:, None] & (j[:, None] + torch.arange(2)[None] < L)
+    wk = torch.cat([w.reshape(k * k * C, N), torch.zeros((1, N))])
+    Bm = wk[torch.where(wok, wrow, torch.full_like(wrow, k * k * C))].reshape(2 * npp, N)
+    A_rows, dst = [], []
+    rows_per_run = -(-Ho // runs)
+    ring_len = nslot * sf
+    for b in range(B):
+        xb = x[b].reshape(H, W * C)
+        for oy0 in range(0, Ho, rows_per_run):
+            oy1 = min(Ho, oy0 + rows_per_run)
+            iy_base = oy0 * s - p
+            for ox_base in range(0, Wo, TW):
+                f0 = (ox_base * s - p) * C
+                fbase = f0 - f0 % 4
+                lead = f0 - fbase
+                lo = min(max(0, -fbase), sf)
+                hi = max(lo, min(W * C - fbase, sf))
+                ring = torch.zeros(ring_len)
+
+                def load(r0, n):
+                    for r in range(r0, r0 + n):
+                        iy, sl = iy_base + r, (r % nslot) * sf
+                        ring[sl + lo:sl + hi] = (xb[iy, fbase + lo:fbase + hi]
+                                                 if 0 <= iy < H else 0.0)
+
+                step_in = (rows - 1) * s + k
+                load(0, step_in)
+                slot0 = 0
+                for oy in range(oy0, oy1, rows):
+                    if oy + rows < oy1:
+                        load((oy - oy0) * s + step_in, rows * s)
+                    for ri in range(min(rows, oy1 - oy)):
+                        rs = slot0 + ri * s
+                        rs -= nslot if rs >= nslot else 0
+                        o = off + rs * sf
+                        o = torch.where(o >= ring_len, o - ring_len, o)
+                        for ox0 in range(ox_base, min(ox_base + TW, Wo), 16):
+                            ox = torch.arange(ox0, ox0 + 16)
+                            px = lead + (ox.clamp(max=Wo - 1) - ox_base) * s * C
+                            a = torch.stack([ring[o[None] + px[:, None]],
+                                             ring[o[None] + px[:, None] + 1]], -1)
+                            a[:, :, 1][:, pad_hi] = 0.0
+                            a[:, ~live] = 0.0
+                            keep = ox < Wo
+                            A_rows.append(a.reshape(16, 2 * npp)[keep])
+                            dst.append(((b * Ho + oy + ri) * Wo + ox[keep]))
+                    slot0 += rows * s
+                    slot0 -= nslot if slot0 >= nslot else 0
+    A = torch.cat(A_rows)
+    order = torch.cat(dst)
+    assert sorted(order.tolist()) == list(range(B * Ho * Wo))   # every pixel once
+    if bf16:
+        acc = (A.to(torch.bfloat16).double() @ Bm.to(torch.bfloat16).double()).float()
+    else:
+        ah, al = split_tf32(A)
+        bh, bl = split_tf32(Bm)
+        small = torch.zeros((A.shape[0], N))
+        big = torch.zeros((A.shape[0], N))
+        for ks in range(P["ksteps"]):
+            cols = slice(2 * P["pstep"] * ks, 2 * P["pstep"] * (ks + 1))
+            small = small + al[:, cols] @ bh[cols]
+            small = small + ah[:, cols] @ bl[cols]
+            big = big + ah[:, cols] @ bh[cols]
+        acc = small + big
+    y = torch.nn.functional.silu(acc * scale + bias)
+    out = torch.empty((B * Ho * Wo, N))
+    out[order] = y
+    out = out.reshape(B, Ho, Wo, N)
+    return out.to(torch.bfloat16) if bf16 else out
+
+
+DIRECT_SHAPES = [(2,) + c for c in CASES] + [
+    (2, 30, 150, 6, 2, 2, 1, 64), (2, 30, 150, 6, 2, 2, 2, 64), (2, 30, 150, 6, 2, 2, 4, 64),
+    (1, 16, 1300, 6, 2, 2, 3, 64)]              # C 1 / 2 / 4 across a window edge; wider than 720
+
+
+@pytest.mark.parametrize("bf16", [True, False], ids=["bf16", "f32"])
+@pytest.mark.parametrize("B,H,W,K,s,p,C,N", DIRECT_SHAPES)
+def test_stem_direct_operands_reproduce_plain(rng, B, H, W, K, s, p, C, N, bf16):
+    """The direct kernel's operands and data flow — its K-pair table, its
+    64-column windows with their halo and the zero padding at a window's and
+    the image's edges, its ring of raw rows, and bf16 operands or split-TF32
+    products — give the plain stem within one bf16 ulp (bf16) or 1e-5
+    (f32).  Two runs of output rows: the second starts mid-image."""
+    x = rng.standard_normal((B, H, W, C)).astype(np.float32)
+    w = (rng.standard_normal((K, K, C, N)) * 0.1).astype(np.float32)
+    scale = rng.uniform(0.5, 1.5, N).astype(np.float32)
+    bias = (rng.standard_normal(N) * 0.1).astype(np.float32)
+    xt, wt, st, bt = map(torch.from_numpy, (x, w, scale, bias))
+    od = torch.bfloat16 if bf16 else torch.float32
+    plain = stem_conv_plain(xt, wt, st, bt, stride=s, padding=p, out_dtype=od).float()
+    got = _direct_emulate(xt, wt, st, bt, K, s, p, bf16, runs=2).float()
+    if bf16:
+        np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=2 ** -7, atol=1e-6)
+    else:
+        np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("rows", [1, 2])
+def test_stem_direct_shallow_ring_and_odd_segments(rng, rows):
+    """The ring at 1 and 2 output rows a step (plans where shared memory is
+    short), with k·C odd (3x3/s3 over 3 channels: each segment's last pair
+    padded) and an odd s·C, where the kernel reads each pair as two floats."""
+    x = torch.from_numpy(rng.standard_normal((1, 33, 200, 3)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((3, 3, 3, 16)) * 0.2).astype(np.float32))
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, 16).astype(np.float32))
+    bias = torch.from_numpy((rng.standard_normal(16) * 0.1).astype(np.float32))
+    for bf16, od in ((True, torch.bfloat16), (False, torch.float32)):
+        plain = stem_conv_plain(x, w, scale, bias, stride=3, padding=1, out_dtype=od).float()
+        got = _direct_emulate(x, w, scale, bias, 3, 3, 1, bf16, rows=rows, runs=3).float()
+        tol = dict(rtol=2 ** -7, atol=1e-6) if bf16 else dict(rtol=0, atol=1e-5)
+        np.testing.assert_allclose(got.numpy(), plain.numpy(), **tol)
+
+
+def _old_direct_smem(W, C, k, s, N):
+    """The shared bytes the earlier direct kernel (f32 FMAs) needed: the whole f32
+    weight and a 4 x 64 tile's input window."""
+    return 4 * (k * k * C * N + (3 * s + k) * (63 * s + k) * C)
+
+
+def test_stem_direct_plan_fits_every_shape_the_old_kernel_took():
+    """Over the family (C 1–4, s 2–16, k a multiple of s up to 64, N 8–256)
+    every shape the old direct kernel could launch has a plan here: the
+    smallest, N tile 8 at one output row a step, fits in 227 KB, with
+    split-TF32 weights staged whole where their split does not (k >= 54 at
+    C 1: the kernel's last form)."""
+    limit = kernels.constants("stem")["SMEM_LIMIT"]
+    fits = whole = 0
+    for C in range(1, 5):
+        for s in range(2, 17):
+            for k in range(s, 65, s):
+                for N in (8, 16, 64, 80, 256):
+                    if _old_direct_smem(640, C, k, s, N) > limit:
+                        continue
+                    for bf16 in (True, False):
+                        P = _direct_plan(64, 640, C, k, s, 0, N, bf16, 1)
+                        smallest = P["smem"](8, 2)     # bf16, or split TF32 from whole weights
+                        assert smallest <= limit, (C, s, k, N, bf16, smallest)
+                        fits += 1
+                        whole += not bf16 and P["smem"](8, 4) > limit
+    assert fits > 200 and whole > 0

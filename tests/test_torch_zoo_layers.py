@@ -170,6 +170,27 @@ FAMILIES = {
         [[-1, 1, "Conv", [128, 1, 1]], [-1, 1, "nn.Upsample", [None, 2, "nearest"]],
          [[-1, 2], 1, "Concat", [1]], [-1, 1, "C3", [128, False]],
          [[9, 5], 1, "Detect", ["nc", "anchors"]]]),
+    # yolov5x6 (v6.0 models/hub/yolov5x6.yaml) row for row: P3-P6, the 6x6
+    # stem, SPPF, four Detect inputs; at a small width and depth, 128 px
+    "x6": dict(legacy(
+        [[-1, 1, "Conv", [64, 6, 2, 2]], [-1, 1, "Conv", [128, 3, 2]], [-1, 3, "C3", [128]],
+         [-1, 1, "Conv", [256, 3, 2]], [-1, 6, "C3", [256]], [-1, 1, "Conv", [512, 3, 2]],
+         [-1, 9, "C3", [512]], [-1, 1, "Conv", [768, 3, 2]], [-1, 3, "C3", [768]],
+         [-1, 1, "Conv", [1024, 3, 2]], [-1, 3, "C3", [1024]], [-1, 1, "SPPF", [1024, 5]]],
+        [[-1, 1, "Conv", [768, 1, 1]], [-1, 1, "nn.Upsample", [None, 2, "nearest"]],
+         [[-1, 8], 1, "Concat", [1]], [-1, 3, "C3", [768, False]],
+         [-1, 1, "Conv", [512, 1, 1]], [-1, 1, "nn.Upsample", [None, 2, "nearest"]],
+         [[-1, 6], 1, "Concat", [1]], [-1, 3, "C3", [512, False]],
+         [-1, 1, "Conv", [256, 1, 1]], [-1, 1, "nn.Upsample", [None, 2, "nearest"]],
+         [[-1, 4], 1, "Concat", [1]], [-1, 3, "C3", [256, False]],
+         [-1, 1, "Conv", [256, 3, 2]], [[-1, 20], 1, "Concat", [1]],
+         [-1, 3, "C3", [512, False]], [-1, 1, "Conv", [512, 3, 2]],
+         [[-1, 16], 1, "Concat", [1]], [-1, 3, "C3", [768, False]],
+         [-1, 1, "Conv", [768, 3, 2]], [[-1, 12], 1, "Concat", [1]],
+         [-1, 3, "C3", [1024, False]], [[23, 26, 29, 32], 1, "Detect", ["nc", "anchors"]]],
+        gw=0.125, gd=0.33), anchors=[[19, 27, 44, 40, 38, 94], [96, 68, 86, 152, 180, 137],
+                                     [140, 301, 303, 264, 238, 542],
+                                     [436, 615, 739, 380, 925, 792]]),
     # the rest of the zoo in one trunk: MixConv2d, CrossConv, Contract,
     # Expand, C3SPP, GhostBottleneck at stride 2, a repeated row
     "mix": legacy(
@@ -183,10 +204,15 @@ FAMILIES = {
 }
 
 
+# input size by family (64 px else): the P6 family needs 128 for a 2 x 2 P6 map
+SIZES = {"x6": 128}
+
+
 @pytest.mark.parametrize("family", list(FAMILIES))
 def test_hub_family_model_matches_jax(family):
     cfg = FAMILIES[family]
-    x = np.random.default_rng(1).uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)
+    size = SIZES.get(family, 64)
+    x = np.random.default_rng(1).uniform(0, 1, (2, size, size, 3)).astype(np.float32)
     jm = JaxModel.from_cfg(cfg, "hyp-nuclei")
     # eager init (the MixConv2d split needs concrete values)
     tree = jm.init(jax.random.PRNGKey(0), jnp.asarray(x), train=False)

@@ -8,6 +8,13 @@ numbers.
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+# Two intra-op threads a process.  The suite runs six pytest-xdist workers on
+# the CPU, each importing this module when it collects the tests; at torch's
+# default of one OpenMP thread a core their pools oversubscribe the cores, and
+# the port's files took about three times as long.
+torch.set_num_threads(2)
 
 
 def random_variables(model, x_shape, seed: int = 0, obj_bias: float = 0.0, no: int = 9):
